@@ -1,0 +1,67 @@
+"""Build the port's configuration objects from the reference package's.
+
+A simulator has no weights: its state is its configuration. These helpers
+take ``dataclasses.asdict`` of the reference package's ``HardwareConfig`` /
+``Workload`` (enums as their values or as str-enum members) and build the
+port's equal objects, so one configuration drives both packages. Index
+traces are numpy arrays in both packages and pass as they are.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from .core.hardware import (
+    Dataflow,
+    HardwareConfig,
+    LookupSharding,
+    MatrixUnit,
+    OffChipMemory,
+    OnChipMemory,
+    OnChipPolicy,
+    Topology,
+    TranslationConfig,
+    VectorUnit,
+)
+from .core.workload import EmbeddingOpSpec, MatrixOpSpec, VectorOp, Workload
+
+
+def _value(x):
+    return getattr(x, "value", x)
+
+
+def hardware_from_dict(d: Dict[str, Any]) -> HardwareConfig:
+    """``HardwareConfig`` from ``dataclasses.asdict`` of an equal config."""
+    mu = dict(d["matrix_unit"], dataflow=Dataflow(_value(d["matrix_unit"]["dataflow"])))
+    oc = dict(d["onchip"], policy=OnChipPolicy(_value(d["onchip"]["policy"])))
+    if oc.get("policy_mix") is not None:
+        oc["policy_mix"] = tuple((int(t), str(_value(p))) for t, p in oc["policy_mix"])
+    tr = d.get("translation")
+    return HardwareConfig(
+        name=d["name"],
+        clock_ghz=d["clock_ghz"],
+        num_cores=d["num_cores"],
+        topology=Topology(_value(d["topology"])),
+        lookup_sharding=LookupSharding(_value(d["lookup_sharding"])),
+        matrix_unit=MatrixUnit(**mu),
+        vector_unit=VectorUnit(**d["vector_unit"]),
+        onchip=OnChipMemory(**oc),
+        offchip=OffChipMemory(**d["offchip"]),
+        channel_affinity=d["channel_affinity"],
+        placement=d["placement"],
+        cache_backend=d["cache_backend"],
+        translation=None if tr is None else TranslationConfig(**tr),
+    )
+
+
+def workload_from_dict(d: Dict[str, Any]) -> Workload:
+    """``Workload`` from ``dataclasses.asdict`` of an equal workload."""
+    return Workload(
+        name=d["name"],
+        matrix_ops=tuple(MatrixOpSpec(**op) for op in d["matrix_ops"]),
+        embedding_ops=tuple(
+            EmbeddingOpSpec(**dict(op, vector_op=VectorOp(_value(op["vector_op"]))))
+            for op in d["embedding_ops"]
+        ),
+        batch_size=d["batch_size"],
+        num_batches=d["num_batches"],
+    )

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the port, each beside its plain torch version.
+
+| Kernel | Wrapper | Replaces (JAX package) |
+| --- | --- | --- |
+| K1 cache scan | ``cache_scan.cache_scan_groups`` | ``kernels/cache_scan.py:_cache_scan_kernel`` |
+| K2 stack distance | ``stack_distance.stack_distance_groups`` | ``kernels/stack_distance.py:_stack_distance_kernel`` |
+| D1 DRAM event scan | ``dram_scan.dram_scan_chunked`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_chunked`` |
+
+Each wrapper counts its launches in a ``launches`` attribute, incremented
+only where it launches its CUDA kernel.
+"""
+from typing import Dict
+
+from .cache_scan import cache_scan_groups
+from .dram_scan import dram_scan_chunked
+from .stack_distance import stack_distance_groups
+
+KERNELS = {
+    "cache_scan": cache_scan_groups,
+    "stack_distance": stack_distance_groups,
+    "dram_scan": dram_scan_chunked,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,133 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each source in ``csrc/`` is a self-contained ``.cu`` file with a plain C
+launch function, compiled for ``sm_90a`` into its own shared library. All
+libraries are built together (one ``nvcc`` per source, started at once) at
+the first launch of any kernel, into ``build/kernels/`` at the repository
+root, named by a hash of the source and flags so an unchanged source is
+never rebuilt. Nothing here runs at import time, so the package imports on
+machines without ``nvcc`` or a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# latency_probe holds no kernel of the port: chip_smoke.py times its chains
+# for the kernels' latency bounds.
+SOURCES = ("cache_scan", "stack_distance", "dram_scan", "latency_probe")
+# -fmad=false keeps every f32 add of the DRAM scan an add (no contraction),
+# which its bitwise equality with the reference relies on.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the port's CUDA kernels cannot be built"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel library that is not built yet, in parallel.
+
+    Returns ``{name: library path}``. Raises ``RuntimeError`` with the
+    compiler's output when a source fails to build. The compiler's report
+    (registers, shared memory, spills) is kept beside each library as
+    ``<library>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = {name: p for name, p in paths.items() if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failures = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        out = todo[name]
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("nvcc failed to build " + "\n".join(failures))
+    return paths
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, building all kernels if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = build_all()[name]
+        lib = _loaded[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def check_rows(name: str, sets, tags, valid) -> None:
+    """Validate the ``(B, L)`` row inputs of the cache kernels."""
+    if sets.dim() != 2 or sets.shape != tags.shape or sets.shape != valid.shape:
+        raise ValueError(
+            f"{name}: sets, tags and valid must share one (B, L) shape; got "
+            f"{tuple(sets.shape)}, {tuple(tags.shape)}, {tuple(valid.shape)}")
+    check_tensors(name, (sets, torch.int32), (tags, torch.int32), (valid, torch.bool))
+
+
+def check_tensors(name: str, *pairs) -> None:
+    """Each ``(tensor, dtype)`` pair: that dtype, contiguous, one device.
+
+    CUDA tensors must lie on device 0, where the kernel libraries launch.
+    """
+    dev = pairs[0][0].device
+    for t, dtype in pairs:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if dev.type == "cuda" and dev.index not in (None, 0):
+        raise ValueError(f"{name}: the kernels launch on cuda:0, got {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if a C launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")

@@ -1,0 +1,197 @@
+"""K1 (cache scan) and K2 (stack distance) plain versions in the PyTorch port,
+held bitwise against the JAX package.
+
+The JAX package's Pallas K1/K2 cannot run on the installed jax (``pl.load`` /
+``pl.store`` are gone from ``jax.experimental.pallas``), so the references
+here are the parts of the JAX package that do run: the ``lax.scan`` engine
+``repro.core.memory.cache._simulate_many``, the ChampSim-semantics
+``GoldenCache``, and the numpy stack-distance pass
+``repro.core.memory.stack.stack_distances_np``.
+"""
+import numpy as np
+import pytest
+import torch
+from _hypothesis_compat import given, settings, st
+
+from repro.core.memory import cache as rcache
+from repro.core.memory import stack as rstack
+from repro.core.memory.golden import GoldenCache
+from repro_torch.core.memory import cache as tcache
+from repro_torch.core.memory import stack as tstack
+from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
+from repro_torch.kernels.stack_distance import stack_distance_groups
+
+POLICIES = ["lru", "srrip", "fifo"]
+# The issue's edge geometries plus those of tests/test_cache_pallas.py.
+EDGE = [(1, 1), (1, 4), (3, 2), (7, 5), (16, 7), (16, 16), (4, 32), (2, 33), (2, 64)]
+PALLAS_TEST_GEOMS = [(1, 1, 6), (1, 4, 30), (3, 2, 50), (7, 5, 200), (32, 16, 4000)]
+CPU = torch.device("cpu")
+
+
+def _rows(rng, B, L, S, W, pad_from):
+    sets = rng.integers(0, S, size=(B, L)).astype(np.int32)
+    tags = rng.integers(0, S * W * 2 + 1, size=(B, L)).astype(np.int32)
+    valid = rng.random((B, L)) < 0.9
+    valid[:, pad_from:] = False
+    return sets, tags, valid
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("engine", ["k1_wrapper", "k1_plain"])
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("sets,ways", [(1, 1), (3, 2), (7, 5), (2, 33)])
+def test_cache_scan_plain_equals_jax_scan_engine(engine, policy, sets, ways):
+    """K1's wrapper on CPU tensors and its plain version (also the port's
+    ``scan`` backend), on the padded ``(B, L)`` rows one launch receives,
+    vs the JAX scan engine."""
+    rng = np.random.default_rng(sets * 100 + ways)
+    s, t, v = _rows(rng, 3, 128, sets, ways, pad_from=100)
+    run = cache_scan_groups if engine == "k1_wrapper" else cache_scan_plain
+    h, e = run(*_t(s, t, v), sets, ways, policy)
+    rh, re_ = rcache._simulate_many(s, t, v, sets, ways, policy)
+    np.testing.assert_array_equal(h.numpy(), np.asarray(rh))
+    np.testing.assert_array_equal(e.numpy(), np.asarray(re_))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("sets,ways", EDGE)
+def test_cache_scan_plain_equals_golden_on_edge_geometries(policy, sets, ways):
+    """One row per (sets, ways), no padding: the row IS a whole cache."""
+    rng = np.random.default_rng(7 * sets + ways)
+    lines = rng.integers(0, sets * ways * 3 + 1, size=200)
+    s = (lines % sets).astype(np.int32)[None, :]
+    t = lines.astype(np.int32)[None, :]
+    v = np.ones_like(s, dtype=bool)
+    h, e = cache_scan_groups(*_t(s, t, v), sets, ways, policy)
+    gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), policy)
+    np.testing.assert_array_equal(h.numpy()[0], gold.run(lines))
+    assert int(e.sum()) == gold.num_evictions
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("sets,ways,space", PALLAS_TEST_GEOMS)
+def test_port_pallas_backend_equals_golden(policy, sets, ways, space):
+    rng = np.random.default_rng(0)
+    lines = rng.integers(0, space, size=300)
+    geom = tcache.CacheGeometry(num_sets=sets, ways=ways, line_bytes=64)
+    ours = tcache.simulate_cache(lines, geom, policy, backend="pallas", device="cpu")
+    gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), policy)
+    np.testing.assert_array_equal(ours.hits, gold.run(lines))
+    assert (ours.num_hits, ours.num_misses, ours.num_evictions) == (
+        gold.num_hits, gold.num_misses, gold.num_evictions)
+
+
+@settings(max_examples=15, deadline=None)
+@given(
+    policy=st.sampled_from(POLICIES),
+    sets=st.sampled_from([1, 2, 3, 5, 8, 33]),
+    ways=st.sampled_from([1, 2, 4, 7]),
+    n=st.integers(20, 150),
+    space=st.integers(4, 600),
+    seed=st.integers(0, 2**31 - 1),
+)
+def test_port_pallas_backend_property(policy, sets, ways, n, space, seed):
+    lines = np.random.default_rng(seed).integers(0, space, size=n)
+    geom = tcache.CacheGeometry(num_sets=sets, ways=ways, line_bytes=64)
+    ours = tcache.simulate_cache(lines, geom, policy, backend="pallas", device="cpu")
+    gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), policy)
+    np.testing.assert_array_equal(ours.hits, gold.run(lines))
+    assert ours.num_evictions == gold.num_evictions
+
+
+@pytest.mark.parametrize("sets,ways", EDGE)
+def test_stack_distance_plain_equals_numpy_stack_pass(sets, ways):
+    """K2's capped distance is min(stack distance, ways); cold = ways."""
+    rng = np.random.default_rng(11 * sets + ways)
+    lines = rng.integers(0, sets * ways * 3 + 1, size=250)
+    s = (lines % sets).astype(np.int32)[None, :]
+    t = lines.astype(np.int32)[None, :]
+    v = np.ones_like(s, dtype=bool)
+    d, e = stack_distance_groups(*_t(s, t, v), sets, ways)
+    dist, distinct_before = rstack.stack_distances_np(lines, sets)
+    np.testing.assert_array_equal(d.numpy()[0], np.minimum(dist, ways))
+    miss = dist >= ways
+    np.testing.assert_array_equal(e.numpy()[0], miss & (distinct_before >= ways))
+    gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), "lru")
+    np.testing.assert_array_equal(d.numpy()[0] < ways, gold.run(lines))
+
+
+def test_stack_distance_plain_padding_reports_ways_and_no_evict():
+    rng = np.random.default_rng(3)
+    s, t, v = _rows(rng, 4, 96, 3, 2, pad_from=60)
+    d, e = stack_distance_groups(*_t(s, t, v), 3, 2)
+    assert (d.numpy()[~v] == 2).all() and not e.numpy()[~v].any()
+    h, _ = rcache._simulate_many(s, t, v, 3, 2, "lru")
+    np.testing.assert_array_equal(d.numpy() < 2, np.asarray(h))
+
+
+@pytest.mark.parametrize("backend", ["scan", "pallas", "stack", "stack_pallas"])
+@pytest.mark.parametrize("sets,ways,space", [(40, 4, 3000), (16, 16, 900), (85, 3, 5000)])
+def test_port_lru_backends_equal_jax_scan_through_set_groups(backend, sets, ways, space):
+    """Geometries above 16 sets split into set groups and length buckets."""
+    rng = np.random.default_rng(sets)
+    lines = rng.integers(0, space, size=1500)
+    rgeom = rcache.CacheGeometry(sets, ways, 64)
+    ref = rcache.simulate_cache(lines, rgeom, "lru", backend="scan")
+    ours = tcache.simulate_cache(lines, tcache.CacheGeometry(sets, ways, 64), "lru",
+                                 backend=backend, device="cpu")
+    np.testing.assert_array_equal(ours.hits, ref.hits)
+    assert ours.num_evictions == ref.num_evictions
+
+
+@pytest.mark.parametrize("policy", ["srrip", "fifo"])
+def test_port_srrip_fifo_equal_jax_scan_through_set_groups(policy):
+    rng = np.random.default_rng(5)
+    lines = rng.integers(0, 4000, size=1500)
+    ref = rcache.simulate_cache(lines, rcache.CacheGeometry(40, 4, 64), policy, backend="scan")
+    geom = tcache.CacheGeometry(40, 4, 64)
+    for backend in ("scan", "pallas"):
+        ours = tcache.simulate_cache(lines, geom, policy, backend=backend, device="cpu")
+        np.testing.assert_array_equal(ours.hits, ref.hits)
+        assert ours.num_evictions == ref.num_evictions
+
+
+@pytest.mark.parametrize("policy", ["srrip", "fifo"])
+@pytest.mark.parametrize("backend", ["stack", "stack_pallas"])
+def test_srrip_fifo_stack_backend_not_ported_yet(policy, backend):
+    geom = tcache.CacheGeometry(4, 2, 64)
+    with pytest.raises(NotImplementedError, match="rrip.py"):
+        tcache.simulate_cache(np.arange(10), geom, policy, backend=backend, device="cpu")
+
+
+@pytest.mark.parametrize("n,space,sets", [(1, 5, 1), (300, 50, 3), (5000, 2000, 16), (20000, 3000, 33)])
+def test_torch_stack_pass_equals_numpy_twin(n, space, sets):
+    lines = np.random.default_rng(n).integers(0, space, size=n)
+    want = rstack.stack_distances_np(lines, sets)
+    got = tstack.stack_distances_torch(lines, sets, CPU)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tstack.stack_distances_np(lines, sets), want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_classify_lru_stack_many_equals_reference():
+    rng = np.random.default_rng(2)
+    lines = rng.integers(0, 5000, size=4000)
+    geoms = [(8, 4), (8, 16), (32, 2), (1, 64)]
+    ref = rstack.classify_lru_stack_many(
+        [lines] * len(geoms), [rcache.CacheGeometry(s, w, 64) for s, w in geoms], engine="np")
+    ours = tstack.classify_lru_stack_many(
+        [lines] * len(geoms), [tcache.CacheGeometry(s, w, 64) for s, w in geoms], CPU)
+    for (h1, e1), (h2, e2) in zip(ours, ref):
+        np.testing.assert_array_equal(h1, h2)
+        assert e1 == e2
+
+
+def test_cache_wrappers_validate_inputs():
+    s = torch.zeros((2, 8), dtype=torch.int32)
+    v = torch.ones((2, 8), dtype=torch.bool)
+    with pytest.raises(TypeError, match="int32"):
+        cache_scan_groups(s.long(), s, v, 1, 1, "lru")
+    with pytest.raises(ValueError, match="shape"):
+        stack_distance_groups(s, s[:, :4], v, 1, 1)
+    with pytest.raises(ValueError, match="unknown policy"):
+        cache_scan_groups(s, s, v, 1, 1, "lfu")
