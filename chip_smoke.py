@@ -14,16 +14,27 @@ passed over):
      version on the card: K1 cache scan and K2 stack distance on the
      full-size set-group buckets that ``simulate`` produces and on edge
      geometries, D1 DRAM scan on the full-size chunk rows, bitwise; kernel
-     and plain times;
+     and plain times. Then the full-width DLRM-RMC2 model (60 x 1M x 128
+     f32 table, filled on the card) and the embedding kernels K3 bag, K4
+     gather and K5 hot-pinned pool on the inputs its first request gives
+     them, against their plain versions (bitwise; allclose where K5's hot
+     table spans several tiles) and at edge shapes; kernel, plain and
+     library-call times with the L2 cache flushed before each launch;
   4. ``simulate`` on the full DLRM-RMC2 workload (60 tables x 1M rows x dim
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
      policy/backend pair of the slice, with launch counts reset just before
      and read just after each run; results bitwise equal across backends of
      one policy; one more K1 run under ``torch.profiler`` for the device's
      busy share; small runs on the card equal to the same runs on the CPU;
-  5. each kernel's bound: the largest of its bytes over the HBM rate, its
-     operations over the peak scalar rate, and its longest chain of
-     dependent steps times the probed step latency.
+  6. the full-width DLRM-RMC2 forward: 4 requests of 32 from
+     ``dlrm_batch`` (zipf 1.10), each through the plain path (K3) and the
+     hot-pinned path (K5 + K4, the request's own top-256 rows pinned), with
+     launch counts reset just before and read just after each forward; the
+     two paths agree to 1e-4; a small model on the card equals the same
+     model on the CPU; one pinned forward under ``torch.profiler``;
+  5. (printed last) each kernel's bound: the largest of its bytes over the
+     HBM rate, its operations over the peak scalar rate, and its longest
+     chain of dependent steps times the probed step latency.
 
 Then it prints the ``nvidia-smi`` name/power line, one ``{"kernels": ...}``
 JSON line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
@@ -73,7 +84,16 @@ KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
     "stack_distance": ("src/repro_torch/csrc/stack_distance.cu", "src/repro/kernels/stack_distance.py:31"),
     "dram_scan": ("src/repro_torch/csrc/dram_scan.cu", "src/repro/core/memory/dram.py:315"),
+    "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag.py:36"),
+    "embedding_gather": ("src/repro_torch/csrc/embedding_bag.cu",
+                         "src/repro/kernels/embedding_bag.py:83"),
+    "vmem_gather_pool": ("src/repro_torch/csrc/embedding_bag.cu",
+                         "src/repro/kernels/embedding_bag.py:113"),
 }
+# Hot rows pinned on the DLRM path (examples/dlrm_serve.py pins 256).
+N_HOT = 256
+DLRM_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -103,6 +123,44 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_cold_ms(fn, reps: int, flush) -> float:
+    """Mean device ms of ``fn()`` with the L2 cache flushed (``flush``
+    overwrites a buffer larger than it) before each of ``reps`` runs, after
+    one warm-up."""
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def device_busy(events, wall: float) -> str:
+    """Busy share of the card from a profiler's events: device events
+    (kernels, copies, fills) merged into busy intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return "device busy not measured (the profiler recorded no device events)"
+    busy_us, end, by_name = 0.0, -math.inf, {}
+    for a, b, name in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"device busy {busy_us / 1e6!r} s ({100 * busy_us / 1e6 / wall!r}% busy) over "
+            f"{len(spans)} device events; top device time (us): "
+            f"{json.dumps([[n[:60], round(t, 3)] for n, t in top])}")
+
+
 def probe_step_ms(launch, inp, out, want) -> float:
     """Device ms per step of a latency probe: two chain lengths, timed with
     CUDA events, differenced (launch overhead cancels)."""
@@ -128,7 +186,17 @@ def max_abs_err(a, b) -> float:
 def bitwise_equal(a, b) -> bool:
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
+
+
+def hot_ids_of(sparse: np.ndarray, rows_per_table: int, n_hot: int) -> np.ndarray:
+    """The ``n_hot`` most looked-up global row ids of a batch, sorted (the
+    paper's Profiling policy, as examples/dlrm_serve.py profiles them)."""
+    glob = (np.arange(sparse.shape[1])[None, :, None] * rows_per_table + sparse).reshape(-1)
+    uniq, counts = np.unique(glob, return_counts=True)
+    return np.sort(uniq[np.argsort(-counts)][:n_hot]).astype(np.int64)
 
 
 def main() -> None:
@@ -146,6 +214,15 @@ def main() -> None:
     from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
     from repro_torch.kernels.dram_scan import dram_scan_chunked, dram_scan_plain
     from repro_torch.kernels.stack_distance import stack_distance_groups, stack_distance_plain
+    from repro_torch.kernels import ops as emb_ops
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_kernel, embedding_bag_plain, embedding_gather_kernel,
+        embedding_gather_plain, vmem_gather_pool_kernel, vmem_gather_pool_plain, vmem_tile_rows)
+    from repro_torch.convert import dlrm_params_from_jax
+    from repro_torch.core.trace import REUSE_LEVELS
+    from repro_torch.data import DLRMDataConfig, dlrm_batch
+    from repro_torch.models import DLRM, DLRMConfig, smoke_config
+    import torch.nn.functional as F
 
     if any(m == "jax" or m.startswith(("jax.", "repro.")) or m == "repro" for m in sys.modules):
         fail("the port imported JAX or the JAX package")
@@ -321,6 +398,148 @@ def main() -> None:
         fail("dram_scan differs bitwise from its plain version on the ragged input")
     print("[3] dram_scan: bitwise equal to plain on a ragged (5, 96) input", flush=True)
 
+    # K3, K4, K5 on the inputs the DLRM path gives them: the full-width
+    # DLRM-RMC2 table (filled on the card, freed at the end of this phase and
+    # built again, from the same seed, in phase 6) and request 0's lookups.
+    cfg = DLRMConfig()
+    R, D, L = cfg.rows_per_table, cfg.dim, cfg.lookups_per_table
+    dcfg = DLRMDataConfig(cfg.num_tables, R, L, batch_size=32,
+                          zipf_s=REUSE_LEVELS["reuse_high"])
+
+    def build_dlrm():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = DLRM(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t0
+
+    model, init_s = build_dlrm()
+    table = model.tables
+    print(f"[3] DLRM-RMC2 at full width: table {tuple(table.shape)} {table.dtype}, "
+          f"{table.numel() * table.element_size()} B, filled on the card in {init_s:.3f} s",
+          flush=True)
+    batch0 = dlrm_batch(dcfg, 0)
+    hot_ids = hot_ids_of(batch0["sparse"], R, N_HOT)
+    pos0, mask0 = emb_ops.split_hot_cold(batch0["sparse"], hot_ids, R)
+    B, T = batch0["sparse"].shape[:2]
+    flat0 = (torch.from_numpy(batch0["sparse"]).to(dev)
+             + torch.arange(T, dtype=torch.int32, device=dev)[None, :, None] * R).contiguous()
+    pos_d, mask_d = torch.from_numpy(pos0).to(dev), torch.from_numpy(mask0).to(dev)
+    hot_table = emb_ops.embedding_gather(table, torch.from_numpy(hot_ids).to(dev))
+    cold0 = flat0.masked_fill(mask_d == 1, 0).reshape(-1)
+    N = flat0.numel()
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)     # > the 50 MB L2
+
+    def check_embedding(label, kernel, plain, library, args, exact, tol, reps=20):
+        """Kernel against its plain version (bitwise, or allclose at ``tol``)
+        and the library call against the plain version (allclose at
+        ``tol``); returns (max abs err, kernel, plain, library ms)."""
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        same = bitwise_equal(got, want) if exact else torch.allclose(
+            got.float(), want.float(), atol=tol, rtol=tol)
+        err = max_abs_err(got, want)
+        if not same:
+            fail(f"{label} differs from its plain version (max abs err {err!r})")
+        lib = library().reshape(want.shape).float()
+        if not torch.allclose(lib, want.float(), atol=tol, rtol=tol):
+            fail(f"{label}: the library call does not compute the kernel's function")
+        k_ms = time_cold_ms(lambda: kernel(*args), reps, flush)
+        p_ms = time_cold_ms(lambda: plain(*args), 3, flush)
+        l_ms = time_cold_ms(library, reps, flush)
+        print(f"[3] {label}: {'bitwise equal' if exact else f'allclose ({tol})'} to plain, "
+              f"max abs err {err!r}; kernel {k_ms!r} ms, plain {p_ms!r} ms, library "
+              f"{l_ms!r} ms (L2 flushed before each launch)", flush=True)
+        return err, k_ms, p_ms, l_ms
+
+    def offsets(n, length):
+        return torch.arange(0, n, max(length, 1), device=dev)
+
+    if vmem_tile_rows(D * table.element_size()) < N_HOT:
+        fail(f"the main path's hot table ({N_HOT} x {D}) does not fit one K5 tile")
+    flat_l, cold_l, pos_l = flat0.reshape(-1).long(), cold0.long(), pos_d.reshape(-1).long()
+    w_hot = mask_d.reshape(-1).to(hot_table.dtype)
+    e3 = check_embedding(
+        f"embedding_bag (B, T, L, D)={(B, T, L, D)} f32", embedding_bag_kernel,
+        embedding_bag_plain, lambda: F.embedding_bag(flat_l, table, offsets(N, L), mode="sum"),
+        (table, flat0), True, 1e-5)
+    e4 = check_embedding(
+        f"embedding_gather (N, D)={(N, D)} f32 (the pinned path's cold stream)",
+        embedding_gather_kernel, embedding_gather_plain,
+        lambda: torch.index_select(table, 0, cold_l), (table, cold0), True, 0.0)
+    e5 = check_embedding(
+        f"vmem_gather_pool (H, D)={(N_HOT, D)} (B, T, L)={(B, T, L)} f32, one tile",
+        vmem_gather_pool_kernel, vmem_gather_pool_plain,
+        lambda: F.embedding_bag(pos_l, hot_table, offsets(N, L), mode="sum",
+                                per_sample_weights=w_hot),
+        (hot_table, pos_d, mask_d), True, 1e-5)
+    # 64-bit offsets: the last row of the stacked table (row * D = 7.68e9)
+    # and a row just past 2^31 elements, through K3 and K4.
+    far = torch.tensor([table.shape[0] - 1, 0, (1 << 31) // D + 5, table.shape[0] // 2, -1],
+                       dtype=torch.int32, device=dev)
+    if not (bitwise_equal(embedding_gather_kernel(table, far), embedding_gather_plain(table, far))
+            and bitwise_equal(embedding_bag_kernel(table, far.view(1, 1, -1)),
+                              embedding_bag_plain(table, far.view(1, 1, -1)))):
+        fail("K3/K4 differ from their plain versions at rows past 2^31 elements")
+    print(f"[3] K3/K4 bitwise equal to plain at rows {far.tolist()} (row x D up to "
+          f"{(table.shape[0] - 1) * D})", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rand_table(rows, d, dtype):
+        return torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+
+    def rand_ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    for dtype, d, lx in ((torch.float32, 200, 9), (torch.float32, 128, 1),
+                         (torch.bfloat16, 128, 40), (torch.bfloat16, 200, 7)):
+        tb, ix = rand_table(5000, d, dtype), rand_ints(5000, (32, 8, lx))
+        check_embedding(f"edge embedding_bag D={d} L={lx} {dtype}", embedding_bag_kernel,
+                        embedding_bag_plain,
+                        lambda: F.embedding_bag(ix.reshape(-1).long(), tb,
+                                                offsets(ix.numel(), lx), mode="sum"),
+                        (tb, ix), True, 1e-5 if dtype == torch.float32 else 5e-2, reps=5)
+    for dtype, d in ((torch.float32, 200), (torch.bfloat16, 33)):
+        tb, ix = rand_table(5000, d, dtype), rand_ints(5000, (4096,))
+        check_embedding(f"edge embedding_gather D={d} {dtype}", embedding_gather_kernel,
+                        embedding_gather_plain, lambda: torch.index_select(tb, 0, ix.long()),
+                        (tb, ix), True, 0.0, reps=5)
+    for dtype, h, d, lx in ((torch.float32, 1024, 128, 40), (torch.bfloat16, 1024, 128, 40),
+                            (torch.float32, 37, 200, 9), (torch.float32, 256, 128, 1)):
+        hb, px = rand_table(h, d, dtype), rand_ints(h, (32, 8, lx))
+        mx = rand_ints(2, (32, 8, lx))
+        tiles = -(-h // vmem_tile_rows(d * hb.element_size()))
+        check_embedding(f"edge vmem_gather_pool H={h} D={d} L={lx} {dtype}, {tiles} tile(s)",
+                        vmem_gather_pool_kernel, vmem_gather_pool_plain,
+                        lambda: F.embedding_bag(px.reshape(-1).long(), hb, offsets(px.numel(), lx),
+                                                mode="sum",
+                                                per_sample_weights=mx.reshape(-1).to(dtype)),
+                        (hb, px, mx), tiles == 1, 1e-5 if dtype == torch.float32 else 5e-2,
+                        reps=5)
+
+    # Bound terms. Zipf reuse repeats rows and the L2 serves the repeats, so
+    # the bytes a gather must move are its distinct rows, plus its indices
+    # (and mask) and its output. K5 needs its hot table once: the kernel's
+    # blocks each stage it, but after the first they read it from the L2.
+    itemsize = table.element_size()
+    distinct3 = int(torch.unique(flat0).numel())
+    distinct4 = int(torch.unique(cold0).numel())
+    out_bytes = B * T * D * itemsize
+    for name, e, nbytes, nops, lat, shapes in (
+            ("embedding_bag", e3, distinct3 * D * itemsize + N * 4 + out_bytes, N * D,
+             L * f32_op_ms, [(B, T, L, D)]),
+            ("embedding_gather", e4, distinct4 * D * itemsize + N * 4 + N * D * itemsize, 0, 0.0,
+             [(N, D)]),
+            ("vmem_gather_pool", e5, N_HOT * D * itemsize + 2 * N * 4 + out_bytes,
+             2 * N * D, L * f32_op_ms, [(N_HOT, D), (B, T, L)])):
+        entries[name] = dict(kind=name, err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
+                             nbytes=nbytes, ops=nops, lat_ms=lat, shapes=shapes)
+    print(f"[3] request 0: {N} lookups touch {distinct3} distinct rows ({distinct4} in the "
+          f"pinned path's cold stream, hot lookups sent to row 0)", flush=True)
+    del model, table, hot_table, flush
+    torch.cuda.empty_cache()
+
     # ---- 4. simulate on every policy/backend pair ------------------------
     results, launches = {}, {}
     expect = {"pallas": "cache_scan", "stack_pallas": "stack_distance"}
@@ -363,9 +582,7 @@ def main() -> None:
             fail(f"{policy}: results differ across backends")
     print("[4] results bitwise equal across backends for every policy", flush=True)
 
-    # Device busy share of one run of the K1 path: the profiler's device
-    # events (kernels, copies, fills) merged into busy intervals.
-    from torch.autograd import DeviceType
+    # Device busy share of one run of the K1 path.
     from torch.profiler import ProfilerActivity, profile
     hw_run = tpuv6e().with_policy("lru").with_cache_backend("pallas")
     torch.cuda.synchronize()
@@ -374,23 +591,8 @@ def main() -> None:
         simulate(wl, hw_run)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in tprof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if spans:
-        busy_us, end, by_name = 0.0, -math.inf, {}
-        for a, b, name in spans:
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
-            by_name[name] = by_name.get(name, 0.0) + (b - a)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        print(f"[4] profiled lru/pallas: wall {wall!r} s, device busy {busy_us / 1e6!r} s "
-              f"({100 * busy_us / 1e6 / wall!r}% busy) over {len(spans)} device events; "
-              f"top device time (us): {json.dumps({n[:60]: round(t, 3) for n, t in top})}",
-              flush=True)
-    else:
-        print(f"[4] profiled lru/pallas: wall {wall!r} s, device busy not measured "
-              "(the profiler recorded no device events)", flush=True)
+    print(f"[4] profiled lru/pallas: wall {wall!r} s, {device_busy(tprof.events(), wall)}",
+          flush=True)
 
     small_wl = dlrm_rmc2_small(num_tables=2, rows_per_table=300, batch_size=2, num_batches=2)
     for policy, backend in RUNS:
@@ -401,10 +603,135 @@ def main() -> None:
             fail(f"{policy}/{backend}: small run on the card differs from the CPU")
     print("[4] small runs on the card equal the same runs on the CPU", flush=True)
 
+    # ---- 6. the full-width DLRM-RMC2 forward, plain and hot-pinned -------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = build_dlrm()
+    init_peak = torch.cuda.max_memory_allocated()
+    path_kernels = {"plain": {"embedding_bag": 1},
+                    "pinned": {"vmem_gather_pool": 1, "embedding_gather": 1}}
+    dlrm_launches = dict.fromkeys(K.launch_counts(), 0)
+
+    def request(step):
+        """Host batch prep (the request's batch and its copies to the card),
+        then pinning: the request's own top-N_HOT rows are profiled, split
+        hot/cold and gathered into the hot table. dlrm_batch draws every
+        step's rows under a new permutation, so another request's profile
+        finds (almost) none of them; the share it would find is returned too."""
+        t0 = time.perf_counter()
+        b = dlrm_batch(dcfg, step)
+        dense, sparse = (torch.from_numpy(b[k]).to(dev) for k in ("dense", "sparse"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ids = hot_ids_of(b["sparse"], R, N_HOT)
+        pos, mask = emb_ops.split_hot_cold(b["sparse"], ids, R)
+        hot = emb_ops.embedding_gather(model.tables, torch.from_numpy(ids).to(dev))
+        pinned = {"hot_table": hot, "positions": torch.from_numpy(pos).to(dev),
+                  "mask": torch.from_numpy(mask).to(dev)}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        share0 = float(emb_ops.split_hot_cold(b["sparse"], hot_ids, R)[1].mean())
+        return (dense, sparse, pinned, float(mask.mean()), share0, (t1 - t0) * 1e3,
+                (t2 - t1) * 1e3)
+
+    def forward(dense, sparse, pinned=None):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model(dense, sparse, pinned)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3, K.launch_counts()
+
+    with torch.inference_mode():
+        dense, sparse, pinned = request(0)[:3]
+        forward(dense, sparse)                                  # warm-up
+        forward(dense, sparse, pinned)
+        for step in range(DLRM_STEPS):
+            dense, sparse, pinned, hot_share, share0, prep_ms, pin_ms = request(step)
+            if not hot_share > 0:
+                fail(f"DLRM request {step}: no lookup hits the pinned rows")
+            res = {"plain": forward(dense, sparse), "pinned": forward(dense, sparse, pinned)}
+            for path, (logits, _, counts) in res.items():
+                if counts != {k: path_kernels[path].get(k, 0) for k in counts}:
+                    fail(f"DLRM request {step}, {path} path: launches {counts}; expected "
+                         f"{path_kernels[path]} and no other kernel")
+                for k, n in counts.items():
+                    dlrm_launches[k] += n
+                if logits.shape != (dcfg.batch_size,) or not bool(torch.isfinite(logits).all()):
+                    fail(f"DLRM request {step}, {path} path: logits {tuple(logits.shape)}, "
+                         f"finite {bool(torch.isfinite(logits).all())}")
+            diff = max_abs_err(res["plain"][0], res["pinned"][0])
+            if diff > 1e-4:
+                fail(f"DLRM request {step}: pinned and plain logits differ by {diff!r} > 1e-4")
+            print(f"[6] request {step}: batch prep {prep_ms!r} ms (host), pinning {pin_ms!r} ms "
+                  f"(profile + split on the host, hot-table gather on the card); forward plain "
+                  f"{res['plain'][1]!r} ms, pinned {res['pinned'][1]!r} ms (host clock + "
+                  f"synchronize); pinned vs plain max abs diff {diff!r}; hot share of lookups "
+                  f"{hot_share!r} (under request 0's profile {share0!r}); launches plain "
+                  f"{ {k: n for k, n in res['plain'][2].items() if n} }, pinned "
+                  f"{ {k: n for k, n in res['pinned'][2].items() if n} }", flush=True)
+        print(f"[6] init {init_s!r} s (max_memory_allocated {init_peak} B); "
+              f"max_memory_allocated over the forwards {torch.cuda.max_memory_allocated()} B",
+              flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+            t0 = time.perf_counter()
+            model(dense, sparse, pinned)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[6] profiled pinned forward (request {DLRM_STEPS - 1}): wall {wall!r} s, "
+              f"{device_busy(tprof.events(), wall)}", flush=True)
+    del model, pinned
+    torch.cuda.empty_cache()
+    print(f"[6] full-width model freed: memory_allocated {torch.cuda.memory_allocated()} B",
+          flush=True)
+
+    # A small model on the card against the same model on the CPU, with one
+    # set of weights carried over by the weight converter.
+    scfg = smoke_config()
+    rng = np.random.default_rng(0)
+
+    def mlp(dims, d):
+        layers = []
+        for n_out in dims:
+            layers.append({"w": rng.standard_normal((d, n_out)) / math.sqrt(d),
+                           "b": rng.standard_normal(n_out) * 0.01})
+            d = n_out
+        return layers
+
+    state = dlrm_params_from_jax(
+        {"tables": rng.standard_normal((scfg.num_tables * scfg.rows_per_table, scfg.dim)) * 0.01,
+         "bottom": mlp(scfg.bottom_mlp, scfg.dense_features),
+         "top": mlp(scfg.top_mlp, scfg.interact_dim)}, scfg)
+    sb = dlrm_batch(DLRMDataConfig(scfg.num_tables, scfg.rows_per_table,
+                                   scfg.lookups_per_table, batch_size=16,
+                                   zipf_s=REUSE_LEVELS["reuse_high"]), 0)
+    s_hot = hot_ids_of(sb["sparse"], scfg.rows_per_table, 16)
+    s_pos, s_mask = emb_ops.split_hot_cold(sb["sparse"], s_hot, scfg.rows_per_table)
+    logits = {}
+    with torch.inference_mode():
+        for where in ("cuda", "cpu"):
+            m = DLRM(scfg, device=where)
+            m.load_state_dict(state)
+            args = [torch.from_numpy(sb[k]).to(where) for k in ("dense", "sparse")]
+            pinned = {"hot_table": emb_ops.embedding_gather(m.tables, torch.from_numpy(s_hot).to(where)),
+                      "positions": torch.from_numpy(s_pos).to(where),
+                      "mask": torch.from_numpy(s_mask).to(where)}
+            logits[where] = (m(*args).cpu(), m(*args, pinned).cpu())
+    for i, path in enumerate(("plain", "pinned")):
+        if not torch.allclose(logits["cuda"][i], logits["cpu"][i], atol=1e-4, rtol=1e-4):
+            fail(f"smoke_config {path} forward on the card differs from the CPU")
+    print(f"[6] smoke_config forward on the card equals the CPU (allclose 1e-4): max abs diff "
+          f"plain {max_abs_err(*[logits[w][0] for w in ('cuda', 'cpu')])!r}, pinned "
+          f"{max_abs_err(*[logits[w][1] for w in ('cuda', 'cpu')])!r}", flush=True)
+
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
                 "dram_scan[spm]": ("spm", "stack")}
+    for name, e in entries.items():
+        e["launches"] = (launches[main_run[name]][e["kind"]] if name in main_run
+                         else dlrm_launches[e["kind"]])
     out = []
     for name, e in entries.items():
         bytes_ms = e["nbytes"] / HBM_BYTES_PER_S * 1e3
@@ -416,11 +743,11 @@ def main() -> None:
         src, replaces = KERNEL_SOURCES[e["kind"]]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[main_run[name]][e["kind"]],
+            "launches": e["launches"],
             "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
-            "library_ms": None, "shapes": e["shapes"],
+            "library_ms": e.get("library_ms"), "shapes": e["shapes"],
         })
     print(f"[5] script wall {time.perf_counter() - t_script:.1f} s", flush=True)
     print(name_power, flush=True)

@@ -1,14 +1,20 @@
-"""Build the port's configuration objects from the reference package's.
+"""Build the port's configuration objects and weights from the reference
+package's.
 
 A simulator has no weights: its state is its configuration. These helpers
 take ``dataclasses.asdict`` of the reference package's ``HardwareConfig`` /
 ``Workload`` (enums as their values or as str-enum members) and build the
 port's equal objects, so one configuration drives both packages. Index
-traces are numpy arrays in both packages and pass as they are.
+traces are numpy arrays in both packages and pass as they are. The DLRM's
+weights cross over as numpy arrays (``dlrm_params_from_jax``): the
+reference draws them with ``jax.random``, which torch cannot reproduce.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import numpy as np
+import torch
 
 from .core.hardware import (
     Dataflow,
@@ -23,6 +29,7 @@ from .core.hardware import (
     VectorUnit,
 )
 from .core.workload import EmbeddingOpSpec, MatrixOpSpec, VectorOp, Workload
+from .models.dlrm import DTYPES, DLRMConfig
 
 
 def _value(x):
@@ -65,3 +72,25 @@ def workload_from_dict(d: Dict[str, Any]) -> Workload:
         batch_size=d["batch_size"],
         num_batches=d["num_batches"],
     )
+
+
+def dlrm_params_from_jax(params: Dict[str, Any], cfg: DLRMConfig) -> Dict[str, torch.Tensor]:
+    """``DLRM`` state dict (CPU tensors of ``cfg.dtype``) from the reference's
+    ``dlrm.init`` tree as numpy arrays: ``{"tables", "bottom": [{"w", "b"},
+    ...], "top": [...]}``. bf16 arrays pass through f32, which is exact."""
+    dt = DTYPES[cfg.dtype]
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, dtype=np.float32)).to(dt)
+
+    want = (cfg.num_tables * cfg.rows_per_table, cfg.dim)
+    if tuple(np.shape(params["tables"])) != want:
+        raise ValueError(f"tables has shape {np.shape(params['tables'])}, cfg needs {want}")
+    state = {"tables": tensor(params["tables"])}
+    for part, dims in (("bottom", cfg.bottom_mlp), ("top", cfg.top_mlp)):
+        if len(params[part]) != len(dims):
+            raise ValueError(f"{part}: {len(params[part])} layers, cfg has {len(dims)}")
+        for i, layer in enumerate(params[part]):
+            state[f"{part}_w.{i}"] = tensor(layer["w"])
+            state[f"{part}_b.{i}"] = tensor(layer["b"])
+    return state

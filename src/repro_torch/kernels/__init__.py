@@ -5,6 +5,9 @@
 | K1 cache scan | ``cache_scan.cache_scan_groups`` | ``kernels/cache_scan.py:_cache_scan_kernel`` |
 | K2 stack distance | ``stack_distance.stack_distance_groups`` | ``kernels/stack_distance.py:_stack_distance_kernel`` |
 | D1 DRAM event scan | ``dram_scan.dram_scan_chunked`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_chunked`` |
+| K3 embedding bag | ``embedding_bag.embedding_bag_kernel`` | ``kernels/embedding_bag.py:_bag_kernel`` |
+| K4 row gather | ``embedding_bag.embedding_gather_kernel`` | ``kernels/embedding_bag.py:_gather_kernel`` |
+| K5 hot-pinned pool | ``embedding_bag.vmem_gather_pool_kernel`` | ``kernels/embedding_bag.py:_vmem_pool_kernel`` |
 
 Each wrapper counts its launches in a ``launches`` attribute, incremented
 only where it launches its CUDA kernel.
@@ -13,12 +16,20 @@ from typing import Dict
 
 from .cache_scan import cache_scan_groups
 from .dram_scan import dram_scan_chunked
+from .embedding_bag import (
+    embedding_bag_kernel,
+    embedding_gather_kernel,
+    vmem_gather_pool_kernel,
+)
 from .stack_distance import stack_distance_groups
 
 KERNELS = {
     "cache_scan": cache_scan_groups,
     "stack_distance": stack_distance_groups,
     "dram_scan": dram_scan_chunked,
+    "embedding_bag": embedding_bag_kernel,
+    "embedding_gather": embedding_gather_kernel,
+    "vmem_gather_pool": vmem_gather_pool_kernel,
 }
 
 

@@ -24,9 +24,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # latency_probe holds no kernel of the port: chip_smoke.py times its chains
 # for the kernels' latency bounds.
-SOURCES = ("cache_scan", "stack_distance", "dram_scan", "latency_probe")
-# -fmad=false keeps every f32 add of the DRAM scan an add (no contraction),
-# which its bitwise equality with the reference relies on.
+SOURCES = ("cache_scan", "stack_distance", "dram_scan", "embedding_bag", "latency_probe")
+# -fmad=false keeps every f32 add of the DRAM scan and every multiply-add of
+# the hot-pinned pool two rounded operations (no contraction), which their
+# bitwise equality with the reference and the plain versions relies on.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",

@@ -1,0 +1,87 @@
+"""The embedding ops of the port: per-table offsets, hot/cold split, and
+the hot-pinned path, around the kernels K3, K4 and K5.
+
+Ports of the embedding part of ``repro/kernels/ops.py``. The reference
+chooses between its Pallas kernels and a jnp path with ``use_pallas``; the
+port has no such switch: every op goes through its kernel's wrapper, which
+launches the CUDA kernel for CUDA tensors and runs the plain torch version
+for CPU tensors. The CUDA kernels take any D, so nothing is padded to the
+TPU's 128 lanes.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .embedding_bag import (
+    embedding_bag_kernel,
+    embedding_gather_kernel,
+    vmem_gather_pool_kernel,
+)
+
+
+def _flat_indices(indices: torch.Tensor, rows_per_table: int) -> torch.Tensor:
+    """Per-table row ids ``(B, T, L)`` -> ids into the stacked table."""
+    T = indices.shape[1]
+    offset = torch.arange(T, dtype=torch.int32, device=indices.device) * rows_per_table
+    return (indices.to(torch.int32) + offset[None, :, None]).contiguous()
+
+
+def embedding_bag(
+    table: torch.Tensor,       # (T*R, D)
+    indices: torch.Tensor,     # (B, T, L) per-table row ids (NOT offset)
+    rows_per_table: int,
+) -> torch.Tensor:             # (B, T, D)
+    return embedding_bag_kernel(table, _flat_indices(indices, rows_per_table))
+
+
+def embedding_gather(
+    table: torch.Tensor,       # (R, D)
+    indices: torch.Tensor,     # (...,) row ids
+) -> torch.Tensor:             # (..., D)
+    shape = indices.shape
+    flat = indices.reshape(-1).to(torch.int32).contiguous()
+    return embedding_gather_kernel(table, flat).reshape(*shape, table.shape[1])
+
+
+def split_hot_cold(
+    indices: np.ndarray,    # (B, T, L) per-table row ids
+    hot_ids: np.ndarray,    # (n_hot,) sorted GLOBAL ids (t * rows + r)
+    rows_per_table: int,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-side prep for the pinned path: position-in-hot-table (or 0) and a
+    hot mask, per lookup. Mirrors core.memory.policies pinning semantics."""
+    t_ids = np.arange(indices.shape[1], dtype=np.int64)[None, :, None]
+    glob = t_ids * rows_per_table + indices.astype(np.int64)
+    pos = np.searchsorted(hot_ids, glob)
+    pos = np.clip(pos, 0, max(len(hot_ids) - 1, 0))
+    is_hot = len(hot_ids) > 0
+    mask = (hot_ids[pos] == glob) if is_hot else np.zeros_like(glob, dtype=bool)
+    return pos.astype(np.int32), mask.astype(np.int32)
+
+
+def embedding_bag_pinned(
+    table: torch.Tensor,       # (T*R, D) full table in device memory
+    hot_table: torch.Tensor,   # (H, D) pinned hot rows (= table[hot_ids])
+    indices: torch.Tensor,     # (B, T, L) per-table row ids
+    positions: torch.Tensor,   # (B, T, L) position in hot_table
+    mask: torch.Tensor,        # (B, T, L) 1 = hot
+    rows_per_table: int,
+) -> torch.Tensor:
+    """Paper's Profiling policy: hot lookups never read the full table.
+
+    The reference's kernel route: K5 pools the hot lookups from the hot
+    table held on chip; hot lookups are redirected to row 0 and K4 gathers
+    every lookup's row of the full table; a masked f32 sum over L (plain
+    torch, as in the reference) keeps the cold ones. The hot sum is cast to
+    the table dtype before it is added, as the reference rounds it.
+    """
+    flat_idx = _flat_indices(indices, rows_per_table)
+    mask = mask.to(torch.int32).contiguous()
+    hot = vmem_gather_pool_kernel(hot_table, positions.to(torch.int32).contiguous(), mask)
+    cold_idx = flat_idx.masked_fill(mask == 1, 0)
+    cold_all = embedding_gather_kernel(table, cold_idx.reshape(-1)).reshape(*cold_idx.shape, -1)
+    cold = (cold_all.float() * (1 - mask)[..., None].float()).sum(dim=2)
+    return (hot.float() + cold).to(table.dtype)

@@ -43,13 +43,17 @@ def test_every_port_module_imports_without_jax_or_repro():
             importlib.import_module(m.name)
         assert not any(n == "jax" or n.startswith(("jax.", "repro.")) or n == "repro"
                        for n, mod in sys.modules.items() if mod is not None)
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    for sub in ("models", "models.dlrm", "models.layers", "data", "data.dlrm_data",
+                "kernels.embedding_bag", "kernels.ops", "kernels.ref"):
+        assert f"repro_torch.{sub}" in names, sub
 
 
 @pytest.mark.parametrize(

@@ -14,6 +14,15 @@ import torch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
 from repro_torch.kernels.dram_scan import dram_scan_chunked, dram_scan_plain
+from repro_torch.kernels.embedding_bag import (
+    embedding_bag_kernel,
+    embedding_bag_plain,
+    embedding_gather_kernel,
+    embedding_gather_plain,
+    vmem_gather_pool_kernel,
+    vmem_gather_pool_plain,
+    vmem_tile_rows,
+)
 from repro_torch.kernels.stack_distance import stack_distance_groups, stack_distance_plain
 
 pytestmark = pytest.mark.cuda
@@ -107,3 +116,131 @@ def test_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel):
     for name in ("cache_scan", "stack_distance"):
         assert (counts[name] > 0) == (name == kernel), counts
     assert dataclasses.asdict(on_card) == dataclasses.asdict(simulate(wl, hw, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# K3, K4, K5 (the embedding kernels)
+# ---------------------------------------------------------------------------
+
+DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _bits(x):
+    return x.float().view(torch.int32)
+
+
+def _table(cuda, rows, D, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn((rows, D), generator=g, device=cuda).to(DT[dtype])
+
+
+def _ints(cuda, lo, hi, shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(lo, hi, size=shape).astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("rows,D,B,T,L", [
+    (500, 128, 8, 6, 40), (300, 200, 3, 4, 9), (64, 32, 5, 3, 1), (90, 33, 2, 2, 130),
+    (1000, 256, 2, 3, 17), (50, 1, 4, 1, 3), (40, 64, 2, 2, 0),
+])
+def test_embedding_bag_kernel_equals_plain_bitwise(cuda, rows, D, B, T, L, dtype):
+    table = _table(cuda, rows, D, dtype)
+    idx = _ints(cuda, -rows - 2, rows + 5, (B, T, L))        # some outside: clamped alike
+    reset_launch_counts()
+    got = embedding_bag_kernel(table, idx)
+    assert launch_counts()["embedding_bag"] == 1
+    want = embedding_bag_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == table.dtype and got.shape == (B, T, D)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("D", [128, 200, 33, 1, 8])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_embedding_gather_kernel_equals_plain_bitwise(cuda, D, dtype, offset):
+    # offset 1 starts the table one row in, so the 16-byte copy path is not
+    # always the one taken.
+    table = _table(cuda, 301, D, dtype)[offset:]
+    idx = _ints(cuda, -5, table.shape[0] + 5, (777,), seed=D)
+    reset_launch_counts()
+    got = embedding_gather_kernel(table, idx)
+    assert launch_counts()["embedding_gather"] == 1
+    want = embedding_gather_plain(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("H,D,B,T,L", [
+    (256, 128, 8, 6, 40), (1, 128, 2, 3, 5), (37, 200, 3, 2, 9), (16, 32, 4, 5, 1),
+    (1024, 128, 4, 6, 50), (600, 200, 2, 3, 30),
+])
+def test_vmem_gather_pool_kernel_equals_plain(cuda, H, D, B, T, L, dtype):
+    hot = _table(cuda, H, D, dtype, seed=H)
+    pos = _ints(cuda, 0, H, (B, T, L), seed=1)
+    mask = _ints(cuda, 0, 2, (B, T, L), seed=2)
+    reset_launch_counts()
+    got = vmem_gather_pool_kernel(hot, pos, mask)
+    assert launch_counts()["vmem_gather_pool"] == 1
+    want = vmem_gather_pool_plain(hot, pos, mask)
+    torch.cuda.synchronize()
+    tiles = -(-H // vmem_tile_rows(D * hot.element_size()))
+    if tiles == 1:
+        assert torch.equal(_bits(got), _bits(want))
+    else:
+        # the kernel sums tile by tile: the same terms, another order
+        tol = 1e-5 if dtype == "float32" else 5e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_vmem_tile_rows_is_the_cards_opt_in_shared_memory(cuda):
+    # 232,448 bytes on an H100 where torch does not report it
+    optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
+    assert vmem_tile_rows(512) == optin // 512
+    assert 1 < -(-1024 // vmem_tile_rows(128 * 4))       # 1024 x 128 f32 takes several tiles
+    assert -(-256 // vmem_tile_rows(128 * 4)) == 1       # the main path's hot table: one
+
+
+def test_embedding_kernels_refuse_what_they_do_not_take(cuda):
+    t = torch.zeros((4, 8), device=cuda)
+    i3 = torch.zeros((1, 2, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="devices|on cpu|cuda"):
+        embedding_bag_kernel(t, i3.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        vmem_gather_pool_kernel(t.half(), i3, i3)
+    with pytest.raises(ValueError, match="exceeds"):
+        vmem_gather_pool_kernel(torch.zeros((2, 1 << 17), device=cuda), i3, i3)
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+def test_dlrm_forward_on_the_card_equals_cpu(cuda, pinned):
+    from repro_torch.data import DLRMDataConfig, dlrm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import DLRM, smoke_config
+
+    cfg = smoke_config()
+    on_cpu = DLRM(cfg, device="cpu")
+    on_card = DLRM(cfg, device=cuda)
+    on_card.load_state_dict(on_cpu.state_dict())
+    batch = dlrm_batch(DLRMDataConfig(cfg.num_tables, cfg.rows_per_table,
+                                      cfg.lookups_per_table, batch_size=8, zipf_s=1.1), 0)
+    args = [torch.from_numpy(batch[k]) for k in ("dense", "sparse")]
+    kw_cpu, kw_card = {}, {}
+    if pinned:
+        hot_ids = np.unique(batch["sparse"][:, 0].reshape(-1))[:12].astype(np.int64)
+        pos, mask = ops.split_hot_cold(batch["sparse"], hot_ids, cfg.rows_per_table)
+        for kw, model in ((kw_cpu, on_cpu), (kw_card, on_card)):
+            dev = model.tables.device
+            kw["pinned"] = {"hot_table": ops.embedding_gather(model.tables,
+                                                              torch.from_numpy(hot_ids).to(dev)),
+                            "positions": torch.from_numpy(pos).to(dev),
+                            "mask": torch.from_numpy(mask).to(dev)}
+    want = on_cpu(*args, **kw_cpu)
+    reset_launch_counts()
+    got = on_card(*[a.to(cuda) for a in args], **kw_card)
+    counts = launch_counts()
+    expect = {"vmem_gather_pool": 1, "embedding_gather": 1} if pinned else {"embedding_bag": 1}
+    assert counts == {k: expect.get(k, 0) for k in counts}
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
