@@ -7,7 +7,8 @@ take ``dataclasses.asdict`` of the reference package's ``HardwareConfig`` /
 port's equal objects, so one configuration drives both packages. Index
 traces are numpy arrays in both packages and pass as they are. The DLRM's
 weights cross over as numpy arrays (``dlrm_params_from_jax``): the
-reference draws them with ``jax.random``, which torch cannot reproduce.
+reference draws them with ``jax.random``, which torch cannot reproduce. So
+do the LM families' (``lm_params_from_jax``).
 """
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ from .core.hardware import (
     VectorUnit,
 )
 from .core.workload import EmbeddingOpSpec, MatrixOpSpec, VectorOp, Workload
+from .models.config import (
+    ArchConfig,
+    EncDecConfig,
+    HybridConfig,
+    MLAConfig,
+    MoEConfig,
+    SSMConfig,
+)
 from .models.dlrm import DTYPES, DLRMConfig
 
 
@@ -93,4 +102,48 @@ def dlrm_params_from_jax(params: Dict[str, Any], cfg: DLRMConfig) -> Dict[str, t
         for i, layer in enumerate(params[part]):
             state[f"{part}_w.{i}"] = tensor(layer["w"])
             state[f"{part}_b.{i}"] = tensor(layer["b"])
+    return state
+
+
+_SUB_CONFIGS = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig, "hybrid": HybridConfig,
+                "encdec": EncDecConfig}
+
+
+def arch_config_from_dict(d: Dict[str, Any]) -> ArchConfig:
+    """``ArchConfig`` from ``dataclasses.asdict`` of an equal config."""
+    return ArchConfig(**{k: (_SUB_CONFIGS[k](**v) if k in _SUB_CONFIGS and v is not None else v)
+                         for k, v in d.items()})
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def lm_params_from_jax(params: Dict[str, Any], cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The LM's state dict (CPU tensors) from the reference's ``init_lm``
+    tree as numpy arrays, for the dense, ssm and hybrid families: the tree
+    flattened to dotted names (``groups.mixer.in_z``, ...), each array
+    checked against the port's shape and cast to its dtype (bf16 goes
+    through f32, which is exact)."""
+    from .models.registry import family_module
+
+    want = _flatten(family_module(cfg).init_params(cfg, generator=None,
+                                                   device=torch.device("meta")))
+    got = _flatten(params)
+    if set(got) != set(want):
+        raise ValueError(f"{cfg.name}: parameters missing {sorted(set(want) - set(got))}, "
+                         f"unexpected {sorted(set(got) - set(want))}")
+    state = {}
+    for name, ref in want.items():
+        arr = np.array(got[name], dtype=np.float32)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"{cfg.name}: {name} has shape {arr.shape}, the port needs "
+                             f"{tuple(ref.shape)}")
+        state[name] = torch.from_numpy(arr).to(ref.dtype)
     return state

@@ -8,6 +8,9 @@
 | K3 embedding bag | ``embedding_bag.embedding_bag_kernel`` | ``kernels/embedding_bag.py:_bag_kernel`` |
 | K4 row gather | ``embedding_bag.embedding_gather_kernel`` | ``kernels/embedding_bag.py:_gather_kernel`` |
 | K5 hot-pinned pool | ``embedding_bag.vmem_gather_pool_kernel`` | ``kernels/embedding_bag.py:_vmem_pool_kernel`` |
+| K6 flash attention | ``flash_attention.flash_attention_kernel`` | ``kernels/flash_attention.py:_flash_kernel`` |
+| K7 decode attention | ``decode_attention.decode_attention_kernel`` | ``kernels/decode_attention.py:_decode_kernel`` |
+| K8 Mamba2 SSD scan | ``mamba2_ssd.mamba2_ssd_kernel`` | ``kernels/mamba2_ssd.py:_ssd_kernel`` |
 
 Each wrapper counts its launches in a ``launches`` attribute, incremented
 only where it launches its CUDA kernel.
@@ -15,12 +18,15 @@ only where it launches its CUDA kernel.
 from typing import Dict
 
 from .cache_scan import cache_scan_groups
+from .decode_attention import decode_attention_kernel
 from .dram_scan import dram_scan_chunked
 from .embedding_bag import (
     embedding_bag_kernel,
     embedding_gather_kernel,
     vmem_gather_pool_kernel,
 )
+from .flash_attention import flash_attention_kernel
+from .mamba2_ssd import mamba2_ssd_kernel
 from .stack_distance import stack_distance_groups
 
 KERNELS = {
@@ -30,6 +36,9 @@ KERNELS = {
     "embedding_bag": embedding_bag_kernel,
     "embedding_gather": embedding_gather_kernel,
     "vmem_gather_pool": vmem_gather_pool_kernel,
+    "flash_attention": flash_attention_kernel,
+    "decode_attention": decode_attention_kernel,
+    "mamba2_ssd": mamba2_ssd_kernel,
 }
 
 

@@ -24,14 +24,22 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # latency_probe holds no kernel of the port: chip_smoke.py times its chains
 # for the kernels' latency bounds.
-SOURCES = ("cache_scan", "stack_distance", "dram_scan", "embedding_bag", "latency_probe")
-# -fmad=false keeps every f32 add of the DRAM scan and every multiply-add of
-# the hot-pinned pool two rounded operations (no contraction), which their
-# bitwise equality with the reference and the plain versions relies on.
+SOURCES = ("cache_scan", "stack_distance", "dram_scan", "embedding_bag", "latency_probe",
+           "flash_attention", "decode_attention", "mamba2_ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# -fmad=false keeps every f32 add of the DRAM scan and every multiply-add of
+# the hot-pinned pool two rounded operations (no contraction), which their
+# bitwise equality with the reference and the plain versions relies on. The
+# LM kernels (K6-K8) are held to a tolerance and keep fused multiply-adds.
+_FUSED_MULTIPLY_ADD = frozenset(("flash_attention", "decode_attention", "mamba2_ssd"))
+
+
+def nvcc_flags(name: str) -> tuple:
+    return NVCC_FLAGS + (() if name in _FUSED_MULTIPLY_ADD else ("-fmad=false",))
+
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -52,7 +60,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -73,7 +81,7 @@ def build_all() -> Dict[str, Path]:
     procs = {}
     for name, out in todo.items():
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *nvcc_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []

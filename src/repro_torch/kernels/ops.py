@@ -1,12 +1,14 @@
-"""The embedding ops of the port: per-table offsets, hot/cold split, and
-the hot-pinned path, around the kernels K3, K4 and K5.
+"""The ops of the port around its kernels: the embedding ops (per-table
+offsets, hot/cold split, the hot-pinned path) over K3, K4 and K5, and the
+attention and SSD ops over K6, K7 and K8.
 
-Ports of the embedding part of ``repro/kernels/ops.py``. The reference
-chooses between its Pallas kernels and a jnp path with ``use_pallas``; the
-port has no such switch: every op goes through its kernel's wrapper, which
-launches the CUDA kernel for CUDA tensors and runs the plain torch version
-for CPU tensors. The CUDA kernels take any D, so nothing is padded to the
-TPU's 128 lanes.
+Ports of ``repro/kernels/ops.py``. The reference chooses between its Pallas
+kernels and a jnp path with ``use_pallas``, and sends shapes its kernels do
+not tile (S % 128, S_max % 512, S % chunk) to its oracles; the port has no
+such switch and no such branch: every op goes through its kernel's wrapper,
+which launches the CUDA kernel for CUDA tensors and runs the plain torch
+version for CPU tensors. The CUDA kernels take any D and any length, so
+nothing is padded to the TPU's 128 lanes.
 """
 from __future__ import annotations
 
@@ -15,11 +17,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .decode_attention import decode_attention_kernel
 from .embedding_bag import (
     embedding_bag_kernel,
     embedding_gather_kernel,
     vmem_gather_pool_kernel,
 )
+from .flash_attention import flash_attention_kernel
+from .mamba2_ssd import mamba2_ssd_kernel
 
 
 def _flat_indices(indices: torch.Tensor, rows_per_table: int) -> torch.Tensor:
@@ -85,3 +90,27 @@ def embedding_bag_pinned(
     cold_all = embedding_gather_kernel(table, cold_idx.reshape(-1)).reshape(*cold_idx.shape, -1)
     cold = (cold_all.float() * (1 - mask)[..., None].float()).sum(dim=2)
     return (hot.float() + cold).to(table.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention / SSD
+# --------------------------------------------------------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, Hq, S, d), k, v (B, Hkv, S, d) -> (B, Hq, S, d), through K6."""
+    return flash_attention_kernel(q, k, v, causal=causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: int) -> torch.Tensor:
+    """q (B, Hq, dh) over the cache's first ``valid_len`` positions (a host
+    int) of k, v (B, Hkv, S_max, dh), through K7."""
+    return decode_attention_kernel(q, k, v, valid_len)
+
+
+def mamba2_ssd(x: torch.Tensor, adt: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+               C: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+    """x (B, H, S, P), adt and dt (B, H, S) f32, Bm and C (B, S, N) ->
+    y (B, H, S, P), through K8."""
+    return mamba2_ssd_kernel(x, adt, dt, Bm, C, chunk=chunk)

@@ -19,9 +19,7 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
-from .layers import _dense_init
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from .layers import DTYPES, _dense_init
 
 
 @dataclass(frozen=True)

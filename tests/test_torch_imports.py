@@ -52,7 +52,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     names = set(out.stdout.split())
     assert len(names) >= 20
     for sub in ("models", "models.dlrm", "models.layers", "data", "data.dlrm_data",
-                "kernels.embedding_bag", "kernels.ops", "kernels.ref"):
+                "kernels.embedding_bag", "kernels.ops", "kernels.ref", "kernels.flash_attention",
+                "kernels.decode_attention", "kernels.mamba2_ssd", "models.config",
+                "models.registry", "models.transformer", "models.mamba", "models.hybrid",
+                "configs.zamba2_2p7b", "data.lm", "serving.engine", "launch.serve"):
         assert f"repro_torch.{sub}" in names, sub
 
 

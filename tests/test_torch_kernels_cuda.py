@@ -7,6 +7,8 @@ Run on a machine with an NVIDIA GPU and nvcc:
 Without a card every test here skips (the kernels have no CPU mode; their
 plain versions are held against the JAX package by the CPU tests).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -244,3 +246,187 @@ def test_dlrm_forward_on_the_card_equals_cpu(cuda, pinned):
     expect = {"vmem_gather_pool": 1, "embedding_gather": 1} if pinned else {"embedding_bag": 1}
     assert counts == {k: expect.get(k, 0) for k in counts}
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K6, K7, K8 (the LM kernels), at the reference's tolerances
+# ---------------------------------------------------------------------------
+
+LM_TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=3e-2, rtol=0.0)}
+
+
+def _randn(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=cuda).to(DT[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
+    (2, 32, 32, 256, 80),      # Zamba2's heads
+    (2, 8, 2, 300, 64),        # GQA, ragged S
+    (1, 4, 1, 200, 128),       # MQA
+    (1, 2, 2, 77, 256),        # the widest head
+    (1, 3, 3, 1, 16),          # one position
+])
+def test_flash_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S, d, causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+
+    q = _randn(cuda, (B, Hq, S, d), dtype, 1)
+    k = _randn(cuda, (B, Hkv, S, d), dtype, 2)
+    v = _randn(cuda, (B, S, Hkv, d), dtype, 3).transpose(1, 2)   # a strided view, as in prefill
+    reset_launch_counts()
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == q.dtype
+    torch.testing.assert_close(got.float(), want.float(), **LM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("B,Hq,Hkv,S_max,d,valid", [
+    (2, 32, 32, 1064, 80, 1056),   # Zamba2's last decode step
+    (2, 8, 2, 300, 64, 1),
+    (2, 8, 2, 300, 64, 100),       # mid-tile
+    (2, 4, 1, 1000, 128, 1000),    # full cache, MQA
+    (1, 32, 4, 77, 80, 77),
+    (1, 16, 1, 64, 256, 64),       # 16 heads of 256 on one kv head
+])
+def test_decode_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S_max, d, valid, dtype):
+    from repro_torch.kernels.decode_attention import decode_attention_kernel, decode_attention_plain
+
+    q = _randn(cuda, (B, Hq, d), dtype, 1)
+    k = _randn(cuda, (B, Hkv, S_max, d), dtype, 2)
+    v = _randn(cuda, (B, Hkv, S_max, d), dtype, 3)
+    reset_launch_counts()
+    got = decode_attention_kernel(q, k, v, valid)
+    assert launch_counts()["decode_attention"] == 1
+    want = decode_attention_plain(q, k, v, valid)
+    torch.cuda.synchronize()
+    tol = LM_TOL[dtype] if dtype == "float32" else dict(atol=4e-2, rtol=0.0)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # the cache past valid_len is never read
+    k[:, :, valid:] = float("nan")
+    v[:, :, valid:] = float("nan")
+    assert torch.equal(decode_attention_kernel(q, k, v, valid), got)
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (2, 8, 1024, 64, 64, 128),     # Zamba2's SSD shape, fewer heads
+    (2, 4, 300, 32, 128, 128),     # N = 128 (the kernel's chunk: 64), ragged
+    (1, 3, 100, 16, 16, 16),
+    (2, 8, 200, 64, 64, 64),       # ragged last chunk
+    (1, 2, 5, 64, 64, 128),        # shorter than one chunk
+])
+def test_mamba2_ssd_kernel_equals_plain(cuda, B, H, S, P, N, chunk, dtype):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_kernel, mamba2_ssd_plain
+
+    xbc = _randn(cuda, (B, S, H * P + 2 * N), dtype, 1)
+    x = xbc[..., :H * P].reshape(B, S, H, P).transpose(1, 2)      # as the Mamba2 block hands it
+    dt = torch.nn.functional.softplus(_randn(cuda, (B, S, H), "float32", 2)).transpose(1, 2)
+    adt = -torch.linspace(1.0, 16.0, H, device=cuda)[None, :, None] * dt
+    Bm, C = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    reset_launch_counts()
+    got = mamba2_ssd_kernel(x, adt, dt, Bm, C, chunk=chunk)
+    assert launch_counts()["mamba2_ssd"] == 1
+    want = mamba2_ssd_plain(x, adt, dt, Bm, C, chunk)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and got.dtype == x.dtype
+    # bf16: both round the same f32 value once, so at most one bf16 step apart
+    rtol = 2e-3 if dtype == "float32" else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-4, rtol=rtol)
+
+
+def test_mamba2_ssd_smem_matches_its_python_twin(cuda):
+    from repro_torch.kernels import mamba2_ssd as m
+
+    fn = m.load_library("mamba2_ssd").mamba2_ssd_smem_bytes
+    fn.restype = ctypes.c_int64
+    for Q, P, N in ((128, 64, 64), (64, 64, 128), (16, 16, 16), (100, 32, 128)):
+        assert fn(Q, P, N) == m.smem_bytes(Q, P, N)
+
+
+def test_lm_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_kernel
+
+    q = torch.zeros((1, 3, 8, 16), device=cuda)
+    kv = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention_kernel(q, kv, kv)
+    wide = torch.zeros((1, 1, 8, 264), device=cuda)
+    with pytest.raises(ValueError, match="> 256"):
+        flash_attention_kernel(wide, wide, wide)
+    with pytest.raises(ValueError, match="tensors on"):
+        flash_attention_kernel(kv, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="valid_len must be a host int"):
+        decode_attention_kernel(torch.zeros((1, 2, 16), device=cuda), kv, kv,
+                                torch.tensor(3, device=cuda))
+    big = torch.zeros((1, 1, 4, 256), device=cuda)
+    with pytest.raises(ValueError, match="exceed a block's shared memory"):
+        decode_attention_kernel(torch.zeros((1, 64, 256), device=cuda), big, big, 4)
+    x = torch.zeros((1, 2, 8, 128), device=cuda)
+    a = torch.zeros((1, 2, 8), device=cuda)
+    bc = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="head dim 128 > 64"):
+        mamba2_ssd_kernel(x, a, a, bc, bc)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "stablelm_3b", "mamba2_130m"])
+def test_smoke_lm_serving_on_the_card_equals_cpu(cuda, arch):
+    """f32, teacher-forced: the CPU engine generates, both engines are fed
+    its tokens, and their logits agree at 2e-4 / 2e-3."""
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import family_module, get_smoke_config
+    from repro_torch.serving import ServeConfig, ServingEngine, init_cache
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    mod = family_module(cfg)
+    on_cpu = mod.init_lm(cfg, device="cpu")
+    on_card = mod.init_lm(cfg, device=cuda)
+    on_card.load_state_dict(on_cpu.state_dict())
+    scfg = ServeConfig(batch=2, max_seq=80)
+    prompts = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=64, global_batch=2), 0)["tokens"]
+    engines = {"cpu": ServingEngine(cfg, on_cpu, scfg), "cuda": ServingEngine(cfg, on_card, scfg)}
+    forced = engines["cpu"].generate(prompts, max_new_tokens=4)
+    logits = {}
+    with torch.inference_mode():
+        for where, eng in engines.items():
+            caches = init_cache(cfg, scfg, device=where)
+            reset_launch_counts()
+            out, caches = eng.prefill(eng.params, torch.from_numpy(prompts).to(where), caches)
+            counts = launch_counts()
+            got = [out.cpu()]
+            for i in range(forced.shape[1]):
+                tok = torch.from_numpy(forced[:, i:i + 1]).to(where)
+                out, caches = eng.step(eng.params, tok, 64 + i, caches)
+                got.append(out.cpu())
+            logits[where] = got
+            if where == "cuda":
+                attn = cfg.n_layers // cfg.hybrid.attn_every if cfg.hybrid else cfg.n_layers
+                expect = {"embedding_gather": 1,
+                          "mamba2_ssd": cfg.n_layers if cfg.ssm else 0,
+                          "flash_attention": attn if cfg.n_heads else 0}
+                assert counts == {k: expect.get(k, 0) for k in counts}
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
+
+
+def test_multi_token_cached_attention_refuses_the_card(cuda):
+    """No kernel covers several new tokens against a cache, and plain
+    attention does not run on the card: such a step raises there."""
+    from repro_torch.models import get_smoke_config
+    from repro_torch.models import layers as TL
+
+    cfg = get_smoke_config("stablelm_3b").replace(dtype="float32")
+    D, Hq, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.attn_head_dim
+    p = {"wq": torch.zeros(D, Hq * dh, device=cuda), "wk": torch.zeros(D, Hkv * dh, device=cuda),
+         "wv": torch.zeros(D, Hkv * dh, device=cuda), "wo": torch.zeros(Hq * dh, D, device=cuda)}
+    cache = (torch.zeros(2, Hkv, 10, dh, device=cuda), torch.zeros(2, Hkv, 10, dh, device=cuda))
+    reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="cached step of 3 new tokens"):
+        TL.attention(p, torch.zeros(2, 3, D, device=cuda), cfg, kv_cache=cache, cache_index=4)
+    assert not any(launch_counts().values())

@@ -1,0 +1,221 @@
+"""The port's LM kernel ops (K6 flash attention, K7 decode attention, K8
+Mamba2 SSD) against the JAX package, on the CPU.
+
+On the CPU each wrapper runs its plain torch version; the JAX side runs its
+Pallas kernels in interpret mode (``use_pallas=True``), or its oracle where
+its ops send a shape the kernels do not tile (ragged S or S_max). Inputs
+are drawn with numpy and handed to both. Tolerances are the reference's own
+(``tests/test_kernels.py``, ``tests/test_decode_kernel.py``): 2e-5 for f32
+attention, 3e-2 (prefill) and 4e-2 (decode) for bf16, atol 2e-4 / rtol 2e-3
+for the SSD scan.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
+from repro_torch.kernels.decode_attention import decode_attention_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.mamba2_ssd import kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(rng, shape, dtype, scale=1.0):
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return jnp.asarray(x, dtype=JDT[dtype]), torch.from_numpy(x).to(TDT[dtype])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# --------------------------------------------------------------------------
+# K6 flash attention
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,S,d", [
+    (1, 2, 2, 128, 32),
+    (2, 8, 2, 256, 64),     # GQA
+    (1, 4, 1, 384, 64),     # MQA, three 128-blocks
+    (2, 4, 4, 256, 128),
+    (1, 4, 2, 100, 80),     # ragged S, d = 80 (the reference takes its oracle)
+])
+def test_flash_attention_matches_jax(B, Hq, Hkv, S, d, causal, rng):
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (B, h, S, d), "float32")
+                                    for h in (Hq, Hkv, Hkv))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, use_pallas=True)
+    reset_launch_counts()
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert launch_counts()["flash_attention"] == 0      # the CPU runs the plain version
+    assert got.shape == (B, Hq, S, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("S,causal", [(128, True), (96, False)])
+def test_flash_attention_bf16_matches_jax(S, causal, rng):
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (1, 2, S, 64), "bfloat16") for _ in range(3))
+    want = jops.flash_attention(jq, jk, jv, causal=causal, use_pallas=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=3e-2)
+
+
+def test_flash_attention_takes_strided_views(rng):
+    """Prefill hands K6 transposes of (B, S, H, d) projections."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (2, 64, 4, 16), "float32") for _ in range(3))
+    tq, tk, tv = (t.transpose(1, 2) for t in (tq, tk, tv))
+    jq, jk, jv = (t.transpose(0, 2, 1, 3) for t in (jq, jk, jv))
+    want = jops.flash_attention(jq, jk, jv, causal=True, use_pallas=True)
+    np.testing.assert_allclose(_f32(ops.flash_attention(tq, tk, tv)), _f32(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# K7 decode attention
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,dh,valid", [
+    (2, 8, 2, 256, 64, 200),
+    (1, 4, 4, 512, 128, 512),     # MHA, full cache
+    (3, 6, 1, 128, 64, 1),        # MQA, single valid entry
+    (2, 16, 8, 384, 64, 300),     # ragged block
+    (2, 4, 4, 1064, 80, 1056),    # Zamba2's cache: S_max % 512 != 0, d = 80
+])
+def test_decode_attention_matches_jax(B, Hq, Hkv, S, dh, valid, dtype, rng):
+    jq, tq = _pair(rng, (B, Hq, dh), dtype)
+    jk, tk = _pair(rng, (B, Hkv, S, dh), dtype)
+    jv, tv = _pair(rng, (B, Hkv, S, dh), dtype)
+    want = jops.decode_attention(jq, jk, jv, jnp.int32(valid), block_k=128, use_pallas=True)
+    got = ops.decode_attention(tq, tk, tv, valid)
+    assert got.shape == (B, Hq, dh) and got.dtype == TDT[dtype]
+    tol = 2e-5 if dtype == "float32" else 4e-2
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def test_decode_attention_masks_stale_cache(rng):
+    """Entries at or past valid_len must not contribute."""
+    B, H, S, dh, valid = 1, 2, 64, 32, 10
+    jq, tq = _pair(rng, (B, H, dh), "float32")
+    jk, tk = _pair(rng, (B, H, S, dh), "float32")
+    jv, tv = _pair(rng, (B, H, S, dh), "float32")
+    pk, pv = tk.clone(), tv.clone()
+    pk[:, :, valid:] = 1e3
+    pv[:, :, valid:] = 1e3
+    clean = ops.decode_attention(tq, tk, tv, valid)
+    poisoned = ops.decode_attention(tq, pk, pv, valid)
+    np.testing.assert_allclose(_f32(poisoned), _f32(clean), atol=1e-5)
+    want = jops.decode_attention(jq, jk.at[:, :, valid:].set(1e3), jv.at[:, :, valid:].set(1e3),
+                                 jnp.int32(valid), block_k=16)
+    np.testing.assert_allclose(_f32(poisoned), _f32(want), atol=2e-5, rtol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# K8 Mamba2 SSD
+# --------------------------------------------------------------------------
+
+def _ssd_inputs(rng, B, H, S, P, N, dtype="float32"):
+    jx, tx = _pair(rng, (B, H, S, P), dtype, 0.5)
+    dt = rng.uniform(0.001, 0.1, size=(B, H, S)).astype(np.float32)
+    A = -np.exp(rng.standard_normal(H).astype(np.float32))
+    adt = (A[None, :, None] * dt).astype(np.float32)
+    jb, tb = _pair(rng, (B, S, N), dtype, 0.3)
+    jc, tc = _pair(rng, (B, S, N), dtype, 0.3)
+    j = (jx, jnp.asarray(adt), jnp.asarray(dt), jb, jc)
+    t = (tx, torch.from_numpy(adt), torch.from_numpy(dt), tb, tc)
+    return j, t
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (1, 2, 64, 16, 32, 16),
+    (2, 4, 256, 32, 64, 64),
+    (1, 3, 128, 64, 128, 128),    # N = 128: the kernel's chunk halves to 64
+    (2, 2, 100, 16, 16, 32),      # ragged last chunk (the reference takes its oracle)
+    (1, 2, 1024, 64, 64, 128),    # Zamba2's SSD shape (narrow heads)
+])
+def test_mamba2_ssd_matches_jax(B, H, S, P, N, chunk, rng):
+    j, t = _ssd_inputs(rng, B, H, S, P, N)
+    want = jops.mamba2_ssd(*j, chunk=chunk, use_pallas=True)
+    reset_launch_counts()
+    got = ops.mamba2_ssd(*t, chunk=chunk)
+    assert launch_counts()["mamba2_ssd"] == 0
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4, rtol=2e-3)
+    np.testing.assert_allclose(_f32(got), _f32(ref.mamba2_ssd_ref(*t)), atol=2e-4, rtol=2e-3)
+
+
+def test_mamba2_ssd_bf16_matches_jax(rng):
+    """x, B, C in bf16 with adt, dt in f32, as the Mamba2 block hands them.
+    Both round one f32 result to bf16, so they may differ by one bf16 step
+    (2^-7 relative) beyond the reference's 2e-4."""
+    j, t = _ssd_inputs(rng, 2, 2, 64, 16, 16, "bfloat16")
+    want = jops.mamba2_ssd(*j, chunk=32, use_pallas=True)
+    got = ops.mamba2_ssd(*t, chunk=32)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4, rtol=2.0 ** -7)
+
+
+def test_mamba2_ssd_ref_matches_jax_oracle(rng):
+    j, t = _ssd_inputs(rng, 2, 3, 48, 16, 8)
+    np.testing.assert_allclose(_f32(ref.mamba2_ssd_ref(*t)), _f32(jref.mamba2_ssd_ref(*j)),
+                               atol=1e-5, rtol=1e-4)
+
+
+def test_mamba2_final_state_matches_jax(rng):
+    j, t = _ssd_inputs(rng, 2, 3, 96, 16, 32)
+    np.testing.assert_allclose(_f32(ref.mamba2_final_state(*t[:4])),
+                               _f32(jref.mamba2_final_state(*j[:4])), atol=1e-5, rtol=1e-4)
+
+
+def test_mamba2_ssd_chunk_choice():
+    assert kernel_chunk(128, 1024, 64, 64) == 128      # Zamba2: 182,784 B of shared memory
+    assert kernel_chunk(128, 1024, 64, 128) == 64      # N = 128 does not fit at 128
+    assert kernel_chunk(128, 40, 64, 64) == 40         # never longer than S
+    assert kernel_chunk(16, 1024, 16, 16) == 16
+
+
+def test_mamba2_ssd_plain_is_chunk_invariant(rng):
+    """The chunk changes only rounding: any chunk gives the sequential scan."""
+    _, t = _ssd_inputs(rng, 1, 2, 90, 16, 16)
+    seq = ref.mamba2_ssd_ref(*t)
+    for chunk in (1, 7, 32, 128):
+        np.testing.assert_allclose(_f32(mamba2_ssd_plain(*t, chunk)), _f32(seq), atol=2e-4,
+                                   rtol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# What the wrappers refuse
+# --------------------------------------------------------------------------
+
+def test_lm_kernels_refuse_what_they_do_not_take(rng):
+    q = torch.zeros(1, 3, 8, 16)
+    kv = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        flash_attention_kernel(q, kv, kv)
+    big = torch.zeros(1, 1, 8, 264)
+    with pytest.raises(ValueError, match="head dim 264 > 256"):
+        flash_attention_kernel(big, big, big)
+    with pytest.raises(TypeError, match="share float32 or bfloat16"):
+        flash_attention_kernel(kv.double(), kv.double(), kv.double())
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        decode_attention_kernel(torch.zeros(1, 3, 16), kv, kv, 4)
+    with pytest.raises(ValueError, match="valid_len must be a host int"):
+        decode_attention_kernel(torch.zeros(1, 2, 16), kv, kv, torch.tensor(4))
+    with pytest.raises(ValueError, match="valid_len must be a host int"):
+        decode_attention_kernel(torch.zeros(1, 2, 16), kv, kv, 0)
+    _, (x, adt, dt, Bm, C) = _ssd_inputs(rng, 1, 2, 16, 16, 8)
+    with pytest.raises(ValueError, match="head dim 80 > 64"):
+        mamba2_ssd_kernel(torch.zeros(1, 2, 16, 80), adt, dt, Bm, C)
+    with pytest.raises(TypeError, match="adt and dt must be float32"):
+        mamba2_ssd_kernel(x, adt.double(), dt, Bm, C)
+    with pytest.raises(TypeError, match="x, B, C must share"):
+        mamba2_ssd_kernel(x, adt, dt, Bm.bfloat16(), C)
+    with pytest.raises(ValueError, match="do not agree"):
+        mamba2_ssd_kernel(x, adt, dt, Bm[:, :8], C[:, :8])
