@@ -8,7 +8,8 @@ passed over):
 
   1. device and versions, with the card's name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
-     all at once), timed;
+     all at once), timed, with ptxas's registers and spills per kernel of
+     ``flash_attention.cu``;
   3. the latency of one dependent step, timed by the probes of
      ``csrc/latency_probe.cu``; then each kernel against its plain torch
      version on the card: K1 cache scan and K2 stack distance on the
@@ -22,10 +23,14 @@ passed over):
      library-call times with the L2 cache flushed before each launch. Then
      the LM kernels K6 flash attention, K7 decode attention and K8 Mamba2
      SSD at the shapes the Zamba2-2.7B serving path gives them and at edge
-     shapes (GQA/MQA, d 64/80/128/256, ragged S and S_max, valid_len 1 /
-     mid-block / S_max, f32 and bf16, causal or not, chunk 16/64/128,
-     N = 128, a ragged last chunk), against their plain versions at the
-     reference's tolerances, with kernel, plain and library-call times;
+     shapes (GQA/MQA, d 16/64/72/80/128/256, ragged S and S_max, a q tile
+     straddling S, a k whose stride TMA cannot read, valid_len 1 / at a
+     chunk's end / one past it / mid-block / S_max, f32 and bf16, causal or
+     not, chunk 16/64/128, N = 128, a ragged last chunk), against their
+     plain versions at the reference's tolerances, with kernel, plain and
+     library-call times; K6's route (bf16: tensor cores, f32: scalar) is
+     checked on every call, K6's TFLOP/s and K7's TB/s printed beside their
+     bounds, K7 held bitwise equal across two calls with NaN past valid_len;
   4. ``simulate`` on the full DLRM-RMC2 workload (60 tables x 1M rows x dim
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
      policy/backend pair of the slice, with launch counts reset just before
@@ -219,6 +224,24 @@ def probe_step_ms(launch, inp, out, want) -> float:
     return (times[1] - times[0]) / (PROBE_STEPS[1] - PROBE_STEPS[0])
 
 
+def ptxas_report(log: str):
+    """``name: registers, spills`` for each kernel of an ``nvcc -Xptxas -v``
+    log (the kernel named by its mangled symbol's readable middle)."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            for word in ("flash_wgmma_kernel", "flash_kernel"):
+                if word in name:
+                    name = word + name.split(word, 1)[1][:24]
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name is not None:
+            out.append(f"{name}: {ln.split('Used')[1].strip()} ({spill})")
+            name = None
+    return out
+
+
 def max_abs_err(a, b) -> float:
     if a.numel() == 0:
         return 0.0
@@ -249,7 +272,9 @@ def check_lm_kernels(dev, flush, f32_op_ms):
     the model's -linspace(1, 16)) and at edge shapes. Returns the report
     entries of the main-path shapes."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import decode_attention_kernel, decode_attention_plain
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.decode_attention import (
+        CHUNK, decode_attention_kernel, decode_attention_plain)
     from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
     from repro_torch.kernels.mamba2_ssd import kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain
 
@@ -274,8 +299,15 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         return x, adt, dt, xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
 
     def check(label, name, kernel, plain, library, args, dtype, reps=10):
+        reset_launch_counts()
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
+        if name == "flash_attention":
+            # the dtype picks K6's route: bf16 the tensor cores, f32 the scalar kernel
+            route = "wgmma" if dtype == torch.bfloat16 else "scalar"
+            if flash_attention_kernel.routes != {"wgmma": 0, "scalar": 0, route: 1}:
+                fail(f"{label}: routes {flash_attention_kernel.routes}, expected one {route}")
+            label += f" [{route} route]"
         tol = LM_TOL[(name, dtype)]
         err = max_abs_err(got, want)
         if not torch.allclose(got.float(), want.float(), **tol):
@@ -302,35 +334,72 @@ def check_lm_kernels(dev, flush, f32_op_ms):
     def log2c(n):
         return max(1, math.ceil(math.log2(max(n, 2))))
 
+    def rates(label, e, nbytes, mm_flops, lib_ms):
+        """Achieved rates of a main-shape check beside its bounds."""
+        ms = e[1]
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        mm_ms = mm_flops / TENSOR_FLOPS_PER_S * 1e3
+        print(f"[3] {label}: {mm_flops / ms / 1e9!r} TFLOP/s of products (bound "
+              f"{mm_ms!r} ms at {TENSOR_FLOPS_PER_S / 1e12:.0f}), {nbytes / ms / 1e9!r} TB/s "
+              f"(bound {bytes_ms!r} ms at {HBM_BYTES_PER_S / 1e12:.2f}); kernel {ms!r} ms = "
+              f"{ms / max(bytes_ms, mm_ms)!r} x its bound, {ms / lib_ms!r} x the library call",
+              flush=True)
+
     entries = {}
     # K6, the prefill of the shared attention block: causal, GQA-free at Zamba2.
+    # The bf16 rows go through the tensor-core route, the f32 rows through
+    # the scalar kernel; the f32 main shape is timed as fully as the bf16 one.
     for B, Hq, Hkv, S, d, causal, dtype, main in (
             (LM_BATCH, 32, 32, LM_PROMPT, 80, True, torch.bfloat16, True),
             (LM_BATCH, 32, 32, LM_PROMPT, 80, True, torch.float32, False),
             (2, 8, 2, 300, 64, True, torch.float32, False),
             (1, 4, 1, 200, 128, False, torch.float32, False),
             (2, 8, 2, 129, 80, False, torch.bfloat16, False),
+            (2, 8, 2, 129, 80, True, torch.bfloat16, False),
             (1, 4, 1, 1000, 80, True, torch.bfloat16, False),
+            (1, 3, 3, 200, 72, True, torch.bfloat16, False),
+            (2, 4, 4, 256, 128, False, torch.bfloat16, False),
             (1, 2, 2, 77, 256, True, torch.bfloat16, False),
+            (1, 3, 3, 1, 16, True, torch.bfloat16, False),
             (1, 2, 2, 1, 64, True, torch.float32, False)):
         q, k, v = flash_inputs(B, Hq, Hkv, S, d, dtype)
+        full = main or S == LM_PROMPT
         e = check(f"flash_attention (B, Hq, Hkv, S, d)={(B, Hq, Hkv, S, d)} causal={causal} "
                   f"{dtype}{' (main path)' if main else ''}", "flash_attention",
                   lambda q, k, v: flash_attention_kernel(q, k, v, causal=causal),
                   lambda q, k, v: flash_attention_plain(q, k, v, causal=causal),
-                  sdpa(q, k, v, causal), (q, k, v), dtype, reps=10 if main else 3)
-        if main:
+                  sdpa(q, k, v, causal), (q, k, v), dtype, reps=10 if full else 3)
+        if full:
             pairs = S * (S + 1) // 2 if causal else S * S
+            nbytes = (2 * B * Hq * S * d + 2 * B * Hkv * S * d) * q.element_size()
+            rates(f"K6 {dtype} at the main shape, {'tensor-core' if main else 'scalar'} route",
+                  e, nbytes, 4 * B * Hq * pairs * d, e[3])
+        if main:
             entries["flash_attention"] = dict(
                 kind="flash_attention", err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
-                nbytes=(2 * B * Hq * S * d + 2 * B * Hkv * S * d) * q.element_size(),
-                mm_flops=4 * B * Hq * pairs * d, ops=5 * B * Hq * pairs,
+                nbytes=nbytes, mm_flops=4 * B * Hq * pairs * d, ops=5 * B * Hq * pairs,
                 lat_ms=(log2c(S) + log2c(d)) * f32_op_ms, shapes=[(B, Hq, Hkv, S, d)])
+    # A k whose s-stride (84 elements, 168 bytes) breaks TMA's 16-byte rule:
+    # the wrapper copies it, and the tensor-core route runs.
+    q, _, v = flash_inputs(2, 4, 4, 300, 80, torch.bfloat16)
+    k = randn(2, 4, 300, 84, dtype=torch.bfloat16)[..., :80]
+    check("flash_attention (B, Hq, Hkv, S, d)=(2, 4, 4, 300, 80) causal=True bf16, k s-stride "
+          "168 bytes", "flash_attention",
+          lambda q, k, v: flash_attention_kernel(q, k, v, causal=True),
+          lambda q, k, v: flash_attention_plain(q, k, v, causal=True), None, (q, k, v),
+          torch.bfloat16, reps=3)
     # K7, every decode step of the shared block; the main path's largest
-    # valid length is the last step's, prompt + new tokens.
+    # valid length is the last step's, prompt + new tokens. The kernel splits
+    # the cache into chunks of CHUNK positions: valid_len at a chunk's end,
+    # one past it and 1 are its edges.
+    print(f"[3] decode_attention: chunks of {CHUNK} positions, "
+          f"{-(-LM_MAX_SEQ // CHUNK)} per (b, kv head) at S_max {LM_MAX_SEQ}", flush=True)
     for B, Hq, Hkv, S_max, d, valid, dtype, main in (
             (LM_BATCH, 32, 32, LM_MAX_SEQ, 80, LM_PROMPT + LM_NEW, torch.bfloat16, True),
             (LM_BATCH, 32, 32, LM_MAX_SEQ, 80, LM_PROMPT + LM_NEW, torch.float32, False),
+            (2, 32, 32, LM_MAX_SEQ, 80, CHUNK, torch.bfloat16, False),
+            (2, 32, 32, LM_MAX_SEQ, 80, CHUNK + 1, torch.float32, False),
+            (2, 32, 32, LM_MAX_SEQ, 80, 1, torch.bfloat16, False),
             (2, 8, 2, 300, 64, 1, torch.float32, False),
             (2, 8, 2, 300, 64, 100, torch.bfloat16, False),
             (2, 4, 1, 1000, 128, 1000, torch.float32, False),
@@ -343,9 +412,19 @@ def check_lm_kernels(dev, flush, f32_op_ms):
                   lambda q, k, v: decode_attention_plain(q, k, v, valid),
                   sdpa_decode(q, k, v, valid), (q, k, v), dtype, reps=20 if main else 3)
         if main:
+            # K7 is bitwise stable across calls (no float atomics) and never
+            # reads the cache past valid_len.
+            first = decode_attention_kernel(q, k, v, valid)
+            k[:, :, valid:] = float("nan")
+            v[:, :, valid:] = float("nan")
+            if not torch.equal(decode_attention_kernel(q, k, v, valid), first):
+                fail("decode_attention: two calls differ, or the cache past valid_len was read")
+            nbytes = (2 * B * Hq * d + 2 * B * Hkv * valid * d) * q.element_size()
+            rates("K7 bf16 at the main shape (bitwise equal across calls, NaN past valid_len "
+                  "unread)", e, nbytes, 4 * B * Hq * valid * d, e[3])
             entries["decode_attention"] = dict(
                 kind="decode_attention", err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
-                nbytes=(2 * B * Hq * d + 2 * B * Hkv * valid * d) * q.element_size(),
+                nbytes=nbytes,
                 mm_flops=4 * B * Hq * valid * d, ops=5 * B * Hq * valid,
                 lat_ms=(log2c(valid) + log2c(d)) * f32_op_ms,
                 shapes=[(B, Hq, d), (B, Hkv, S_max, d), valid])
@@ -446,11 +525,15 @@ def serve_zamba2(dev, K):
               "decode_attention": LM_NEW * groups, "embedding_gather": 1 + LM_NEW}
     if main_counts != {k: expect.get(k, 0) for k in main_counts}:
         fail(f"Zamba2 generate: launches {main_counts}; expected {expect} and no other kernel")
+    if K.flash_attention_kernel.routes != {"wgmma": groups, "scalar": 0}:
+        fail(f"Zamba2 generate: K6 routes {K.flash_attention_kernel.routes}; expected every "
+             "launch on the tensor-core route")
     if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
         fail(f"Zamba2 generate: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
     print(f"[7] generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_NEW} new each, in "
           f"{gen_s!r} s ({LM_BATCH * LM_NEW / gen_s!r} generated tokens/s end to end); launches "
-          f"{ {k: n for k, n in main_counts.items() if n} }; max_memory_allocated "
+          f"{ {k: n for k, n in main_counts.items() if n} }, K6 routes "
+          f"{K.flash_attention_kernel.routes}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B; first tokens {out[0, :8].tolist()}", flush=True)
 
     # Prefill and each decode step apart, with their launch counts.
@@ -659,6 +742,10 @@ def main() -> None:
         regs.append(f"{name}: {'; '.join(used) or 'cached'}")
     print(f"[2] built {sorted(p.name for p in libs.values())} in {build_s:.3f} s "
           f"({' | '.join(regs)})", flush=True)
+    log = libs["flash_attention"].with_suffix(".log")
+    if log.exists():
+        print(f"[2] flash_attention.cu, ptxas per kernel: {'; '.join(ptxas_report(log.read_text()))}",
+              flush=True)
 
     # ---- 3. latency probes, then kernels against their plain versions -----
     probe = _build.load_library("latency_probe")

@@ -13,7 +13,9 @@
 | K8 Mamba2 SSD scan | ``mamba2_ssd.mamba2_ssd_kernel`` | ``kernels/mamba2_ssd.py:_ssd_kernel`` |
 
 Each wrapper counts its launches in a ``launches`` attribute, incremented
-only where it launches its CUDA kernel.
+only where it launches its CUDA kernel; K6 also counts them by route
+(``flash_attention_kernel.routes``: the bf16 tensor-core kernel, "wgmma",
+and the f32 scalar kernel, "scalar").
 """
 from typing import Dict
 
@@ -49,3 +51,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention_kernel.routes = dict.fromkeys(flash_attention_kernel.routes, 0)

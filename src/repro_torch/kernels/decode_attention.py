@@ -10,9 +10,18 @@ the output is in q's dtype.
 ``decode_attention_kernel`` launches ``csrc/decode_attention.cu`` for CUDA
 tensors and runs ``decode_attention_plain`` (the reference's oracle,
 ``ref.decode_attention_ref``) for CPU tensors. ``valid_len`` is a host int:
-no device scalar is read per step. The kernel reads the cache only up to
-``valid_len`` and takes any S_max (the reference sends S_max % 512 != 0 to
-its oracle) and any dh up to 256.
+no device scalar is read per step. The kernel splits the cache into chunks
+of ``chunk`` positions, one block each, and merges the chunks' partial
+softmaxes by the log-sum-exp rule in a second kernel (flash-decoding);
+``decode_attention_split_plain`` is that algorithm in torch, for the tests.
+The kernel reads the cache only up to ``valid_len`` and takes any S_max
+(the reference sends S_max % 512 != 0 to its oracle) and any dh up to 256.
+
+``CHUNK`` = 128 positions was chosen on an H100 (``PERF.md`` §6): at
+Zamba2's decode shape it gives 9 chunks x 256 (b, kv head) = 2,304 blocks of
+~40 KB of copies in flight each. A head group too wide for a block's shared
+memory at that chunk halves it (``kernel_chunk``); the chunk never depends
+on ``valid_len``, so the launch shape is the same at every step.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 # Shared memory one block may use on an H100 (the opt-in maximum).
 SMEM_LIMIT = 232_448
+CHUNK = 128
+MIN_CHUNK = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -37,10 +48,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fns():
     lib = load_library("decode_attention")
     launch = lib.decode_attention_launch
-    launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+    launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+                       _I, _P]
     launch.restype = ctypes.c_int
     smem = lib.decode_attention_smem_bytes
-    smem.argtypes = [_I, _I]
+    smem.argtypes = [_I, _I, _I, _I]
     smem.restype = ctypes.c_int64
     return launch, smem
 
@@ -72,13 +84,55 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return decode_attention_ref(q, k, v, valid_len)
 
 
-def _launch(fn, q, k, v, out, valid: int, stream) -> int:
+def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 valid_len: int, chunk: int) -> torch.Tensor:
+    """The kernel's algorithm in torch (for the tests): the cache cut into
+    chunks of ``chunk`` positions, each chunk's max m, sum l and unnormalised
+    p.v in f32 (an empty chunk m = -1e30, l = 0, acc = 0), merged in chunk
+    order by the log-sum-exp rule."""
+    B, Hq, dh = q.shape
+    G, S_max = Hq // k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, k.shape[1], G, dh)
+    parts = []
+    for p0 in range(0, S_max, chunk):
+        n = min(chunk, valid_len - p0)
+        if n <= 0:
+            parts.append((torch.full(qf.shape[:3], -1e30, device=q.device),
+                          torch.zeros(qf.shape[:3], device=q.device), torch.zeros_like(qf)))
+            continue
+        kc, vc = k[:, :, p0:p0 + n].float(), v[:, :, p0:p0 + n].float()
+        s = torch.einsum("bhgd,bhkd->bhgk", qf, kc) / math.sqrt(dh)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(dim=-1), torch.einsum("bhgk,bhkd->bhgd", p, vc)))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    L, acc = torch.zeros_like(M), torch.zeros_like(qf)
+    for m, l, a in parts:
+        w = torch.exp(m - M)
+        L = L + w * l
+        acc = acc + w[..., None] * a
+    return (acc / L.clamp_min(1e-30)[..., None]).reshape(B, Hq, dh).to(q.dtype)
+
+
+def kernel_chunk(G: int, dh: int, dtype: torch.dtype, smem) -> int:
+    """``CHUNK``, halved while a block's shared memory would not hold it;
+    0 when even ``MIN_CHUNK`` does not fit."""
+    chunk = CHUNK
+    while chunk >= MIN_CHUNK:
+        if smem(G, dh, DTYPE_IDS[dtype], chunk) <= SMEM_LIMIT:
+            return chunk
+        chunk //= 2
+    return 0
+
+
+def _launch(fn, q, k, v, out, part, valid: int, chunk: int, stream) -> int:
     """Call the C launch function: q contiguous, k/v last dim contiguous."""
     B, Hq, dh = q.shape
-    Hkv = k.shape[1]
+    Hkv, S_max = k.shape[1], k.shape[2]
     strides = (ctypes.c_int64 * 6)(*k.stride()[:3], *v.stride()[:3])
-    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-              B, Hkv, Hq // Hkv, dh, valid, 1.0 / math.sqrt(dh), DTYPE_IDS[q.dtype], stream)
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(), strides,
+              B, Hkv, Hq // Hkv, S_max, dh, valid, chunk, 1.0 / math.sqrt(dh),
+              DTYPE_IDS[q.dtype], stream)
 
 
 def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,7 +150,8 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: the kernels launch on cuda:0, got {q.device}")
     launch, smem = _fns()
     G = q.shape[1] // k.shape[1]
-    if smem(G, q.shape[2]) > SMEM_LIMIT:
+    chunk = kernel_chunk(G, q.shape[2], q.dtype, smem)
+    if chunk == 0:
         raise ValueError(f"decode_attention: {G} query heads per kv head of width {q.shape[2]} "
                          "exceed a block's shared memory")
     q = q.contiguous()
@@ -104,7 +159,10 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0:
         return out
-    err = _launch(launch, q, k, v, out, min(valid_len, k.shape[2]),
+    n_chunks = -(-k.shape[2] // chunk)
+    part = torch.empty(q.shape[0] * q.shape[1] * n_chunks * (q.shape[2] + 2),
+                       dtype=torch.float32, device=q.device)
+    err = _launch(launch, q, k, v, out, part, min(valid_len, k.shape[2]), chunk,
                   torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
     decode_attention_kernel.launches += 1

@@ -8,10 +8,17 @@ default, f32 accumulation, output in q's dtype.
 
 ``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` for CUDA
 tensors and runs ``flash_attention_plain`` (the reference's oracle,
-``ref.flash_attention_ref``) for CPU tensors. The kernel takes any S (the
-reference sends S % 128 != 0 to its oracle; the kernel masks the ragged
-tile itself), any d up to 256, f32 or bf16, and strided q, k, v whose last
-dimension is contiguous.
+``ref.flash_attention_ref``) for CPU tensors. On the card the dtype picks
+the route: bf16 goes to the tensor-core kernel (``wgmma``, TMA loads; P is
+rounded to bf16 before p.v, as ``flash_attention_bf16p_plain`` does), f32
+to the scalar kernel, which keeps the reference's 2e-5. Each route launches
+or raises; ``flash_attention_kernel.routes`` counts the launches of each
+(``launches`` is their sum). Both take any S (the reference sends
+S % 128 != 0 to its oracle; the kernels mask the ragged tile themselves),
+any d up to 256 and strided q, k, v whose last dimension is contiguous. The
+tensor-core route reads through TMA, which needs 16-byte strides: the
+wrapper copies an operand whose strides are not, and pads d to a multiple
+of 8 when it is not one.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ._build import check_launch, load_library
 from .ref import flash_attention_ref
@@ -32,9 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.lru_cache(maxsize=None)
-def _fn():
-    fn = load_library("flash_attention").flash_attention_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+def _fn(route: str):
+    lib = load_library("flash_attention")
+    fn = lib.flash_attention_bf16_launch if route == "wgmma" else lib.flash_attention_f32_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -64,16 +73,52 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
+def flash_attention_bf16p_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                causal: bool = True,
+                                sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The oracle with the tensor-core route's one extra rounding point:
+    p = exp(s - max) is rounded to bf16 before p.v; the row sum is taken over
+    the f32 p, as the reference's is."""
+    B, Hq, S, d = q.shape
+    group = Hq // k.shape[1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    kf = k.repeat_interleave(group, dim=1).float()
+    vf = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * sm_scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(), vf)
+    return (out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+
+
 def _inner_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if TMA can read it (16-byte aligned, every stride of a dim
+    longer than 1 a multiple of 8 bf16 elements), else a contiguous copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+    return t if ok else t.contiguous()
+
+
+def _strides(t: torch.Tensor):
+    """Element strides (b, h, s); a dim of length 1 gets its contiguous
+    stride, so that a stride nothing reads never fails TMA's 16-byte rule."""
+    natural = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3], t.shape[3])
+    return [st if n > 1 else nat for n, st, nat in zip(t.shape[:3], t.stride()[:3], natural)]
+
+
 def _launch(fn, q, k, v, out, causal: bool, scale: float, stream) -> int:
-    """Call the C launch function on q, k, v (last dim contiguous) -> out."""
+    """Call a C launch function on q, k, v (last dim contiguous) -> out."""
     B, Hq, S, d = q.shape
-    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    strides = (ctypes.c_int64 * 9)(*_strides(q), *_strides(k), *_strides(v))
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-              B, Hq, k.shape[1], S, d, int(causal), scale, DTYPE_IDS[q.dtype], stream)
+              B, Hq, k.shape[1], S, d, int(causal), scale, stream)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -81,8 +126,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention ``(B, Hq, S, d)`` of q over k, v (see the module docstring).
 
-    The CUDA kernel for CUDA tensors, ``flash_attention_plain`` for CPU
-    tensors. A failed build or launch raises.
+    On the card, the tensor-core kernel for bf16 and the scalar kernel for
+    f32; ``flash_attention_plain`` for CPU tensors. A failed build or launch
+    raises.
     """
     _check(q, k, v)
     if sm_scale is None:
@@ -91,15 +137,22 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda" or q.device.index not in (None, 0):
         raise ValueError(f"flash_attention: the kernels launch on cuda:0, got {q.device}")
-    q, k, v = (_inner_contiguous(t) for t in (q, k, v))
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel() == 0:
-        return out
-    err = _launch(_fn(), q, k, v, out, causal, float(sm_scale),
+        return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    route = "wgmma" if q.dtype == torch.bfloat16 else "scalar"
+    d = q.shape[-1]
+    if route == "wgmma" and d % 8:
+        q, k, v = (F.pad(t, (0, 8 - d % 8)) for t in (q, k, v))
+    prep = _tma_ready if route == "wgmma" else _inner_contiguous
+    q, k, v = (prep(t) for t in (q, k, v))
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _launch(_fn(route), q, k, v, out, causal, float(sm_scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
     flash_attention_kernel.launches += 1
-    return out
+    flash_attention_kernel.routes[route] += 1
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.routes = {"wgmma": 0, "scalar": 0}

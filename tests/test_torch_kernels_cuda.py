@@ -25,6 +25,7 @@ from repro_torch.kernels.embedding_bag import (
     vmem_gather_pool_plain,
     vmem_tile_rows,
 )
+from repro_torch.kernels.decode_attention import CHUNK
 from repro_torch.kernels.stack_distance import stack_distance_groups, stack_distance_plain
 
 pytestmark = pytest.mark.cuda
@@ -268,6 +269,9 @@ def _randn(cuda, shape, dtype, seed=0):
     (1, 4, 1, 200, 128),       # MQA
     (1, 2, 2, 77, 256),        # the widest head
     (1, 3, 3, 1, 16),          # one position
+    (1, 2, 2, 129, 80),        # a q tile that straddles S
+    (1, 4, 1, 1000, 80),       # a ragged last TMA box
+    (1, 3, 3, 200, 72),        # d padded to the wgmma depth (a multiple of 16)
 ])
 def test_flash_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S, d, causal, dtype):
     from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
@@ -284,9 +288,43 @@ def test_flash_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S, d, causal, dty
     torch.testing.assert_close(got.float(), want.float(), **LM_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_routes_by_dtype(cuda, dtype):
+    """bf16 goes to the tensor-core kernel, f32 to the scalar one."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    q, k, v = (_randn(cuda, (1, 2, 128, 64), dtype, i) for i in range(3))
+    reset_launch_counts()
+    flash_attention_kernel(q, k, v)
+    route = "wgmma" if dtype == "bfloat16" else "scalar"
+    assert flash_attention_kernel.routes == {"wgmma": 0, "scalar": 0, route: 1}
+    assert launch_counts()["flash_attention"] == 1
+
+
+def test_flash_attention_copies_strides_tma_cannot_read(cuda):
+    """A k whose s-stride (84 elements, 168 bytes) breaks TMA's 16-byte rule
+    is copied by the wrapper; the tensor-core route still runs."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+
+    B, H, S, d = 2, 4, 300, 80
+    q = _randn(cuda, (B, H, S, d), "bfloat16", 1)
+    k = _randn(cuda, (B, H, S, d + 4), "bfloat16", 2)[..., :d]
+    v = _randn(cuda, (B, S, H, d), "bfloat16", 3).transpose(1, 2)
+    assert k.stride(2) * k.element_size() % 16 != 0
+    reset_launch_counts()
+    got = flash_attention_kernel(q, k, v, causal=True)
+    assert flash_attention_kernel.routes["wgmma"] == 1
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **LM_TOL["bfloat16"])
+
+
 @pytest.mark.parametrize("dtype", sorted(DT))
 @pytest.mark.parametrize("B,Hq,Hkv,S_max,d,valid", [
     (2, 32, 32, 1064, 80, 1056),   # Zamba2's last decode step
+    (2, 32, 32, 1064, 80, CHUNK),  # the cache ends at a chunk's end
+    (2, 32, 32, 1064, 80, CHUNK + 1),  # one position into the second chunk
+    (2, 32, 32, 1064, 80, 1),      # one chunk of one row, the rest empty
     (2, 8, 2, 300, 64, 1),
     (2, 8, 2, 300, 64, 100),       # mid-tile
     (2, 4, 1, 1000, 128, 1000),    # full cache, MQA

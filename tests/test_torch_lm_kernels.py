@@ -16,9 +16,19 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.decode_attention import decode_attention_kernel as jdecode_kernel
+from repro.kernels.flash_attention import flash_attention_kernel as jflash_kernel
 from repro_torch.kernels import launch_counts, ops, ref, reset_launch_counts
-from repro_torch.kernels.decode_attention import decode_attention_kernel
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.decode_attention import (
+    decode_attention_kernel,
+    decode_attention_plain,
+    decode_attention_split_plain,
+)
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bf16p_plain,
+    flash_attention_kernel,
+    flash_attention_plain,
+)
 from repro_torch.kernels.mamba2_ssd import kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -78,6 +88,27 @@ def test_flash_attention_takes_strided_views(rng):
                                rtol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,d,block", [
+    (128, 64, 64),
+    (200, 80, 40),     # ragged against the card kernel's 128-row tiles; d = 80
+    (72, 16, 24),
+])
+def test_flash_attention_bf16p_plain_matches_jax(S, d, block, causal, rng):
+    """The tensor-core route rounds p to bf16 before p.v, a rounding point the
+    reference does not have; its oracle stays inside the reference's bf16
+    tolerance against the Pallas kernel (interpret mode)."""
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng, (2, h, S, d), "bfloat16") for h in (4, 2, 2))
+    want = jflash_kernel(jq, jk, jv, causal=causal, block_q=block, block_k=block, interpret=True)
+    got = flash_attention_bf16p_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 4, S, d)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=3e-2)
+    # f32 inputs: the bf16 p alone moves the result by about 2^-9 |v|
+    exact = flash_attention_plain(tq.float(), tk.float(), tv.float(), causal=causal)
+    rounded = flash_attention_bf16p_plain(tq.float(), tk.float(), tv.float(), causal=causal)
+    assert 0 < float((rounded - exact).abs().max()) < 1e-2
+
+
 # --------------------------------------------------------------------------
 # K7 decode attention
 # --------------------------------------------------------------------------
@@ -99,6 +130,39 @@ def test_decode_attention_matches_jax(B, Hq, Hkv, S, dh, valid, dtype, rng):
     assert got.shape == (B, Hq, dh) and got.dtype == TDT[dtype]
     tol = 2e-5 if dtype == "float32" else 4e-2
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+def _split_cases():
+    cases = []
+    for S_max, chunk, block in ((192, 256, 64), (192, 64, 64), (200, 48, 40)):
+        for valid in sorted({1, chunk, chunk + 1, S_max}):
+            if valid <= S_max:
+                cases.append((S_max, chunk, block, valid))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S_max,chunk,block,valid", _split_cases())
+def test_decode_attention_split_matches_jax(S_max, chunk, block, valid, dtype, rng):
+    """The card kernel's split over the cache (1, 3 and 5 chunks, empty chunks
+    past valid_len) and its log-sum-exp merge, against the Pallas kernel in
+    interpret mode, at the reference's tolerances."""
+    B, Hq, Hkv, dh = 2, 4, 2, 32
+    jq, tq = _pair(rng, (B, Hq, dh), dtype)
+    jk, tk = _pair(rng, (B, Hkv, S_max, dh), dtype)
+    jv, tv = _pair(rng, (B, Hkv, S_max, dh), dtype)
+    want = jdecode_kernel(jq, jk, jv, jnp.int32(valid), block_k=block, interpret=True)
+    got = decode_attention_split_plain(tq, tk, tv, valid, chunk)
+    assert got.shape == (B, Hq, dh) and got.dtype == TDT[dtype]
+    tol = 2e-5 if dtype == "float32" else 4e-2
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+    if dtype == "float32":
+        np.testing.assert_allclose(_f32(got), _f32(decode_attention_plain(tq, tk, tv, valid)),
+                                   atol=2e-6, rtol=2e-5)
+    # the cache past valid_len is never read
+    tk[:, :, valid:] = float("nan")
+    tv[:, :, valid:] = float("nan")
+    assert torch.equal(decode_attention_split_plain(tq, tk, tv, valid, chunk), got)
 
 
 def test_decode_attention_masks_stale_cache(rng):
@@ -188,6 +252,34 @@ def test_mamba2_ssd_plain_is_chunk_invariant(rng):
     for chunk in (1, 7, 32, 128):
         np.testing.assert_allclose(_f32(mamba2_ssd_plain(*t, chunk)), _f32(seq), atol=2e-4,
                                    rtol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# What the wrappers hand the card kernels, and what they refuse
+# --------------------------------------------------------------------------
+
+def test_flash_attention_hands_tma_readable_tensors():
+    """The tensor-core route reads through TMA: 16-byte strides or a copy."""
+    from repro_torch.kernels.flash_attention import _strides, _tma_ready
+
+    v = torch.zeros(2, 300, 4, 80, dtype=torch.bfloat16).transpose(1, 2)   # prefill's views
+    assert _tma_ready(v) is v
+    k = torch.zeros(2, 4, 300, 84, dtype=torch.bfloat16)[..., :80]        # s-stride 168 bytes
+    assert not k.is_contiguous() and _tma_ready(k).is_contiguous()
+    assert torch.equal(_tma_ready(k), k)
+    # a dim of length 1 gets its contiguous stride, whatever the view says
+    one = torch.zeros(1, 8, 4, 80, dtype=torch.bfloat16)[:, :, 1:2]
+    assert one.stride()[:3] == (2560, 320, 80) and _strides(one) == [8 * 80, 320, 80]
+
+
+def test_decode_attention_chunk_halves_until_it_fits():
+    from repro_torch.kernels.decode_attention import CHUNK, MIN_CHUNK, SMEM_LIMIT, kernel_chunk
+
+    def smem(G, dh, dtype, chunk):
+        return chunk * G * 1000
+    assert kernel_chunk(1, 80, torch.bfloat16, smem) == CHUNK
+    assert kernel_chunk(SMEM_LIMIT // (1000 * CHUNK // 4), 80, torch.bfloat16, smem) == CHUNK // 4
+    assert kernel_chunk(SMEM_LIMIT // (1000 * MIN_CHUNK) + 1, 80, torch.bfloat16, smem) == 0
 
 
 # --------------------------------------------------------------------------
