@@ -9,7 +9,7 @@ passed over):
   1. device and versions, with the card's name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
      all at once), timed, with ptxas's registers and spills per kernel of
-     ``flash_attention.cu``;
+     ``flash_attention.cu``, ``mamba2_ssd.cu`` and K5;
   3. the latency of one dependent step, timed by the probes of
      ``csrc/latency_probe.cu``; then each kernel against its plain torch
      version on the card: K1 cache scan and K2 stack distance on the
@@ -28,9 +28,11 @@ passed over):
      chunk's end / one past it / mid-block / S_max, f32 and bf16, causal or
      not, chunk 16/64/128, N = 128, a ragged last chunk), against their
      plain versions at the reference's tolerances, with kernel, plain and
-     library-call times; K6's route (bf16: tensor cores, f32: scalar) is
-     checked on every call, K6's TFLOP/s and K7's TB/s printed beside their
-     bounds, K7 held bitwise equal across two calls with NaN past valid_len;
+     library-call times; K6's and K8's routes (bf16: tensor cores, f32:
+     scalar) are checked on every call, K6's TFLOP/s and K7's and K8's TB/s
+     printed beside their bounds (K8 with its P-slice and resident blocks
+     per SM, K5 with its share of the bound and F.embedding_bag's time), K7
+     held bitwise equal across two calls with NaN past valid_len;
   4. ``simulate`` on the full DLRM-RMC2 workload (60 tables x 1M rows x dim
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
      policy/backend pair of the slice, with launch counts reset just before
@@ -188,9 +190,10 @@ def time_cold_ms(fn, reps: int, flush) -> float:
     return total / reps
 
 
-def device_busy(events, wall: float) -> str:
+def device_busy(events, wall: float, kernels=()) -> str:
     """Busy share of the card from a profiler's events: device events
-    (kernels, copies, fills) merged into busy intervals."""
+    (kernels, copies, fills) merged into busy intervals; plus the summed
+    device time of the events whose names hold each of ``kernels``."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == DeviceType.CUDA)
@@ -203,9 +206,11 @@ def device_busy(events, wall: float) -> str:
             end = b
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    named = {k: round(sum(t for n, t in by_name.items() if k in n), 3) for k in kernels}
     return (f"device busy {busy_us / 1e6!r} s ({100 * busy_us / 1e6 / wall!r}% busy) over "
             f"{len(spans)} device events; top device time (us): "
-            f"{json.dumps([[n[:60], round(t, 3)] for n, t in top])}")
+            f"{json.dumps([[n[:60], round(t, 3)] for n, t in top])}"
+            f"{f'; device time (us) of {json.dumps(named)}' if kernels else ''}")
 
 
 def probe_step_ms(launch, inp, out, want) -> float:
@@ -231,9 +236,11 @@ def ptxas_report(log: str):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for word in ("flash_wgmma_kernel", "flash_kernel"):
+            for word in ("flash_wgmma_kernel", "flash_kernel", "ssd_mma_kernel", "ssd_cumsum_kernel",
+                         "ssd_kernel", "pool_kernel"):
                 if word in name:
                     name = word + name.split(word, 1)[1][:24]
+                    break
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "Used" in ln and name is not None:
@@ -276,7 +283,8 @@ def check_lm_kernels(dev, flush, f32_op_ms):
     from repro_torch.kernels.decode_attention import (
         CHUNK, decode_attention_kernel, decode_attention_plain)
     from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
-    from repro_torch.kernels.mamba2_ssd import kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain
+    from repro_torch.kernels.mamba2_ssd import (
+        P_SLICE, kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain, mma_blocks_per_sm)
 
     gen = torch.Generator(device=dev).manual_seed(2)
 
@@ -291,8 +299,8 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         return (randn(B, Hq, d, dtype=dtype), randn(B, Hkv, S_max, d, dtype=dtype),
                 randn(B, Hkv, S_max, d, dtype=dtype))
 
-    def ssd_inputs(B, H, S, P, N, dtype):
-        xbc = randn(B, S, H * P + 2 * N, dtype=dtype)
+    def ssd_inputs(B, H, S, P, N, dtype, pad=0):
+        xbc = randn(B, S, pad + H * P + 2 * N, dtype=dtype)[..., pad:]
         x = xbc[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
         dt = F.softplus(randn(B, S, H)).transpose(1, 2)
         adt = -torch.linspace(1.0, 16.0, H, device=dev)[None, :, None] * dt
@@ -307,6 +315,12 @@ def check_lm_kernels(dev, flush, f32_op_ms):
             route = "wgmma" if dtype == torch.bfloat16 else "scalar"
             if flash_attention_kernel.routes != {"wgmma": 0, "scalar": 0, route: 1}:
                 fail(f"{label}: routes {flash_attention_kernel.routes}, expected one {route}")
+            label += f" [{route} route]"
+        if name == "mamba2_ssd":
+            # bf16 runs the tensor-core kernel, f32 the scalar one
+            route = "mma" if dtype == torch.bfloat16 else "scalar"
+            if mamba2_ssd_kernel.routes != {"mma": 0, "scalar": 0, route: 1}:
+                fail(f"{label}: routes {mamba2_ssd_kernel.routes}, expected one {route}")
             label += f" [{route} route]"
         tol = LM_TOL[(name, dtype)]
         err = max_abs_err(got, want)
@@ -428,30 +442,45 @@ def check_lm_kernels(dev, flush, f32_op_ms):
                 mm_flops=4 * B * Hq * valid * d, ops=5 * B * Hq * valid,
                 lat_ms=(log2c(valid) + log2c(d)) * f32_op_ms,
                 shapes=[(B, Hq, d), (B, Hkv, S_max, d), valid])
-    # K8, the prompt pass of every Mamba2 layer (80 heads of 64, N = 64).
-    for B, H, S, P, N, chunk, dtype, main in (
-            (LM_BATCH, 80, LM_PROMPT, 64, 64, 128, torch.bfloat16, True),
-            (LM_BATCH, 80, LM_PROMPT, 64, 64, 128, torch.float32, False),
-            (2, 4, 300, 32, 128, 128, torch.float32, False),
-            (1, 3, 100, 16, 16, 16, torch.float32, False),
-            (2, 8, 200, 64, 64, 64, torch.bfloat16, False),
-            (1, 2, 130, 64, 64, 128, torch.float32, False),
-            (1, 2, 5, 64, 64, 128, torch.float32, False)):
-        args = ssd_inputs(B, H, S, P, N, dtype)
-        Q = kernel_chunk(chunk, S, P, N)
+    # K8, the prompt pass of every Mamba2 layer (80 heads of 64, N = 64). The
+    # bf16 rows run the tensor-core route (P-slices, hi/lo split products),
+    # the f32 rows the scalar kernel; a view shifted by ``pad`` columns puts
+    # rows off 16 bytes, which the bf16 route copies.
+    for B, H, S, P, N, chunk, dtype, main, pad in (
+            (LM_BATCH, 80, LM_PROMPT, 64, 64, 128, torch.bfloat16, True, 0),
+            (LM_BATCH, 80, LM_PROMPT, 64, 64, 128, torch.float32, False, 0),
+            (2, 4, 300, 32, 128, 128, torch.float32, False, 0),
+            (2, 4, 300, 32, 128, 128, torch.bfloat16, False, 0),
+            (1, 3, 100, 16, 16, 16, torch.float32, False, 0),
+            (1, 3, 100, 16, 16, 16, torch.bfloat16, False, 0),
+            (2, 8, 200, 64, 64, 64, torch.bfloat16, False, 0),
+            (2, 8, 200, 64, 64, 64, torch.bfloat16, False, 4),
+            (1, 2, 130, 64, 64, 128, torch.float32, False, 0),
+            (1, 2, 130, 64, 64, 128, torch.bfloat16, False, 0),
+            (1, 2, 5, 64, 64, 128, torch.float32, False, 0),
+            (1, 2, 5, 64, 64, 128, torch.bfloat16, False, 0)):
+        args = ssd_inputs(B, H, S, P, N, dtype, pad)
+        Q = kernel_chunk(chunk, S, P, N, dtype)
         e = check(f"mamba2_ssd (B, H, S, P, N)={(B, H, S, P, N)} chunk={chunk} (kernel's {Q}) "
-                  f"{dtype}{' (main path)' if main else ''}", "mamba2_ssd",
+                  f"{dtype}{f', rows {2 * pad} bytes off 16' if pad else ''}"
+                  f"{' (main path)' if main else ''}", "mamba2_ssd",
                   lambda *a: mamba2_ssd_kernel(*a, chunk=chunk),
                   lambda *a: mamba2_ssd_plain(*a, chunk), None, args, dtype,
                   reps=10 if main else 3)
         if main:
+            nbytes = ((2 * B * H * S * P + 2 * B * S * N) * args[0].element_size()
+                      + 2 * B * H * S * 4)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"[3] K8 bf16 at the main shape: {nbytes / e[1] / 1e9!r} TB/s (byte bound "
+                  f"{bytes_ms!r} ms at {HBM_BYTES_PER_S / 1e12:.2f}), kernel {e[1]!r} ms = "
+                  f"{e[1] / bytes_ms!r} x the bound; P-slice {P_SLICE} ({B * H * P // P_SLICE} "
+                  f"blocks), {mma_blocks_per_sm(Q, P, N)} resident blocks per SM", flush=True)
             lens = [min(Q, S - c0) for c0 in range(0, S, Q)]
             tri = sum(q * (q + 1) // 2 for q in lens)
             entries["mamba2_ssd"] = dict(
                 kind="mamba2_ssd", err=e[0], ms=e[1], plain_ms=e[2], library_ms=None,
                 library_none="no one PyTorch call computes a chunked SSD scan",
-                nbytes=(2 * B * H * S * P + 2 * B * S * N) * args[0].element_size()
-                + 2 * B * H * S * 4,
+                nbytes=nbytes,
                 # C.B^T once per batch row (it does not depend on the head);
                 # per head: the decayed scores times x, C.state and the update
                 mm_flops=2 * B * N * tri + 2 * B * H * (P * tri + 2 * S * N * P),
@@ -528,11 +557,15 @@ def serve_zamba2(dev, K):
     if K.flash_attention_kernel.routes != {"wgmma": groups, "scalar": 0}:
         fail(f"Zamba2 generate: K6 routes {K.flash_attention_kernel.routes}; expected every "
              "launch on the tensor-core route")
+    if K.mamba2_ssd_kernel.routes != {"mma": cfg.n_layers, "scalar": 0}:
+        fail(f"Zamba2 generate: K8 routes {K.mamba2_ssd_kernel.routes}; expected every "
+             "launch on the tensor-core route")
     if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
         fail(f"Zamba2 generate: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
     print(f"[7] generate: {LM_BATCH} x {LM_PROMPT} prompt tokens, {LM_NEW} new each, in "
           f"{gen_s!r} s ({LM_BATCH * LM_NEW / gen_s!r} generated tokens/s end to end); launches "
-          f"{ {k: n for k, n in main_counts.items() if n} }, K6 routes "
+          f"{ {k: n for k, n in main_counts.items() if n} }, K8 routes "
+          f"{K.mamba2_ssd_kernel.routes}, K6 routes "
           f"{K.flash_attention_kernel.routes}; max_memory_allocated "
           f"{torch.cuda.max_memory_allocated()} B; first tokens {out[0, :8].tolist()}", flush=True)
 
@@ -604,7 +637,8 @@ def serve_zamba2(dev, K):
             engine.prefill(params, tokens, caches3)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        print(f"[7] profiled prefill: wall {wall!r} s, {device_busy(tprof.events(), wall)}",
+        print(f"[7] profiled prefill: wall {wall!r} s, "
+              f"{device_busy(tprof.events(), wall, ('ssd_mma_kernel', 'ssd_cumsum_kernel'))}",
               flush=True)
         del caches3
 
@@ -742,10 +776,11 @@ def main() -> None:
         regs.append(f"{name}: {'; '.join(used) or 'cached'}")
     print(f"[2] built {sorted(p.name for p in libs.values())} in {build_s:.3f} s "
           f"({' | '.join(regs)})", flush=True)
-    log = libs["flash_attention"].with_suffix(".log")
-    if log.exists():
-        print(f"[2] flash_attention.cu, ptxas per kernel: {'; '.join(ptxas_report(log.read_text()))}",
-              flush=True)
+    for lib, word in (("flash_attention", ""), ("mamba2_ssd", ""), ("embedding_bag", "pool_kernel")):
+        log = libs[lib].with_suffix(".log")
+        if log.exists():
+            rep = [r for r in ptxas_report(log.read_text()) if word in r]
+            print(f"[2] {lib}.cu, ptxas per kernel: {'; '.join(rep)}", flush=True)
 
     # ---- 3. latency probes, then kernels against their plain versions -----
     probe = _build.load_library("latency_probe")
@@ -1031,6 +1066,13 @@ def main() -> None:
              2 * N * D, L * f32_op_ms, [(N_HOT, D), (B, T, L)])):
         entries[name] = dict(kind=name, err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
                              nbytes=nbytes, ops=nops, lat_ms=lat, shapes=shapes)
+    k5 = entries["vmem_gather_pool"]
+    k5_bound = max(k5["nbytes"] / HBM_BYTES_PER_S * 1e3, k5["ops"] / SCALAR_OPS_PER_S * 1e3,
+                   k5["lat_ms"])
+    print(f"[3] K5 at request 0 (one warp per bag): kernel {e5[1]!r} ms, F.embedding_bag "
+          f"{e5[3]!r} ms ({e5[1] / e5[3]!r} x the library call); bound {k5_bound!r} ms "
+          f"(bytes {k5['nbytes'] / HBM_BYTES_PER_S * 1e3!r}, chain of {L} adds "
+          f"{k5['lat_ms']!r}), kernel = {e5[1] / k5_bound!r} x its bound", flush=True)
     print(f"[3] request 0: {N} lookups touch {distinct3} distinct rows ({distinct4} in the "
           f"pinned path's cold stream, hot lookups sent to row 0)", flush=True)
     del model, table, hot_table, flush
@@ -1182,7 +1224,7 @@ def main() -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         print(f"[6] profiled pinned forward (request {DLRM_STEPS - 1}): wall {wall!r} s, "
-              f"{device_busy(tprof.events(), wall)}", flush=True)
+              f"{device_busy(tprof.events(), wall, ('pool_kernel',))}", flush=True)
     del model, pinned
     torch.cuda.empty_cache()
     print(f"[6] full-width model freed: memory_allocated {torch.cuda.memory_allocated()} B",

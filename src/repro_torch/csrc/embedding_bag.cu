@@ -16,9 +16,14 @@
 // 32 consecutive elements of one row) and keep many rows in flight (the
 // loads of a bag do not depend on its running sum, so the unrolled loop
 // issues them ahead of the adds). K5 reads its table from device memory
-// once per resident block instead of once per lookup.
+// once per resident block instead of once per lookup; its lookups then
+// read shared memory, so what bounds it on the card is the chain of L
+// dependent adds of each bag: it runs one warp per bag (a lane holds 4
+// columns of a 128-wide row, one 16-byte shared load a step), spreads the
+// bags over every SM, and keeps the indices out of the chain (loaded 32
+// at a time, a block ahead, handed between lanes by shuffle).
 //
-// Summation order is the reference's: one thread owns one output column and
+// Summation order is the reference's: one thread owns each output column and
 // adds rows in l = 0..L-1 order with __fadd_rn (K5: __fmul_rn then
 // __fadd_rn; the library is built with -fmad=false), so a kernel equals its
 // plain torch version bit for bit. The one exception is a K5 hot table that
@@ -44,6 +49,8 @@ constexpr int kMaxColThreads = 256;
 constexpr int kMaxGroups = kBlockThreads / 32;
 // K3 stages this many indices of each bag in shared memory at a time.
 constexpr int kChunk = 128;
+// K5: warps of a block, one bag each.
+constexpr int kPoolMaxWarps = 32;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -122,50 +129,140 @@ __global__ void gather_kernel(const U* __restrict__ table, const int* __restrict
   }
 }
 
-// K5. Persistent blocks; each stages the hot table tile by tile in shared
-// memory and, per tile, walks its bags (group g: bags blockIdx.x * groups +
-// g, then + gridDim.x * groups, ...). A bag's running sums live in
-// registers within a tile and in `scratch` (f32, (bags, D)) between tiles;
-// with one tile, scratch is not touched.
+// K5. One warp per bag, columns across lanes; blocks of up to 32 warps,
+// each staging the hot table tile by tile in shared memory (cp.async, 16
+// bytes a thread, while the warps load their first bag's indices) and, per
+// tile, walking its bags (warp w: bags blockIdx.x * warps + w, then +
+// gridDim.x * warps, ...). A lane owns a few columns of a pass over D: 4
+// consecutive ones per group of 32 lanes (one 16-byte f32 or 8-byte bf16
+// shared load) when D % 4 == 0, else every 32nd (scalar loads). The warp
+// loads 32 positions and masks at a time, coalesced, one block of 32 ahead
+// of the one it sums, and hands each step's position and mask from lane to
+// lane by shuffle, so no step of the chain waits on device memory. A bag's
+// running sums live in registers within a tile and in `scratch` (f32,
+// (bags, D)) between tiles; with one tile, scratch is not touched.
 template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
+__device__ __forceinline__ void load4(const T* p, float (&v)[4]);
+template <>
+__device__ __forceinline__ void load4<float>(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+template <>
+__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16); v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16); v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)), "l"(src));
+}
+
+// VEC: a lane's columns are VPL groups of 4 consecutive ones (c0 + 4 (lane
+// + 32 v) + e), read as one 16-byte (f32) or 8-byte (bf16) shared load;
+// else VPL single columns (c0 + lane + 32 u). A pass covers 32 * KC columns.
+template <typename T, bool VEC, int VPL>
+__global__ void __launch_bounds__(32 * kPoolMaxWarps)
 pool_kernel(const T* __restrict__ hot, const int* __restrict__ pos,
             const int* __restrict__ mask, int H, int64_t bags, int L, int D,
-            int tile_rows, int col_threads, float* __restrict__ scratch,
-            T* __restrict__ out) {
+            int tile_rows, float* __restrict__ scratch, T* __restrict__ out) {
+  constexpr int KC = VEC ? 4 * VPL : VPL;  // columns a lane sums per pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
-  const int groups = blockDim.x / col_threads;
-  const int g = threadIdx.x / col_threads;
-  const int c = threadIdx.x % col_threads;
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  const int64_t first_bag = (int64_t)blockIdx.x * warps + threadIdx.x / 32;
+  const int64_t bag_step = (int64_t)gridDim.x * warps;
   const int ntiles = (H + tile_rows - 1) / tile_rows;
   for (int k = 0; k < ntiles; ++k) {
     const int h0 = k * tile_rows;
     const int nh = min(tile_rows, H - h0);
     const bool first = k == 0;
     const bool last = k == ntiles - 1;
-    __syncthreads();
-    const int64_t n_el = (int64_t)nh * D;
+    __syncthreads();  // every warp is done with the previous tile
     const T* src = hot + (int64_t)h0 * D;
-    for (int64_t e = threadIdx.x; e < n_el; e += blockDim.x) tile[e] = src[e];
+    const int64_t nbytes = (int64_t)nh * D * sizeof(T);
+    if ((uintptr_t)src % 16 == 0 && nbytes % 16 == 0) {
+      for (int64_t e = threadIdx.x; e < nbytes / 16; e += blockDim.x) {
+        cp_async16(smem_raw + 16 * e, reinterpret_cast<const unsigned char*>(src) + 16 * e);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    } else {
+      for (int64_t e = threadIdx.x; e < (int64_t)nh * D; e += blockDim.x) tile[e] = src[e];
+    }
+    // the first bag's first block of indices, loaded while the tile lands
+    int pn = 0, mn = 0;
+    if (first_bag < bags && lane < L) {
+      pn = pos[first_bag * L + lane];
+      mn = mask[first_bag * L + lane];
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    for (int64_t bag = (int64_t)blockIdx.x * groups + g; bag < bags;
-         bag += (int64_t)gridDim.x * groups) {
+    for (int64_t bag = first_bag; bag < bags; bag += bag_step) {
       const int* p = pos + bag * L;
       const int* m = mask + bag * L;
-      for (int col = c; col < D; col += col_threads) {
-        float acc = first ? 0.0f : scratch[bag * D + col];
-#pragma unroll 4
-        for (int l = 0; l < L; ++l) {
-          const int q = (int)clamp_row(p[l], H) - h0;
-          if (q >= 0 && q < nh) {
-            acc = __fadd_rn(acc, __fmul_rn((float)m[l], to_f32(tile[(int64_t)q * D + col])));
+      for (int c0 = 0; c0 < D; c0 += 32 * KC) {
+        if (bag != first_bag || c0 != 0) {
+          pn = lane < L ? p[lane] : 0;
+          mn = lane < L ? m[lane] : 0;
+        }
+        // this lane's columns; loads of columns past D read column 0 and
+        // their sums are never stored, so the loop below has no branch
+        int col[KC], ld[VPL];
+#pragma unroll
+        for (int u = 0; u < KC; ++u) {
+          col[u] = VEC ? c0 + 4 * (lane + 32 * (u / 4)) + u % 4 : c0 + lane + 32 * u;
+        }
+#pragma unroll
+        for (int v = 0; v < VPL; ++v) ld[v] = col[VEC ? 4 * v : v] < D ? col[VEC ? 4 * v : v] : 0;
+        float acc[KC];
+#pragma unroll
+        for (int u = 0; u < KC; ++u) {
+          acc[u] = (first || col[u] >= D) ? 0.0f : scratch[bag * D + col[u]];
+        }
+        for (int l0 = 0; l0 < L; l0 += 32) {
+          const int q = (int)clamp_row(pn, H) - h0;
+          const float mf = (float)mn;
+          // the next block of 32, in flight while this one is summed
+          const int ln = l0 + 32 + lane;
+          pn = ln < L ? p[ln] : 0;
+          mn = ln < L ? m[ln] : 0;
+          const int n = min(32, L - l0);
+          // straight-line and unrolled, so that the shuffles and shared
+          // loads of later steps issue ahead of this step's adds (which
+          // stay in l order). A position outside this tile adds +0, which
+          // leaves every sum as skipping it would (sums never hold -0).
+#pragma unroll 8
+          for (int i = 0; i < n; ++i) {
+            const int qi = __shfl_sync(0xffffffffu, q, i);
+            const float mi = __shfl_sync(0xffffffffu, mf, i);
+            const bool in = qi >= 0 && qi < nh;
+            const T* row = tile + (int64_t)(in ? qi : 0) * D;
+#pragma unroll
+            for (int v = 0; v < VPL; ++v) {
+              float r[4];
+              if (VEC) {
+                load4<T>(row + ld[v], r);
+              } else {
+                r[0] = to_f32(row[ld[v]]);
+              }
+#pragma unroll
+              for (int e = 0; e < (VEC ? 4 : 1); ++e) {
+                const int u = VEC ? 4 * v + e : v;
+                acc[u] = __fadd_rn(acc[u], in ? __fmul_rn(mi, r[e]) : 0.0f);
+              }
+            }
           }
         }
-        if (last) {
-          out[bag * D + col] = from_f32<T>(acc);
-        } else {
-          scratch[bag * D + col] = acc;
+#pragma unroll
+        for (int u = 0; u < KC; ++u) {
+          if (col[u] >= D) continue;
+          if (last) {
+            out[bag * D + col[u]] = from_f32<T>(acc[u]);
+          } else {
+            scratch[bag * D + col[u]] = acc[u];
+          }
         }
       }
     }
@@ -196,15 +293,26 @@ int launch_gather(const void* table, const int* idx, int64_t rows, int64_t n,
   return (int)cudaGetLastError();
 }
 
-int pool_threads(int D) {
-  const int col_threads = col_threads_for(D);
-  return col_threads * (kBlockThreads / col_threads);
+// Opts every pool_kernel<T, ...> in to the device's largest dynamic shared
+// memory: one value for every table, so a later call never lowers it under
+// an earlier one's tile.
+template <typename T>
+cudaError_t pool_optin(int optin) {
+  cudaError_t e = cudaFuncSetAttribute(pool_kernel<T, true, 1>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(pool_kernel<T, true, 2>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(pool_kernel<T, false, 8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  }
+  return e;
 }
 
-// Opts pool_kernel<T> in to the device's largest dynamic shared memory (one
-// value for every table, so a later call never lowers it under an earlier
-// one's tile) and returns how many blocks with a tile of tile_rows x D stay
-// resident on the whole card.
+// The opt-in, and how many blocks of 32 warps with a tile of tile_rows x D
+// stay resident on the whole card.
 template <typename T>
 int prepare_pool(int D, int tile_rows, int* blocks) {
   const size_t smem = (size_t)tile_rows * D * sizeof(T);
@@ -214,12 +322,10 @@ int prepare_pool(int D, int tile_rows, int* blocks) {
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  if (e == cudaSuccess && smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(pool_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-  }
+  if (e == cudaSuccess && smem > 48 * 1024) e = pool_optin<T>(optin);
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pool_kernel<T>, pool_threads(D),
-                                                      smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pool_kernel<T, false, 8>,
+                                                      32 * kPoolMaxWarps, smem);
   }
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
@@ -227,17 +333,33 @@ int prepare_pool(int D, int tile_rows, int* blocks) {
   return 0;
 }
 
+// Warps per block: the bags spread over every resident block, at most 32
+// warps a block.
+int pool_warps(int64_t bags, int max_blocks) {
+  const int64_t w = (bags + max_blocks - 1) / max_blocks;
+  return (int)(w < 1 ? 1 : (w > kPoolMaxWarps ? kPoolMaxWarps : w));
+}
+
 template <typename T>
 int launch_pool(const void* hot, const int* pos, const int* mask, int H, int64_t bags,
                 int L, int D, int tile_rows, int max_blocks, float* scratch, void* out,
                 cudaStream_t st) {
-  const int col_threads = col_threads_for(D);
-  const int groups = kBlockThreads / col_threads;
+  const int warps = pool_warps(bags, max_blocks);
   const size_t smem = (size_t)tile_rows * D * sizeof(T);
-  const int64_t want = (bags + groups - 1) / groups;
+  const int64_t want = (bags + warps - 1) / warps;
   const int grid = (int)(want < max_blocks ? want : max_blocks);
-  pool_kernel<T><<<grid, pool_threads(D), smem, st>>>((const T*)hot, pos, mask, H, bags, L, D,
-                                                       tile_rows, col_threads, scratch, (T*)out);
+  const T* h = (const T*)hot;
+  T* o = (T*)out;
+  if (D % 4) {
+    pool_kernel<T, false, 8><<<grid, 32 * warps, smem, st>>>(h, pos, mask, H, bags, L, D,
+                                                            tile_rows, scratch, o);
+  } else if (D <= 128) {
+    pool_kernel<T, true, 1><<<grid, 32 * warps, smem, st>>>(h, pos, mask, H, bags, L, D,
+                                                           tile_rows, scratch, o);
+  } else {
+    pool_kernel<T, true, 2><<<grid, 32 * warps, smem, st>>>(h, pos, mask, H, bags, L, D,
+                                                           tile_rows, scratch, o);
+  }
   return (int)cudaGetLastError();
 }
 

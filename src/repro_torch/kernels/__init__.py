@@ -13,9 +13,11 @@
 | K8 Mamba2 SSD scan | ``mamba2_ssd.mamba2_ssd_kernel`` | ``kernels/mamba2_ssd.py:_ssd_kernel`` |
 
 Each wrapper counts its launches in a ``launches`` attribute, incremented
-only where it launches its CUDA kernel; K6 also counts them by route
+only where it launches its CUDA kernel; K6 and K8 also count them by route
 (``flash_attention_kernel.routes``: the bf16 tensor-core kernel, "wgmma",
-and the f32 scalar kernel, "scalar").
+and the f32 scalar kernel, "scalar"; ``mamba2_ssd_kernel.routes``: the bf16
+tensor-core kernel, "mma", and the f32 scalar kernel, "scalar"). K8's bf16
+route is two CUDA kernels (a cumsum pre-pass and the scan) under one count.
 """
 from typing import Dict
 
@@ -52,3 +54,4 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     flash_attention_kernel.routes = dict.fromkeys(flash_attention_kernel.routes, 0)
+    mamba2_ssd_kernel.routes = dict.fromkeys(mamba2_ssd_kernel.routes, 0)

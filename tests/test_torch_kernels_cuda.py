@@ -198,6 +198,42 @@ def test_vmem_gather_pool_kernel_equals_plain(cuda, H, D, B, T, L, dtype):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("D", [1, 3, 100, 128, 256])
+@pytest.mark.parametrize("B,T,L", [(4, 6, 40), (50, 100, 3), (1921, 1, 7)])
+def test_vmem_gather_pool_warp_per_bag_bitwise(cuda, D, B, T, L, dtype):
+    """One warp per bag: every D (vector and scalar columns, one and two
+    passes), bag counts that leave a block's warps part-filled (5,000 and
+    1,921 bags), and positions outside the table (clamped as the reference
+    clamps), bit for bit."""
+    H = 64
+    hot = _table(cuda, H, D, dtype, seed=D)
+    pos = _ints(cuda, -H - 3, H + 5, (B, T, L), seed=3)
+    mask = _ints(cuda, 0, 2, (B, T, L), seed=4)
+    reset_launch_counts()
+    got = vmem_gather_pool_kernel(hot, pos, mask)
+    assert launch_counts()["vmem_gather_pool"] == 1
+    want = vmem_gather_pool_plain(hot, pos, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+def test_vmem_gather_pool_multi_tile(cuda, dtype):
+    """A hot table larger than one block's shared memory: the kernel sums
+    tile by tile (the same terms, grouped by tile), through f32 scratch."""
+    D = 256
+    H = 3 * vmem_tile_rows(D * torch.empty((), dtype=DT[dtype]).element_size()) // 2
+    hot = _table(cuda, H, D, dtype, seed=5)
+    pos = _ints(cuda, 0, H, (6, 7, 45), seed=6)
+    mask = _ints(cuda, 0, 2, (6, 7, 45), seed=7)
+    got = vmem_gather_pool_kernel(hot, pos, mask)
+    want = vmem_gather_pool_plain(hot, pos, mask)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_vmem_tile_rows_is_the_cards_opt_in_shared_memory(cuda):
     # 232,448 bytes on an H100 where torch does not report it
     optin = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
@@ -353,7 +389,7 @@ def test_decode_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S_max, d, valid,
 @pytest.mark.parametrize("dtype", sorted(DT))
 @pytest.mark.parametrize("B,H,S,P,N,chunk", [
     (2, 8, 1024, 64, 64, 128),     # Zamba2's SSD shape, fewer heads
-    (2, 4, 300, 32, 128, 128),     # N = 128 (the kernel's chunk: 64), ragged
+    (2, 4, 300, 32, 128, 128),     # N = 128 (chunk: f32 64, bf16 128), ragged
     (1, 3, 100, 16, 16, 16),
     (2, 8, 200, 64, 64, 64),       # ragged last chunk
     (1, 2, 5, 64, 64, 128),        # shorter than one chunk
@@ -369,6 +405,8 @@ def test_mamba2_ssd_kernel_equals_plain(cuda, B, H, S, P, N, chunk, dtype):
     reset_launch_counts()
     got = mamba2_ssd_kernel(x, adt, dt, Bm, C, chunk=chunk)
     assert launch_counts()["mamba2_ssd"] == 1
+    route = "mma" if dtype == "bfloat16" else "scalar"
+    assert mamba2_ssd_kernel.routes == {"mma": 0, "scalar": 0, route: 1}
     want = mamba2_ssd_plain(x, adt, dt, Bm, C, chunk)
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.dtype == x.dtype
@@ -384,6 +422,91 @@ def test_mamba2_ssd_smem_matches_its_python_twin(cuda):
     fn.restype = ctypes.c_int64
     for Q, P, N in ((128, 64, 64), (64, 64, 128), (16, 16, 16), (100, 32, 128)):
         assert fn(Q, P, N) == m.smem_bytes(Q, P, N)
+
+
+def _ssd_views(cuda, B, H, S, P, N, dtype, pad=0, seed=1):
+    """x, adt, dt, B, C as the Mamba2 block hands them (x a transpose of a
+    slice of one projection, B and C column slices of it, dt (B, S, H) in
+    memory); ``pad`` extra leading columns shift every view."""
+    xbc = _randn(cuda, (B, S, pad + H * P + 2 * N), dtype, seed)[..., pad:]
+    x = xbc[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    dt = torch.nn.functional.softplus(_randn(cuda, (B, S, H), "float32", seed + 1)).transpose(1, 2)
+    adt = -torch.linspace(1.0, 16.0, H, device=cuda)[None, :, None] * dt
+    return x, adt, dt, xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+
+
+def _ssd_check(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-4, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("ps", [16, 32, 64])
+@pytest.mark.parametrize("P", [16, 32, 48, 64])
+def test_mamba2_ssd_bf16_p_slices(cuda, monkeypatch, P, ps):
+    """Every P-slice width against every head dim: P_SLICE as the wrapper
+    runs it (64) and as scripts/ssd_ablation.py sets it (32, 16)."""
+    from repro_torch.kernels import mamba2_ssd as m
+
+    monkeypatch.setattr(m, "P_SLICE", ps)
+    args = _ssd_views(cuda, 2, 3, 300, P, 64, "bfloat16")
+    reset_launch_counts()
+    got = m.mamba2_ssd_kernel(*args, chunk=128)
+    assert m.mamba2_ssd_kernel.routes == {"mma": 1, "scalar": 0}
+    _ssd_check(got, m.mamba2_ssd_plain(*args, 128))
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk,pad", [
+    (8, 80, 1024, 64, 64, 128, 0),   # Zamba2-2.7B's prefill, all 80 heads
+    (2, 4, 300, 32, 128, 128, 0),    # N = 128 at a chunk of 128, ragged
+    (1, 3, 100, 16, 16, 16, 0),
+    (2, 2, 257, 32, 32, 100, 0),     # a chunk that is no multiple of 16
+    (1, 2, 5, 64, 64, 128, 0),       # S < Q
+    (2, 3, 200, 64, 64, 64, 4),      # rows 8 bytes off 16: the wrapper copies them
+    (1, 2, 130, 24, 40, 128, 0),     # P and N padded to 32 and 64
+])
+def test_mamba2_ssd_bf16_route_edges(cuda, B, H, S, P, N, chunk, pad):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_kernel, mamba2_ssd_plain
+
+    args = _ssd_views(cuda, B, H, S, P, N, "bfloat16", pad)
+    reset_launch_counts()
+    got = mamba2_ssd_kernel(*args, chunk=chunk)
+    assert launch_counts()["mamba2_ssd"] == 1
+    assert mamba2_ssd_kernel.routes == {"mma": 1, "scalar": 0}
+    _ssd_check(got, mamba2_ssd_plain(*args, chunk))
+
+
+@pytest.mark.parametrize("S,Q", [(1024, 128), (300, 128), (257, 100), (5, 5)])
+def test_mamba2_ssd_cumsum_prepass_is_the_in_order_sum(cuda, S, Q):
+    """The bf16 route's pre-pass equals its plain twin (the in-order chunk
+    cumsum) bit for bit, and copies dt."""
+    from repro_torch.kernels import mamba2_ssd as m
+
+    _, adt, dt, _, _ = _ssd_views(cuda, 2, 5, S, 16, 16, "bfloat16")
+    cum = torch.empty((2, 5, S), device=cuda)
+    dto = torch.empty_like(cum)
+    fn = m._fn("mamba2_ssd_cumsum_launch")
+    strides = (ctypes.c_int64 * 6)(*adt.stride(), *dt.stride())
+    err = fn(adt.data_ptr(), dt.data_ptr(), strides, 2, 5, S, Q, cum.data_ptr(), dto.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(cum.view(torch.int32), m.chunk_cumsum_plain(adt, Q).view(torch.int32))
+    assert torch.equal(dto, dt)
+
+
+def test_mamba2_ssd_mma_smem_matches_its_python_twin(cuda):
+    from repro_torch.kernels import mamba2_ssd as m
+
+    fn = m.load_library("mamba2_ssd").mamba2_ssd_mma_smem_bytes
+    fn.restype = ctypes.c_int64
+    for Q, ps, N in ((128, 32, 64), (128, 64, 128), (16, 16, 16), (112, 16, 32)):
+        assert fn(Q, ps, N) == m.mma_smem_bytes(Q, ps, N)
+
+
+def test_mamba2_ssd_two_blocks_per_sm_at_zamba2(cuda):
+    from repro_torch.kernels.mamba2_ssd import mma_blocks_per_sm
+
+    assert mma_blocks_per_sm(128, 64, 64) >= 2
 
 
 def test_lm_kernels_refuse_what_they_do_not_take(cuda):

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_kernel,
     flash_attention_plain,
 )
+from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels.mamba2_ssd import kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -201,7 +202,7 @@ def _ssd_inputs(rng, B, H, S, P, N, dtype="float32"):
 @pytest.mark.parametrize("B,H,S,P,N,chunk", [
     (1, 2, 64, 16, 32, 16),
     (2, 4, 256, 32, 64, 64),
-    (1, 3, 128, 64, 128, 128),    # N = 128: the kernel's chunk halves to 64
+    (1, 3, 128, 64, 128, 128),    # N = 128: the f32 route's chunk halves to 64
     (2, 2, 100, 16, 16, 32),      # ragged last chunk (the reference takes its oracle)
     (1, 2, 1024, 64, 64, 128),    # Zamba2's SSD shape (narrow heads)
 ])
@@ -239,10 +240,111 @@ def test_mamba2_final_state_matches_jax(rng):
 
 
 def test_mamba2_ssd_chunk_choice():
+    # the f32 route (scalar kernel, f32 tiles)
     assert kernel_chunk(128, 1024, 64, 64) == 128      # Zamba2: 182,784 B of shared memory
     assert kernel_chunk(128, 1024, 64, 128) == 64      # N = 128 does not fit at 128
     assert kernel_chunk(128, 40, 64, 64) == 40         # never longer than S
     assert kernel_chunk(16, 1024, 16, 16) == 16
+    # the bf16 route keeps bf16 tiles: N = 128 fits a chunk of 128
+    bf = torch.bfloat16
+    assert kernel_chunk(128, 1024, 64, 64, bf) == 128
+    assert kernel_chunk(128, 1024, 64, 128, bf) == 128
+    assert kernel_chunk(128, 5, 64, 64, bf) == 5
+    assert kernel_chunk(100, 300, 32, 32, bf) == 100
+
+
+@pytest.mark.parametrize("P,got", [
+    (1, 16), (8, 16), (16, 16), (17, 32), (24, 32), (32, 32), (40, 16), (48, 16), (56, 64),
+    (64, 64),
+])
+def test_mamba2_ssd_p_slice_choice(P, got):
+    """The head dim padded to 16 runs at ``P_SLICE`` (64) where that divides
+    it, else at the widest slice that does."""
+    Pp = ssd.mma_widths(P, 64)[0]
+    assert ssd.p_slice(Pp) == got
+    assert Pp % got == 0
+
+
+def test_mamba2_ssd_p_slice_follows_the_module_constant(monkeypatch):
+    """``p_slice`` reads ``P_SLICE`` when it is called (scripts/ssd_ablation.py
+    sets it to time the narrower slices)."""
+    monkeypatch.setattr(ssd, "P_SLICE", 32)
+    assert (ssd.p_slice(64), ssd.p_slice(32), ssd.p_slice(48)) == (32, 32, 16)
+    monkeypatch.setattr(ssd, "P_SLICE", 16)
+    assert ssd.p_slice(64) == 16
+
+
+@pytest.mark.parametrize("P,N,want", [
+    (64, 64, (64, 64)), (16, 16, (16, 16)), (20, 100, (32, 128)), (8, 3, (16, 16)),
+    (64, 128, (64, 128)), (33, 40, (48, 64)),
+])
+def test_mamba2_ssd_mma_widths(P, N, want):
+    assert ssd.mma_widths(P, N) == want
+
+
+def test_mamba2_ssd_mma_smem_two_blocks_at_zamba2():
+    """The bf16 route's block at Zamba2's shape (chunk 128, N 64, P-slice
+    64): two fit one SM's 228 KB (1 KB reserved per block); its tiles are
+    bf16, so N = 128 fits one block without halving the chunk."""
+    assert ssd.mma_smem_bytes(128, 64, 64) == 93_184
+    assert 2 * (ssd.mma_smem_bytes(128, 64, 64) + 1024) <= 228 * 1024
+    assert ssd.mma_smem_bytes(100, 32, 64) == ssd.mma_smem_bytes(112, 32, 64)
+    assert ssd.mma_smem_bytes(128, 64, 128) <= ssd.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("Q,ps,N,blocks", [
+    (128, 64, 64, 2), (128, 32, 64, 3), (128, 16, 64, 4), (128, 64, 128, 1), (128, 32, 128, 2),
+    (16, 16, 16, 35), (5, 64, 64, 5),
+])
+def test_mamba2_ssd_mma_smem_blocks_per_sm(Q, ps, N, blocks):
+    """Blocks of the bf16 route that one SM's 228 KB of shared memory holds
+    (1 KB reserved per block); every shape fits the per-block opt-in."""
+    assert 228 * 1024 // (ssd.mma_smem_bytes(Q, ps, N) + 1024) == blocks
+    assert ssd.mma_smem_bytes(Q, ps, N) <= ssd.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("S,Q", [(1024, 128), (300, 128), (100, 16), (5, 5), (257, 100)])
+def test_chunk_cumsum_plain_is_the_in_order_sum(S, Q, rng):
+    """The pre-pass's plain twin equals ``_cumsum_in_order`` chunk by chunk,
+    bit for bit (the kernel pre-pass is held to it on the card)."""
+    adt = torch.from_numpy(-rng.uniform(0.0, 16.0, size=(2, 3, S)).astype(np.float32))
+    got = ssd.chunk_cumsum_plain(adt, Q)
+    for c0 in range(0, S, Q):
+        want = ssd._cumsum_in_order(adt[..., c0:c0 + Q])
+        assert torch.equal(got[..., c0:c0 + Q].view(torch.int32), want.view(torch.int32))
+
+
+def test_mamba2_ssd_hands_the_copies_readable_tiles():
+    """The bf16 route reads rows in 16-byte pieces: views whose rows start on
+    16 bytes go as they are, others are copied, and widths it does not take
+    are padded with zeros."""
+    xbc = torch.randn(2, 300, 4 * 64 + 2 * 64).to(torch.bfloat16)
+    x = xbc[..., :256].reshape(2, 300, 4, 64).transpose(1, 2)       # the Mamba2 block's views
+    Bm, C = xbc[..., 256:320], xbc[..., 320:]
+    assert ssd._mma_ready(x, 64) is x
+    assert ssd._mma_ready(Bm, 64) is Bm and ssd._mma_ready(C, 64) is C
+    odd = torch.randn(2, 300, 64 + 4).to(torch.bfloat16)[..., 4:]  # rows 8 bytes off
+    got = ssd._mma_ready(odd, 64)
+    assert got is not odd and got.is_contiguous() and torch.equal(got, odd)
+    wide = torch.randn(2, 300, 72).to(torch.bfloat16)[..., :70]    # stride 72, width 70
+    got = ssd._mma_ready(wide, 128)
+    assert got.shape == (2, 300, 128) and torch.equal(got[..., :70], wide)
+    assert not got[..., 70:].any()
+    # a length-1 dimension's stride is never stepped over
+    one = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)[:, :, 1:2]
+    assert ssd._strides(one, 3) == [0, 256, 0]
+    assert ssd._mma_ready(one.transpose(1, 2), 64) is not None
+
+
+@pytest.mark.parametrize("N", [16, 128])
+def test_mamba2_ssd_bf16_chunk_128_matches_jax(N, rng):
+    """bf16 at N = 128 now runs a chunk of 128 (the f32 route halves it):
+    still within the reference's tolerance plus one bf16 step."""
+    j, t = _ssd_inputs(rng, 1, 2, 256, 32, N, "bfloat16")
+    want = jops.mamba2_ssd(*j, chunk=128, use_pallas=True)
+    got = ops.mamba2_ssd(*t, chunk=128)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4, rtol=2.0 ** -7)
 
 
 def test_mamba2_ssd_plain_is_chunk_invariant(rng):
