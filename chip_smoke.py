@@ -9,16 +9,20 @@ passed over):
   1. device and versions, with the card's name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
      all at once), timed, with ptxas's registers and spills per kernel of
-     ``flash_attention.cu``, ``mamba2_ssd.cu`` and K5;
+     ``cache_scan.cu``, ``dram_scan.cu``, ``flash_attention.cu``,
+     ``mamba2_ssd.cu`` and K5;
   3. the latency of one dependent step, timed by the probes of
      ``csrc/latency_probe.cu``; then each kernel against its plain torch
      version on the card: K1 cache scan and K2 stack distance on the
      full-size set-group buckets that ``simulate`` produces and on edge
      geometries, D1 DRAM scan on the full-size chunk rows, bitwise; kernel
-     and plain times. Then the full-width DLRM-RMC2 model (60 x 1M x 128
-     f32 table, filled on the card) and the embedding kernels K3 bag, K4
-     gather and K5 hot-pinned pool on the inputs its first request gives
-     them, against their plain versions (bitwise; allclose where K5's hot
+     times warm (mean of 20 back-to-back launches) and with the L2 cache
+     flushed before each, K1's per bucket, with ns per longest-set access
+     (K1) and per chunk (D1), each one's share of its chain bound and the
+     blocks resident per SM; plain times. Then the full-width DLRM-RMC2
+     model (60 x 1M x 128 f32 table, filled on the card) and the embedding
+     kernels K3 bag, K4 gather and K5 hot-pinned pool on the inputs its
+     first request gives them, against their plain versions (bitwise; allclose where K5's hot
      table spans several tiles) and at edge shapes; kernel, plain and
      library-call times with the L2 cache flushed before each launch. Then
      the LM kernels K6 flash attention, K7 decode attention and K8 Mamba2
@@ -38,7 +42,8 @@ passed over):
      policy/backend pair of the slice, with launch counts reset just before
      and read just after each run; results bitwise equal across backends of
      one policy; one more K1 run under ``torch.profiler`` for the device's
-     busy share; small runs on the card equal to the same runs on the CPU;
+     busy share and the device time of D1 and K1 in it; small runs on the
+     card equal to the same runs on the CPU;
   6. the full-width DLRM-RMC2 forward: 4 requests of 32 from
      ``dlrm_batch`` (zipf 1.10), each through the plain path (K3) and the
      hot-pinned path (K5 + K4, the request's own top-256 rows pinned), with
@@ -237,7 +242,7 @@ def ptxas_report(log: str):
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             for word in ("flash_wgmma_kernel", "flash_kernel", "ssd_mma_kernel", "ssd_cumsum_kernel",
-                         "ssd_kernel", "pool_kernel"):
+                         "ssd_kernel", "pool_kernel", "cache_scan_kernel", "dram_scan_kernel"):
                 if word in name:
                     name = word + name.split(word, 1)[1][:24]
                     break
@@ -737,8 +742,10 @@ def main() -> None:
     from repro_torch.core.memory.dram import chunk_rows
     from repro_torch.core.memory.system import MemorySystem, lane_geometry
     from repro_torch.kernels import _build
-    from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
-    from repro_torch.kernels.dram_scan import dram_scan_chunked, dram_scan_plain
+    from repro_torch.kernels.cache_scan import (
+        blocks_per_sm as k1_blocks_per_sm, cache_scan_groups, cache_scan_plain, team_lanes)
+    from repro_torch.kernels.dram_scan import (
+        blocks_per_sm as d1_blocks_per_sm, dram_scan_chunked, dram_scan_plain)
     from repro_torch.kernels.stack_distance import stack_distance_groups, stack_distance_plain
     from repro_torch.kernels import ops as emb_ops
     from repro_torch.kernels.embedding_bag import (
@@ -776,7 +783,8 @@ def main() -> None:
         regs.append(f"{name}: {'; '.join(used) or 'cached'}")
     print(f"[2] built {sorted(p.name for p in libs.values())} in {build_s:.3f} s "
           f"({' | '.join(regs)})", flush=True)
-    for lib, word in (("flash_attention", ""), ("mamba2_ssd", ""), ("embedding_bag", "pool_kernel")):
+    for lib, word in (("cache_scan", ""), ("dram_scan", ""), ("flash_attention", ""),
+                      ("mamba2_ssd", ""), ("embedding_bag", "pool_kernel")):
         log = libs[lib].with_suffix(".log")
         if log.exists():
             rep = [r for r in ptxas_report(log.read_text()) if word in r]
@@ -813,16 +821,18 @@ def main() -> None:
           f"{[(tuple(b[0].shape), b[3], b[4]) for b in buckets]}", flush=True)
     # Sets (and rows) are independent state machines, so the longest chain
     # of dependent steps is the most valid accesses any one (row, set) sees.
-    # (A design with one warp per row, as K1's and K2's, walks the row's
-    # whole valid length in sequence; printed for comparison.)
-    chain, row_chain = 0, 0
+    # (A design with one warp per row, as K2's, walks the row's whole valid
+    # length in sequence; printed for comparison.)
+    bucket_chains, row_chain = [], 0
     for s_d, _, v_d, S, _ in buckets:
         rows = torch.arange(s_d.shape[0], device=dev)[:, None] * S
-        chain = max(chain, int(torch.bincount((rows + s_d)[v_d]).max()))
+        bucket_chains.append(int(torch.bincount((rows + s_d)[v_d]).max()))
         row_chain = max(row_chain, int(v_d.sum(dim=1).max()))
-    print(f"[3] longest dependent chain: {chain} accesses to one set "
-          f"(longest row: {row_chain} valid accesses)", flush=True)
+    chain = max(bucket_chains)
+    print(f"[3] longest dependent chain: {chain} accesses to one set, per bucket "
+          f"{bucket_chains} (longest row: {row_chain} valid accesses)", flush=True)
     entries = {}
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)     # > the 50 MB L2
 
     def bucket_bound(kind):
         nbytes = sum(b[0].numel() * (4 + 4 + 1) + b[0].numel() * (2 if kind == "cache_scan" else 5)
@@ -831,8 +841,8 @@ def main() -> None:
         return nbytes, ops, chain * vote_step_ms
 
     for policy in ("lru", "srrip", "fifo"):
-        err, k_ms, p_ms = 0.0, 0.0, 0.0
-        for s_d, t_d, v_d, S, W in buckets:
+        err, k_ms, cold_ms, p_ms, per_bucket = 0.0, 0.0, 0.0, 0.0, []
+        for (s_d, t_d, v_d, S, W), b_chain in zip(buckets, bucket_chains):
             h, e = cache_scan_groups(s_d, t_d, v_d, S, W, policy)
             t1 = time.perf_counter()
             hp, ep = cache_scan_plain(s_d, t_d, v_d, S, W, policy)
@@ -841,13 +851,24 @@ def main() -> None:
             if not (torch.equal(h, hp) and torch.equal(e, ep)):
                 fail(f"cache_scan[{policy}] differs from its plain version at {tuple(s_d.shape)}")
             err = max(err, max_abs_err(h, hp), max_abs_err(e, ep))
-            k_ms += time_ms(lambda: cache_scan_groups(s_d, t_d, v_d, S, W, policy), 20)
+
+            def run(s_d=s_d, t_d=t_d, v_d=v_d, S=S, W=W):
+                return cache_scan_groups(s_d, t_d, v_d, S, W, policy)
+            b_ms, b_cold = time_ms(run, 20), time_cold_ms(run, 20, flush)
+            k_ms, cold_ms = k_ms + b_ms, cold_ms + b_cold
+            per_bucket.append(
+                f"{tuple(s_d.shape)}: {b_ms!r} ms ({b_cold!r} L2 flushed), longest set "
+                f"{b_chain} accesses, {b_ms * 1e6 / b_chain!r} ns each, "
+                f"{k1_blocks_per_sm(s_d.shape[1], S, W, policy)} blocks of "
+                f"{S * team_lanes(W)} threads resident per SM")
         nbytes, ops, lat_ms = bucket_bound("cache_scan")
         entries[f"cache_scan[{policy}]"] = dict(
             kind="cache_scan", err=err, ms=k_ms, plain_ms=p_ms, nbytes=nbytes, ops=ops,
             lat_ms=lat_ms, shapes=[tuple(b[0].shape) for b in buckets])
-        print(f"[3] cache_scan[{policy}]: equal to plain; kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.2f} ms per classification", flush=True)
+        print(f"[3] cache_scan[{policy}]: equal to plain; kernel {k_ms!r} ms per classification "
+              f"({cold_ms!r} L2 flushed), {k_ms * 1e6 / chain!r} ns per longest-set access, "
+              f"{lat_ms / k_ms!r} of its chain bound {lat_ms!r} ms; plain {p_ms:.2f} ms; per "
+              f"bucket: {'; '.join(per_bucket)}", flush=True)
 
     err, k_ms, p_ms = 0.0, 0.0, 0.0
     for s_d, t_d, v_d, S, W in buckets:
@@ -904,6 +925,7 @@ def main() -> None:
         fail("dram_scan differs bitwise from its plain version at full size")
     d1_err = max(max_abs_err(a, b) for a, b in pairs)
     d1_ms = time_ms(lambda: dram_scan_chunked(*args, *scal), 20)
+    d1_cold = time_cold_ms(lambda: dram_scan_chunked(*args, *scal), 20, flush)
     R, Lc = args[0].shape
     kv = st["k_m"][st["va_m"]].astype(np.int64)
     # A row's bus chain per valid chunk: one f32 max, then k dependent adds.
@@ -915,8 +937,10 @@ def main() -> None:
         lat_ms=d1_chain * f32_op_ms, shapes=[(R, Lc)])
     print(f"[3] dram_scan: bitwise equal to plain at (R, Lc)={(R, Lc)}, "
           f"{int(st['va_m'].sum())} chunks, longest bus chain {d1_chain} dependent f32 ops; "
-          f"kernel {d1_ms:.4f} ms, plain {d1_plain_ms:.2f} ms",
-          flush=True)
+          f"kernel {d1_ms!r} ms ({d1_cold!r} L2 flushed), {d1_ms * 1e6 / Lc!r} ns per chunk, "
+          f"{d1_chain * f32_op_ms / d1_ms!r} of its chain bound {d1_chain * f32_op_ms!r} ms, "
+          f"{d1_blocks_per_sm(scal[0])} block(s) of 32 rows resident per SM; "
+          f"plain {d1_plain_ms:.2f} ms", flush=True)
     Rs, Ls = 5, 96
     small = [torch.from_numpy(a).to(dev) for a in (
         rng.integers(0, 8, size=(Rs, Ls)).astype(np.int32),
@@ -959,7 +983,6 @@ def main() -> None:
     hot_table = emb_ops.embedding_gather(table, torch.from_numpy(hot_ids).to(dev))
     cold0 = flat0.masked_fill(mask_d == 1, 0).reshape(-1)
     N = flat0.numel()
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)     # > the 50 MB L2
 
     def check_embedding(label, kernel, plain, library, args, exact, tol, reps=20):
         """Kernel against its plain version (bitwise, or allclose at ``tol``)
@@ -1135,8 +1158,8 @@ def main() -> None:
         simulate(wl, hw_run)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"[4] profiled lru/pallas: wall {wall!r} s, {device_busy(tprof.events(), wall)}",
-          flush=True)
+    print(f"[4] profiled lru/pallas: wall {wall!r} s, "
+          f"{device_busy(tprof.events(), wall, ('dram_scan', 'cache_scan'))}", flush=True)
 
     small_wl = dlrm_rmc2_small(num_tables=2, rows_per_table=300, batch_size=2, num_batches=2)
     for policy, backend in RUNS:

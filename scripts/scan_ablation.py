@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""Ablation of the port's two simulator scan kernels, D1 and K1, on one NVIDIA GPU.
+
+    python3 scripts/scan_ablation.py
+
+Both run on the full-size inputs of ``simulate`` on DLRM-RMC2 x ``tpuv6e()``
+(``dlrm_rmc2_small(num_batches=2)``): D1 (``src/repro_torch/csrc/dram_scan.cu``)
+on the (32, 16384) chunk rows of the SPM miss stream, K1
+(``src/repro_torch/csrc/cache_scan.cu``) on the two set-group buckets,
+(967, 512) and (57, 1024), 16 sets x 16 ways, for each policy. Each variant is built from the
+kernel's source by text substitution, checked bitwise against the kernel as
+it is, and timed as ``chip_smoke.py`` times the kernels: the mean of 20
+back-to-back launches, and the mean of 20 with the L2 cache flushed before
+each. The kernel as it is runs first and last, so the spread of the card
+shows.
+
+D1 variants:
+  registers      the bank state of a row in registers (8 banks, as tpuv6e
+                 has), a read a select per bank, not in shared memory;
+  no-read-ahead  each chunk's bank entry read after the previous chunk's
+                 write, not before it (a shared-memory round trip on the
+                 chain);
+  branch-a-step  the state update under `if (valid)` as the reference
+                 writes it, not as selects and a store to a spare row;
+  prefetch       a group's 16 chunks read into a second set of registers
+                 when the group before it starts, not at its end;
+  group-at-top   a group's 16 chunks read at the top of its own loop
+                 iteration, not at the end of the one before;
+  one-stage      one stage of tiles: the loaders refill it only when the
+                 compute warp is done with it;
+  tile-64        tiles of 64 chunks, not 128.
+K1 variants:
+  team-32        every set's team a whole warp (32 lanes, 16 of them idle at
+                 16 ways), so each warp walks one set;
+  scan-only      no access walked: staging the row, sorting its positions
+                 into the teams' lists and writing hit/evict back (wrong
+                 output: what the rest costs);
+  stage-only     staging the row (and counting its sets) and writing
+                 hit/evict back, nothing else (wrong output);
+  no-read-ahead  each access's position and tag read from shared memory when
+                 its step starts, not during the step before;
+  no-min         the victim's min-reduction left out (wrong output: what the
+                 reductions cost).
+
+Builds into ``build/ablation/``. Last, the card's name and power limit.
+Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.core import dlrm_rmc2_small, tpuv6e  # noqa: E402
+from repro_torch.core.engine import build_embedding_traces  # noqa: E402
+from repro_torch.core.memory.cache import bucket_rows  # noqa: E402
+from repro_torch.core.memory.dram import chunk_rows  # noqa: E402
+from repro_torch.core.memory.system import MemorySystem, lane_geometry  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cache_scan as k1  # noqa: E402
+from repro_torch.kernels import dram_scan as d1  # noqa: E402
+
+OUT = ROOT / "build" / "ablation"
+REGISTER_STATE = """struct BankState {
+  int open[9];
+  float free_[9];
+  __device__ BankState(uint8_t*, int, int) {
+#pragma unroll
+    for (int b = 0; b < 9; ++b) {
+      open[b] = -1;
+      free_[b] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void read(int b, float& f, int& o) const {
+    f = free_[0];
+    o = open[0];
+#pragma unroll
+    for (int j = 1; j < 9; ++j) {
+      if (b == j) {
+        f = free_[j];
+        o = open[j];
+      }
+    }
+  }
+  __device__ __forceinline__ void write(int b, int o, float f) {
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      if (b == j) {
+        open[j] = o;
+        free_[j] = f;
+      }
+    }
+  }
+};
+"""
+UPDATE = """        const bool upd = v && in;
+        state.write(upd ? slot : banks, g.rw[j], dlast);
+        bus_free = v ? dlast : bus_free;
+        lat = v ? __fadd_rn(lat, lc) : lat;
+        hits += v ? g.k[j] - 1 + (row_hit ? 1 : 0) : 0;
+        dmax = v ? fmaxf(dmax, dlast) : dmax;
+"""
+BRANCH = """        const bool upd = v && in;
+        if (v) {
+          if (in) state.write(slot, g.rw[j], dlast);
+          bus_free = dlast;
+          lat = __fadd_rn(lat, lc);
+          hits += g.k[j] - 1 + (row_hit ? 1 : 0);
+          dmax = fmaxf(dmax, dlast);
+        }
+"""
+VARIANTS = {
+    "dram_scan": {
+        "registers": [("struct BankState {", REGISTER_STATE + "struct SharedBankState {"),
+                      ("  __device__ BankState(uint8_t* smem,", "  __device__ SharedBankState(uint8_t* smem,")],
+        "no-read-ahead": [
+            ("          state.read(slot_n, pf_n, po_n);\n", ""),
+            ("          const bool same = upd && slot_n == slot;",
+             "          state.read(slot_n, pf_n, po_n);\n          const bool same = false;")],
+        "branch-a-step": [(UPDATE, BRANCH)],
+        "prefetch": [
+            ("    for (int g0 = 0; g0 < n; g0 += kGroup) {\n      float d0[kGroup];",
+             "    for (int g0 = 0; g0 < n; g0 += kGroup) {\n      Group next;\n"
+             "      if (g0 + kGroup < n) load_group(next, st, lane, g0 + kGroup);\n"
+             "      float d0[kGroup];"),
+            ("      if (g0 + kGroup < n) load_group(g, st, lane, g0 + kGroup);\n", "      g = next;\n")],
+        "group-at-top": [
+            ("    Group g;\n    load_group(g, st, lane, 0);\n"
+             "    for (int g0 = 0; g0 < n; g0 += kGroup) {\n",
+             "    for (int g0 = 0; g0 < n; g0 += kGroup) {\n      Group g;\n"
+             "      load_group(g, st, lane, g0);\n"),
+            ("      if (g0 + kGroup < n) load_group(g, st, lane, g0 + kGroup);\n", "")],
+        "one-stage": [("constexpr int kStages = 2;", "constexpr int kStages = 1;")],
+        "tile-64": [("constexpr int kTile = 128;", "constexpr int kTile = 64;")],
+    },
+    "cache_scan": {
+        "team-32": [("while ((1 << *team_log2) < min(ways, 32)) ++*team_log2;",
+                     "*team_log2 = 5;")],
+        "scan-only": [("    const int steps = (int)__reduce_max_sync(kFull, (unsigned)count);",
+                       "    const int steps = 0 * (int)__reduce_max_sync(kFull, (unsigned)count);")],
+        "stage-only": [("    const int steps = (int)__reduce_max_sync(kFull, (unsigned)count);",
+                        "    const int steps = 0 * (int)__reduce_max_sync(kFull, (unsigned)count);"),
+                       ("    for (int c = 0, k = 0; c < n; c += team) {",
+                        "    for (int c = 0, k = 0; c < 0 * n; c += team) {")],
+        "no-read-ahead": [
+            ("    int p_next = count > 0 ? list[0] : 0;\n    int tag_next = s_tag[p_next];\n", ""),
+            ("      const int p = p_next, tag = tag_next, t = base + p;\n"
+             "      if (i + 1 < count) {\n        p_next = list[i + 1];\n"
+             "        tag_next = s_tag[p_next];\n      }\n",
+             "      const int p = act ? list[i] : 0, tag = s_tag[p], t = base + p;\n")],
+        "no-min": [("  if (team_log2 == 5) return __reduce_min_sync(kFull, key);",
+                    "  if (team_log2 >= 4) return key;")],
+    },
+}
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int, flush) -> float:
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def build(job) -> Path:
+    kernel, name = job
+    path = _build.CSRC / f"{kernel}.cu"
+    src = path.read_text()
+    for old, new in VARIANTS[kernel][name]:
+        if old not in src:
+            raise SystemExit(f"{kernel} {name}: {old!r} is no longer in {path.name}")
+        src = src.replace(old, new)
+    cu, lib = OUT / f"{kernel}_{name}.cu", OUT / f"lib{kernel}_{name}.so"
+    cu.write_text(src)
+    proc = subprocess.run([_build._nvcc(), *_build.nvcc_flags(kernel), "-o", str(lib), str(cu)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"nvcc failed on {kernel} {name}:\n{proc.stdout}{proc.stderr}")
+    return lib
+
+
+def launcher(module, lib: Path | None):
+    """The module's C launch function: the package's build, or a variant's."""
+    if lib is None:
+        return module._launcher()
+    fn = getattr(ctypes.CDLL(str(lib)), f"{module.__name__.rsplit('.', 1)[1]}_launch")
+    ref = module._launcher()
+    fn.argtypes, fn.restype = ref.argtypes, ref.restype
+    return fn
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)     # > the 50 MB L2
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [(k, n) for k, vs in VARIANTS.items() for n in vs]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(zip(jobs, pool.map(build, jobs)))
+
+    wl, hw = dlrm_rmc2_small(num_batches=2), tpuv6e()
+    etrace = build_embedding_traces(wl)[0]
+
+    # D1 on the SPM miss stream.
+    req = MemorySystem.from_hardware(hw.with_policy("spm"), "cuda").prepare_embedding(etrace).request
+    st = chunk_rows(req.lines, req.seg, req.src, req.num_segments, req.num_sources, req.model)
+    args = [torch.from_numpy(st[k]).to(dev) for k in ("bk_m", "row_m", "k_m", "va_m")]
+    banks, k_max = req.model.banks_per_channel, st["k_max"]
+    scal = [d1._f32(x) for x in (req.model.t_rp + req.model.t_rcd, req.model.t_cas, st["bus_cyc"])]
+    R, Lc = args[0].shape
+    outs = [torch.empty(R, device=dev), torch.empty(R, dtype=torch.int32, device=dev),
+            torch.empty(R, device=dev), torch.empty((R, Lc), device=dev),
+            torch.empty((R, Lc), dtype=torch.bool, device=dev)]
+    want = [o.clone() for o in outs]
+    print(f"D1 at (R, Lc)=({R}, {Lc}), {banks} banks, k_max {k_max}, "
+          f"{int(st['va_m'].sum())} valid chunks", flush=True)
+
+    def d1_run(fn, into):
+        def run():
+            err = fn(*(a.data_ptr() for a in args), R, Lc, banks, k_max, *scal,
+                     *(o.data_ptr() for o in into), stream)
+            if err:
+                raise SystemExit(f"dram_scan launch failed with CUDA error {err}")
+        return run
+
+    d1_run(launcher(d1, None), want)()
+    for name in ["as is", *VARIANTS["dram_scan"], "as is"]:
+        run = d1_run(launcher(d1, libs.get(("dram_scan", name))), outs)
+        run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b)
+                   for a, b in zip(outs, want))
+        ms, cold = time_ms(run, 20), time_cold_ms(run, 20, flush)
+        print(f"D1 {name}: {ms!r} ms ({cold!r} L2 flushed), {ms * 1e6 / Lc!r} ns per chunk, "
+              f"bitwise equal to the kernel as it is: {same}", flush=True)
+
+    # K1 on the set-group buckets.
+    lane = lane_geometry(hw, etrace.spec)
+    buckets = [tuple(torch.from_numpy(a).to(dev) for a in (s, t, v)) + (S, W)
+               for _, s, t, v, S, W in bucket_rows([etrace.vec_ids], [lane])]
+    for policy in ("lru", "srrip", "fifo"):
+        pid = k1.POLICY_IDS[policy]
+        refs = [k1.cache_scan_groups(s, t, v, S, W, policy) for s, t, v, S, W in buckets]
+        for name in ["as is", *VARIANTS["cache_scan"], "as is"]:
+            fn = launcher(k1, libs.get(("cache_scan", name)))
+            total, total_cold, same, per_bucket = 0.0, 0.0, True, []
+            for (s, t, v, S, W), ref in zip(buckets, refs):
+                hit, ev = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+
+                def run(s=s, t=t, v=v, S=S, W=W, hit=hit, ev=ev):
+                    err = fn(s.data_ptr(), t.data_ptr(), v.data_ptr(), hit.data_ptr(),
+                             ev.data_ptr(), s.shape[0], s.shape[1], S, W, pid, stream)
+                    if err:
+                        raise SystemExit(f"cache_scan launch failed with CUDA error {err}")
+                run()
+                torch.cuda.synchronize()
+                same &= torch.equal(hit, ref[0]) and torch.equal(ev, ref[1])
+                ms = time_ms(run, 20)
+                per_bucket.append(f"{tuple(s.shape)} {ms!r}")
+                total += ms
+                total_cold += time_cold_ms(run, 20, flush)
+            print(f"K1 {policy} {name}: {total!r} ms per classification ({total_cold!r} L2 "
+                  f"flushed; per bucket {', '.join(per_bucket)}), equal to the kernel as it is: "
+                  f"{same}", flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,9 @@ completion and whether the chunk's first access hit the open row.
 CUDA tensors and runs ``dram_scan_plain`` for CPU tensors; there is no
 other route. Both reproduce the reference's f32 add chain bitwise. The
 kernel is bound by latency (Lc dependent steps per row), not bytes; its
-source says how it keeps each step short.
+source says how it keeps each step short: loader warps stage tiles of
+every row in shared memory ahead of the one compute warp, whose lanes walk
+the rows.
 """
 from __future__ import annotations
 
@@ -23,6 +25,12 @@ import numpy as np
 import torch
 
 from ._build import check_launch, check_tensors, load_library
+
+# What the kernel takes: the bank state of 32 rows in shared memory beside
+# two stages of tiles, and an access loop unrolled to 8 (``chunk_rows``
+# caps k_max at 8).
+MAX_BANKS = 192
+MAX_K = 8
 
 
 def _f32(x: float) -> float:
@@ -90,6 +98,14 @@ def _launcher():
     return fn
 
 
+def blocks_per_sm(banks: int) -> int:
+    """Blocks of 32 rows resident on one SM of the current card."""
+    blocks = ctypes.c_int(0)
+    check_launch("dram_scan (occupancy)", load_library("dram_scan").dram_scan_occupancy(
+        ctypes.c_int(banks), ctypes.byref(blocks)))
+    return blocks.value
+
+
 def dram_scan_chunked(bkc, rowc, kc, valid, banks: int, k_max: int,
                       t_row_act: float, t_cas: float, bus_cycles_per_line: float):
     """Per-(segment, channel) scan over same-(bank, block) chunks.
@@ -99,8 +115,9 @@ def dram_scan_chunked(bkc, rowc, kc, valid, banks: int, k_max: int,
     scalar timings are rounded to f32 once here. Returns
     ``((lat_acc f32, hit_acc int32, dmax f32) (R,), (done0 f32, row_hit
     bool) (R, Lc))`` on the inputs' device: the CUDA kernel for CUDA
-    tensors, ``dram_scan_plain`` for CPU tensors. A failed build or launch
-    raises.
+    tensors, ``dram_scan_plain`` for CPU tensors. The kernel takes
+    ``1 <= banks <= MAX_BANKS`` and ``1 <= k_max <= MAX_K``; a CUDA call
+    outside them, or a failed build or launch, raises.
     """
     if bkc.dim() != 2 or not (bkc.shape == rowc.shape == kc.shape == valid.shape):
         raise ValueError("dram_scan: bkc, rowc, kc and valid must share one (R, Lc) shape")
@@ -109,8 +126,9 @@ def dram_scan_chunked(bkc, rowc, kc, valid, banks: int, k_max: int,
     if bkc.device.type == "cpu":
         return dram_scan_plain(bkc, rowc, kc, valid, banks, k_max,
                                t_row_act, t_cas, bus_cycles_per_line)
-    if banks < 1 or 2 * banks * 32 * 4 > 48 * 1024:
-        raise ValueError(f"dram_scan takes 1 <= banks <= 192, got {banks}")
+    if not (1 <= banks <= MAX_BANKS and 1 <= k_max <= MAX_K):
+        raise ValueError(f"dram_scan takes 1 <= banks <= {MAX_BANKS} and 1 <= k_max <= {MAX_K}; "
+                         f"got banks={banks}, k_max={k_max}")
     R, Lc = bkc.shape
     dev = bkc.device
     lat = torch.empty(R, dtype=torch.float32, device=dev)

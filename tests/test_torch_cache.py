@@ -18,7 +18,8 @@ from repro.core.memory import stack as rstack
 from repro.core.memory.golden import GoldenCache
 from repro_torch.core.memory import cache as tcache
 from repro_torch.core.memory import stack as tstack
-from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
+from repro_torch.kernels.cache_scan import (
+    cache_scan_by_set_plain, cache_scan_groups, cache_scan_plain)
 from repro_torch.kernels.stack_distance import stack_distance_groups
 
 POLICIES = ["lru", "srrip", "fifo"]
@@ -69,6 +70,50 @@ def test_cache_scan_plain_equals_golden_on_edge_geometries(policy, sets, ways):
     gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), policy)
     np.testing.assert_array_equal(h.numpy()[0], gold.run(lines))
     assert int(e.sum()) == gold.num_evictions
+
+
+def _assert_by_set_equals_references(s, t, v, sets, ways, policy):
+    """K1's decomposition equals K1's plain version and the JAX scan engine."""
+    h, e = cache_scan_by_set_plain(*_t(s, t, v), sets, ways, policy)
+    hp, ep = cache_scan_plain(*_t(s, t, v), sets, ways, policy)
+    assert torch.equal(h, hp) and torch.equal(e, ep)
+    rh, re_ = rcache._simulate_many(s, t, v, sets, ways, policy)
+    np.testing.assert_array_equal(h.numpy(), np.asarray(rh))
+    np.testing.assert_array_equal(e.numpy(), np.asarray(re_))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("sets,ways", EDGE)
+def test_cache_scan_by_set_equals_plain_jax_and_golden(policy, sets, ways):
+    """The kernel's decomposition on the CPU: each row split into its
+    per-set sequences (row positions as timestamps), each walked alone, as
+    K1's lane teams walk them. Padded rows against the plain version and
+    the JAX scan engine; an unpadded row against ``GoldenCache``."""
+    rng = np.random.default_rng(13 * sets + ways)
+    _assert_by_set_equals_references(*_rows(rng, 3, 160, sets, ways, pad_from=130),
+                                     sets, ways, policy)
+    lines = rng.integers(0, sets * ways * 3 + 1, size=200)
+    s = (lines % sets).astype(np.int32)[None, :]
+    h, e = cache_scan_by_set_plain(*_t(s, lines.astype(np.int32)[None, :],
+                                       np.ones_like(s, dtype=bool)), sets, ways, policy)
+    gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), policy)
+    np.testing.assert_array_equal(h.numpy()[0], gold.run(lines))
+    assert int(e.sum()) == gold.num_evictions
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+@pytest.mark.parametrize("case", ["one_set", "few_sets"])
+def test_cache_scan_by_set_longest_chain_and_few_sets(policy, case):
+    """A row whose every access falls in one set (the longest chain a team
+    can walk) beside ordinary rows, at tpuv6e()'s 16 x 16 set groups; and a
+    group of 5 sets, fewer than 16."""
+    rng = np.random.default_rng(29)
+    sets, ways = (16, 16) if case == "one_set" else (5, 4)
+    s, t, v = _rows(rng, 4, 256, sets, ways, pad_from=200)
+    if case == "one_set":
+        s[0] = 9
+        t[0] = rng.integers(0, 3 * ways, size=256)
+    _assert_by_set_equals_references(s, t, v, sets, ways, policy)
 
 
 @pytest.mark.parametrize("policy", POLICIES)

@@ -89,11 +89,69 @@ def test_dram_scan_kernel_equals_plain_bitwise(cuda, banks, k_max):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("policy", ["lru", "srrip", "fifo"])
+def test_cache_scan_kernel_set_chains(cuda, policy):
+    """K1 walks each set of a row with its own team of lanes: a row whose
+    every access falls in one set (the longest chain), rows of different
+    valid lengths in one launch, and L = 1,024 (one full tile) at the
+    16-set, 16-way geometry of ``tpuv6e()``'s set groups."""
+    S, W, B, L = 16, 16, 6, 1024
+    rng = np.random.default_rng(5)
+    sets = rng.integers(0, S, size=(B, L)).astype(np.int32)
+    sets[0] = 3
+    tags = rng.integers(0, S * W * 3, size=(B, L)).astype(np.int32)
+    tags[0] = rng.integers(0, 3 * W, size=L)
+    valid = np.arange(L)[None, :] < np.array([L, L, 700, 129, 1, 0])[:, None]
+    valid[1] &= rng.random(L) < 0.8
+    rows = [torch.from_numpy(a).to(cuda) for a in (sets, tags, valid)]
+    reset_launch_counts()
+    got = cache_scan_groups(*rows, S, W, policy)
+    assert launch_counts()["cache_scan"] == 1
+    want = cache_scan_plain(*rows, S, W, policy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert bool(want[0][0].any()) and bool(want[1][0].any())
+
+
+@pytest.mark.parametrize("R,Lc,banks,k_max,offset", [
+    (1, 400, 1, 1, 0),       # one row; a last tile of 16 of 128 chunks
+    (33, 300, 192, 8, 0),    # two blocks; Lc not a multiple of 16: copied chunk by chunk
+    (64, 384, 8, 8, 0),      # two full blocks of three full tiles
+    (5, 200, 192, 1, 0),
+    (33, 256, 8, 8, 1),      # inputs one int off 16 bytes: copied chunk by chunk
+])
+def test_dram_scan_kernel_tiles_and_blocks(cuda, R, Lc, banks, k_max, offset):
+    """D1's staged tiles: Lc not a multiple of the 128-chunk tile, more
+    than one block of 32 rows, banks 1 and 192, k_max 1 and 8, an
+    all-padding row, out-of-range banks and access counts past k_max."""
+    rng = np.random.default_rng(R * 1000 + Lc)
+    arrays = [rng.integers(-1, banks + 1, size=(R, Lc)).astype(np.int32),
+              rng.integers(0, 3, size=(R, Lc)).astype(np.int32),
+              rng.integers(0, k_max + 2, size=(R, Lc)).astype(np.int32),
+              rng.random((R, Lc)) < 0.8]
+    arrays[3][R // 2] = False
+    args = []
+    for a in arrays:
+        flat = torch.zeros(a.size + offset, dtype=torch.from_numpy(a).dtype, device=cuda)
+        flat[offset:] = torch.from_numpy(a).reshape(-1).to(cuda)
+        args.append(flat[offset:].view(R, Lc))
+    reset_launch_counts()
+    got = dram_scan_chunked(*args, banks, k_max, 44.0, 22.0, 0.6016)
+    assert launch_counts()["dram_scan"] == 1
+    want = dram_scan_plain(*args, banks, k_max, 44.0, 22.0, 0.6016)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+    assert float(got[0][0][R // 2]) == 0.0 and not bool(got[1][1][R // 2].any())
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     s = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     v = torch.ones((2, 8), dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError, match="49152 bytes"):
+    with pytest.raises(ValueError, match="ways <= 64"):
         cache_scan_groups(s, s, v, 16, 4096, "lru")
+    with pytest.raises(ValueError, match="k_max <= 8"):
+        dram_scan_chunked(s, s, s, v, 8, 9, 44.0, 22.0, 0.6016)
     with pytest.raises(ValueError, match="contiguous"):
         cache_scan_groups(s.t().contiguous().t(), s, v, 1, 1, "lru")
     with pytest.raises(ValueError, match="devices|on cpu|cuda"):
