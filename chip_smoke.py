@@ -9,22 +9,25 @@ passed over):
   1. device and versions, with the card's name and power limit;
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
      all at once), timed, with ptxas's registers and spills per kernel of
-     ``cache_scan.cu``, ``dram_scan.cu``, ``flash_attention.cu``,
-     ``mamba2_ssd.cu`` and K5;
+     ``cache_scan.cu``, ``stack_distance.cu``, ``dram_scan.cu``,
+     ``flash_attention.cu``, ``mamba2_ssd.cu`` and ``embedding_bag.cu``;
   3. the latency of one dependent step, timed by the probes of
      ``csrc/latency_probe.cu``; then each kernel against its plain torch
      version on the card: K1 cache scan and K2 stack distance on the
      full-size set-group buckets that ``simulate`` produces and on edge
-     geometries, D1 DRAM scan on the full-size chunk rows, bitwise; kernel
-     times warm (mean of 20 back-to-back launches) and with the L2 cache
-     flushed before each, K1's per bucket, with ns per longest-set access
-     (K1) and per chunk (D1), each one's share of its chain bound and the
-     blocks resident per SM; plain times. Then the full-width DLRM-RMC2
+     geometries (K2 also with sets out of range and valid tags of -1), D1
+     DRAM scan on the full-size chunk rows, bitwise; kernel times warm
+     (mean of 20 back-to-back launches) and with the L2 cache flushed
+     before each, K1's and K2's per bucket, with ns per longest-set access
+     (K1, K2) and per chunk (D1), each one's share of its chain bound and
+     the blocks resident per SM; plain times. Then the full-width DLRM-RMC2
      model (60 x 1M x 128 f32 table, filled on the card) and the embedding
      kernels K3 bag, K4 gather and K5 hot-pinned pool on the inputs its
      first request gives them, against their plain versions (bitwise; allclose where K5's hot
-     table spans several tiles) and at edge shapes; kernel, plain and
-     library-call times with the L2 cache flushed before each launch. Then
+     table spans several tiles) and at edge shapes (K3: D 3 to 512, L 1 to
+     300, a table view off 16 bytes); kernel, plain and library-call times
+     with the L2 cache flushed before each launch, K3 and K5 with their
+     share of the bound and their ratio to ``F.embedding_bag``. Then
      the LM kernels K6 flash attention, K7 decode attention and K8 Mamba2
      SSD at the shapes the Zamba2-2.7B serving path gives them and at edge
      shapes (GQA/MQA, d 16/64/72/80/128/256, ragged S and S_max, a q tile
@@ -41,15 +44,17 @@ passed over):
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
      policy/backend pair of the slice, with launch counts reset just before
      and read just after each run; results bitwise equal across backends of
-     one policy; one more K1 run under ``torch.profiler`` for the device's
-     busy share and the device time of D1 and K1 in it; small runs on the
-     card equal to the same runs on the CPU;
+     one policy; one more K1 run and one more K2 run under
+     ``torch.profiler`` for the device's busy share and the device time of
+     D1 and K1 (K2) in it; small runs on the card equal to the same runs on
+     the CPU;
   6. the full-width DLRM-RMC2 forward: 4 requests of 32 from
      ``dlrm_batch`` (zipf 1.10), each through the plain path (K3) and the
      hot-pinned path (K5 + K4, the request's own top-256 rows pinned), with
      launch counts reset just before and read just after each forward; the
      two paths agree to 1e-4; a small model on the card equals the same
-     model on the CPU; one pinned forward under ``torch.profiler``;
+     model on the CPU; one plain forward (K3's device time) and one pinned
+     forward under ``torch.profiler``;
   7. Zamba2-2.7B served at full width (54 Mamba2 layers, d_model 2560, one
      shared attention block applied 9 times, bf16, random weights drawn on
      the card): ``ServingEngine.generate`` on 8 prompts of 1024 tokens from
@@ -242,7 +247,8 @@ def ptxas_report(log: str):
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
             for word in ("flash_wgmma_kernel", "flash_kernel", "ssd_mma_kernel", "ssd_cumsum_kernel",
-                         "ssd_kernel", "pool_kernel", "cache_scan_kernel", "dram_scan_kernel"):
+                         "ssd_kernel", "pool_kernel", "bag_kernel", "gather_kernel",
+                         "cache_scan_kernel", "stack_distance_kernel", "dram_scan_kernel"):
                 if word in name:
                     name = word + name.split(word, 1)[1][:24]
                     break
@@ -746,7 +752,8 @@ def main() -> None:
         blocks_per_sm as k1_blocks_per_sm, cache_scan_groups, cache_scan_plain, team_lanes)
     from repro_torch.kernels.dram_scan import (
         blocks_per_sm as d1_blocks_per_sm, dram_scan_chunked, dram_scan_plain)
-    from repro_torch.kernels.stack_distance import stack_distance_groups, stack_distance_plain
+    from repro_torch.kernels.stack_distance import (
+        blocks_per_sm as k2_blocks_per_sm, stack_distance_groups, stack_distance_plain)
     from repro_torch.kernels import ops as emb_ops
     from repro_torch.kernels.embedding_bag import (
         embedding_bag_kernel, embedding_bag_plain, embedding_gather_kernel,
@@ -783,8 +790,8 @@ def main() -> None:
         regs.append(f"{name}: {'; '.join(used) or 'cached'}")
     print(f"[2] built {sorted(p.name for p in libs.values())} in {build_s:.3f} s "
           f"({' | '.join(regs)})", flush=True)
-    for lib, word in (("cache_scan", ""), ("dram_scan", ""), ("flash_attention", ""),
-                      ("mamba2_ssd", ""), ("embedding_bag", "pool_kernel")):
+    for lib, word in (("cache_scan", ""), ("stack_distance", ""), ("dram_scan", ""),
+                      ("flash_attention", ""), ("mamba2_ssd", ""), ("embedding_bag", "")):
         log = libs[lib].with_suffix(".log")
         if log.exists():
             rep = [r for r in ptxas_report(log.read_text()) if word in r]
@@ -821,8 +828,8 @@ def main() -> None:
           f"{[(tuple(b[0].shape), b[3], b[4]) for b in buckets]}", flush=True)
     # Sets (and rows) are independent state machines, so the longest chain
     # of dependent steps is the most valid accesses any one (row, set) sees.
-    # (A design with one warp per row, as K2's, walks the row's whole valid
-    # length in sequence; printed for comparison.)
+    # (A design with one warp per row walks the row's whole valid length in
+    # sequence; printed for comparison.)
     bucket_chains, row_chain = [], 0
     for s_d, _, v_d, S, _ in buckets:
         rows = torch.arange(s_d.shape[0], device=dev)[:, None] * S
@@ -870,8 +877,8 @@ def main() -> None:
               f"{lat_ms / k_ms!r} of its chain bound {lat_ms!r} ms; plain {p_ms:.2f} ms; per "
               f"bucket: {'; '.join(per_bucket)}", flush=True)
 
-    err, k_ms, p_ms = 0.0, 0.0, 0.0
-    for s_d, t_d, v_d, S, W in buckets:
+    err, k_ms, cold_ms, p_ms, per_bucket = 0.0, 0.0, 0.0, 0.0, []
+    for (s_d, t_d, v_d, S, W), b_chain in zip(buckets, bucket_chains):
         d, e = stack_distance_groups(s_d, t_d, v_d, S, W)
         t1 = time.perf_counter()
         dp, ep = stack_distance_plain(s_d, t_d, v_d, S, W)
@@ -880,13 +887,24 @@ def main() -> None:
         if not (torch.equal(d, dp) and torch.equal(e, ep)):
             fail(f"stack_distance differs from its plain version at {tuple(s_d.shape)}")
         err = max(err, max_abs_err(d, dp), max_abs_err(e, ep))
-        k_ms += time_ms(lambda: stack_distance_groups(s_d, t_d, v_d, S, W), 20)
+
+        def run(s_d=s_d, t_d=t_d, v_d=v_d, S=S, W=W):
+            return stack_distance_groups(s_d, t_d, v_d, S, W)
+        b_ms, b_cold = time_ms(run, 20), time_cold_ms(run, 20, flush)
+        k_ms, cold_ms = k_ms + b_ms, cold_ms + b_cold
+        per_bucket.append(
+            f"{tuple(s_d.shape)}: {b_ms!r} ms ({b_cold!r} L2 flushed), longest set "
+            f"{b_chain} accesses, {b_ms * 1e6 / b_chain!r} ns each, "
+            f"{k2_blocks_per_sm(s_d.shape[1], S, W)} blocks of "
+            f"{S * team_lanes(W)} threads resident per SM")
     nbytes, ops, lat_ms = bucket_bound("stack_distance")
     entries["stack_distance[lru]"] = dict(
         kind="stack_distance", err=err, ms=k_ms, plain_ms=p_ms, nbytes=nbytes, ops=ops,
         lat_ms=lat_ms, shapes=[tuple(b[0].shape) for b in buckets])
-    print(f"[3] stack_distance[lru]: equal to plain; kernel {k_ms:.4f} ms, "
-          f"plain {p_ms:.2f} ms per classification", flush=True)
+    print(f"[3] stack_distance[lru]: equal to plain; kernel {k_ms!r} ms per classification "
+          f"({cold_ms!r} L2 flushed), {k_ms * 1e6 / chain!r} ns per longest-set access, "
+          f"{lat_ms / k_ms!r} of its chain bound {lat_ms!r} ms; plain {p_ms:.2f} ms; per "
+          f"bucket: {'; '.join(per_bucket)}", flush=True)
 
     rng = np.random.default_rng(0)
     for S, W in EDGE_GEOMETRIES:
@@ -901,11 +919,20 @@ def main() -> None:
             want = cache_scan_plain(s_d, t_d, v_d, S, W, policy)
             if not all(torch.equal(a, b) for a, b in zip(got, want)):
                 fail(f"cache_scan[{policy}] differs from its plain version at (sets, ways)={(S, W)}")
-        got = stack_distance_groups(s_d, t_d, v_d, S, W)
-        want = stack_distance_plain(s_d, t_d, v_d, S, W)
-        if not all(torch.equal(a, b) for a, b in zip(got, want)):
-            fail(f"stack_distance differs from its plain version at (sets, ways)={(S, W)}")
-    print(f"[3] edge geometries {EDGE_GEOMETRIES}: kernels equal plain versions", flush=True)
+        # K2 also with sets out of range (padding) and valid tags of -1 (the
+        # reference sums the positions of every empty way they match)
+        s_x, t_x = s_d.clone(), t_d.clone()
+        s_x[:, ::7] = -1
+        s_x[:, 3::11] = S
+        t_x[:, :6] = -1
+        t_x[:, 60:63] = -1
+        for rows in ((s_d, t_d, v_d), (s_x, t_x, v_d)):
+            got = stack_distance_groups(*rows, S, W)
+            want = stack_distance_plain(*rows, S, W)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"stack_distance differs from its plain version at (sets, ways)={(S, W)}")
+    print(f"[3] edge geometries {EDGE_GEOMETRIES}: kernels equal plain versions (K2 also with "
+          f"sets out of range and valid tags of -1)", flush=True)
 
     # D1 on the full-size SPM miss stream (every lookup misses: the largest
     # DRAM scan of the slice), then on a small ragged input.
@@ -1046,12 +1073,19 @@ def main() -> None:
     def rand_ints(hi, shape):
         return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
 
-    for dtype, d, lx in ((torch.float32, 200, 9), (torch.float32, 128, 1),
-                         (torch.bfloat16, 128, 40), (torch.bfloat16, 200, 7)):
-        tb, ix = rand_table(5000, d, dtype), rand_ints(5000, (32, 8, lx))
-        check_embedding(f"edge embedding_bag D={d} L={lx} {dtype}", embedding_bag_kernel,
+    # K3's edges: scalar columns (D % 4, or a table view off 16 bytes), D
+    # past one 128-column pass, L across blocks of 32 indices.
+    for dtype, d, lx, off in ((torch.float32, 200, 9, 0), (torch.float32, 128, 1, 0),
+                              (torch.bfloat16, 128, 40, 0), (torch.bfloat16, 200, 7, 0),
+                              (torch.float32, 512, 33, 0), (torch.float32, 3, 31, 0),
+                              (torch.bfloat16, 100, 300, 0), (torch.float32, 128, 120, 1),
+                              (torch.bfloat16, 256, 32, 1)):
+        tb = rand_table(5001, d, dtype).view(-1)[off:off + 5000 * d].view(5000, d)
+        ix = rand_ints(5000, (32, 8, lx)) - 2
+        check_embedding(f"edge embedding_bag D={d} L={lx} {dtype}"
+                        f"{', table view off 16 bytes' if off else ''}", embedding_bag_kernel,
                         embedding_bag_plain,
-                        lambda: F.embedding_bag(ix.reshape(-1).long(), tb,
+                        lambda: F.embedding_bag(ix.reshape(-1).long().remainder(5000), tb,
                                                 offsets(ix.numel(), lx), mode="sum"),
                         (tb, ix), True, 1e-5 if dtype == torch.float32 else 5e-2, reps=5)
     for dtype, d in ((torch.float32, 200), (torch.bfloat16, 33)):
@@ -1089,6 +1123,13 @@ def main() -> None:
              2 * N * D, L * f32_op_ms, [(N_HOT, D), (B, T, L)])):
         entries[name] = dict(kind=name, err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
                              nbytes=nbytes, ops=nops, lat_ms=lat, shapes=shapes)
+    k3 = entries["embedding_bag"]
+    k3_bound = max(k3["nbytes"] / HBM_BYTES_PER_S * 1e3, k3["ops"] / SCALAR_OPS_PER_S * 1e3,
+                   k3["lat_ms"])
+    print(f"[3] K3 at request 0 (one warp per bag): kernel {e3[1]!r} ms, F.embedding_bag "
+          f"{e3[3]!r} ms ({e3[1] / e3[3]!r} x the library call); bound {k3_bound!r} ms "
+          f"(bytes of the distinct rows, indices and output {k3['nbytes'] / HBM_BYTES_PER_S * 1e3!r}), "
+          f"{k3_bound / e3[1]!r} of its bound", flush=True)
     k5 = entries["vmem_gather_pool"]
     k5_bound = max(k5["nbytes"] / HBM_BYTES_PER_S * 1e3, k5["ops"] / SCALAR_OPS_PER_S * 1e3,
                    k5["lat_ms"])
@@ -1160,6 +1201,15 @@ def main() -> None:
         wall = time.perf_counter() - t0
     print(f"[4] profiled lru/pallas: wall {wall!r} s, "
           f"{device_busy(tprof.events(), wall, ('dram_scan', 'cache_scan'))}", flush=True)
+    hw_run = tpuv6e().with_policy("lru").with_cache_backend("stack_pallas")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        t0 = time.perf_counter()
+        simulate(wl, hw_run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"[4] profiled lru/stack_pallas: wall {wall!r} s, "
+          f"{device_busy(tprof.events(), wall, ('dram_scan', 'stack_distance'))}", flush=True)
 
     small_wl = dlrm_rmc2_small(num_tables=2, rows_per_table=300, batch_size=2, num_batches=2)
     for policy, backend in RUNS:
@@ -1241,6 +1291,13 @@ def main() -> None:
               f"max_memory_allocated over the forwards {torch.cuda.max_memory_allocated()} B",
               flush=True)
         from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+            t0 = time.perf_counter()
+            model(dense, sparse)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[6] profiled plain forward (request {DLRM_STEPS - 1}): wall {wall!r} s, "
+              f"{device_busy(tprof.events(), wall, ('bag_kernel',))}", flush=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
             t0 = time.perf_counter()
             model(dense, sparse, pinned)

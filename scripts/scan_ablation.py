@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Ablation of the port's two simulator scan kernels, D1 and K1, on one NVIDIA GPU.
+"""Ablation of the port's simulator scan kernels, D1, K1 and K2, on one NVIDIA GPU.
 
     python3 scripts/scan_ablation.py
 
-Both run on the full-size inputs of ``simulate`` on DLRM-RMC2 x ``tpuv6e()``
+All run on the full-size inputs of ``simulate`` on DLRM-RMC2 x ``tpuv6e()``
 (``dlrm_rmc2_small(num_batches=2)``): D1 (``src/repro_torch/csrc/dram_scan.cu``)
 on the (32, 16384) chunk rows of the SPM miss stream, K1
-(``src/repro_torch/csrc/cache_scan.cu``) on the two set-group buckets,
-(967, 512) and (57, 1024), 16 sets x 16 ways, for each policy. Each variant is built from the
-kernel's source by text substitution, checked bitwise against the kernel as
-it is, and timed as ``chip_smoke.py`` times the kernels: the mean of 20
-back-to-back launches, and the mean of 20 with the L2 cache flushed before
-each. The kernel as it is runs first and last, so the spread of the card
-shows.
+(``src/repro_torch/csrc/cache_scan.cu``) and K2
+(``src/repro_torch/csrc/stack_distance.cu``) on the two set-group buckets,
+(967, 512) and (57, 1024), 16 sets x 16 ways, K1 for each policy. Each
+variant is built from the kernel's source, its ``csrc/`` headers inlined
+(``_build.source_text``), by text substitution, checked bitwise against
+the kernel as it is, and timed as ``chip_smoke.py`` times the kernels: the
+mean of 20 back-to-back launches, and the mean of 20 with the L2 cache
+flushed before each. The kernel as it is runs first and last, so the
+spread of the card shows.
 
 D1 variants:
   registers      the bank state of a row in registers (8 banks, as tpuv6e
@@ -29,18 +31,21 @@ D1 variants:
   one-stage      one stage of tiles: the loaders refill it only when the
                  compute warp is done with it;
   tile-64        tiles of 64 chunks, not 128.
-K1 variants:
+K1 and K2 variants (of the walk both share, csrc/set_team_scan.cuh):
   team-32        every set's team a whole warp (32 lanes, 16 of them idle at
                  16 ways), so each warp walks one set;
   scan-only      no access walked: staging the row, sorting its positions
-                 into the teams' lists and writing hit/evict back (wrong
+                 into the teams' lists and writing the outputs back (wrong
                  output: what the rest costs);
-  stage-only     staging the row (and counting its sets) and writing
-                 hit/evict back, nothing else (wrong output);
+  stage-only     staging the row (and counting its sets) and writing the
+                 outputs back, nothing else (wrong output);
   no-read-ahead  each access's position and tag read from shared memory when
                  its step starts, not during the step before;
+K1 only:
   no-min         the victim's min-reduction left out (wrong output: what the
                  reductions cost).
+K2 only:
+  no-sum         the team sum of matching ranks left out (wrong output).
 
 Builds into ``build/ablation/``. Last, the card's name and power limit.
 Imports nothing of JAX.
@@ -66,6 +71,7 @@ from repro_torch.core.memory.system import MemorySystem, lane_geometry  # noqa: 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_scan as k1  # noqa: E402
 from repro_torch.kernels import dram_scan as d1  # noqa: E402
+from repro_torch.kernels import stack_distance as k2  # noqa: E402
 
 OUT = ROOT / "build" / "ablation"
 REGISTER_STATE = """struct BankState {
@@ -140,25 +146,30 @@ VARIANTS = {
         "one-stage": [("constexpr int kStages = 2;", "constexpr int kStages = 1;")],
         "tile-64": [("constexpr int kTile = 128;", "constexpr int kTile = 64;")],
     },
-    "cache_scan": {
-        "team-32": [("while ((1 << *team_log2) < min(ways, 32)) ++*team_log2;",
-                     "*team_log2 = 5;")],
-        "scan-only": [("    const int steps = (int)__reduce_max_sync(kFull, (unsigned)count);",
-                       "    const int steps = 0 * (int)__reduce_max_sync(kFull, (unsigned)count);")],
-        "stage-only": [("    const int steps = (int)__reduce_max_sync(kFull, (unsigned)count);",
-                        "    const int steps = 0 * (int)__reduce_max_sync(kFull, (unsigned)count);"),
-                       ("    for (int c = 0, k = 0; c < n; c += team) {",
-                        "    for (int c = 0, k = 0; c < 0 * n; c += team) {")],
-        "no-read-ahead": [
-            ("    int p_next = count > 0 ? list[0] : 0;\n    int tag_next = s_tag[p_next];\n", ""),
-            ("      const int p = p_next, tag = tag_next, t = base + p;\n"
-             "      if (i + 1 < count) {\n        p_next = list[i + 1];\n"
-             "        tag_next = s_tag[p_next];\n      }\n",
-             "      const int p = act ? list[i] : 0, tag = s_tag[p], t = base + p;\n")],
-        "no-min": [("  if (team_log2 == 5) return __reduce_min_sync(kFull, key);",
-                    "  if (team_log2 >= 4) return key;")],
-    },
 }
+# The shared walk's variants, for K1 and K2 alike.
+WALK = {
+    "team-32": [("while ((1 << *team_log2) < (ways < 32 ? ways : 32)) ++*team_log2;",
+                 "*team_log2 = 5;")],
+    "scan-only": [("    const int steps = (int)__reduce_max_sync(kFull, (unsigned)count);",
+                   "    const int steps = 0 * (int)__reduce_max_sync(kFull, (unsigned)count);")],
+    "stage-only": [("    const int steps = (int)__reduce_max_sync(kFull, (unsigned)count);",
+                    "    const int steps = 0 * (int)__reduce_max_sync(kFull, (unsigned)count);"),
+                   ("    for (int c = 0, k = 0; c < n; c += ln.team) {",
+                    "    for (int c = 0, k = 0; c < 0 * n; c += ln.team) {")],
+    "no-read-ahead": [
+        ("    int p_next = count > 0 ? list[0] : 0;\n    int tag_next = s_tag[p_next];\n", ""),
+        ("      const int p = p_next, tag = tag_next;\n"
+         "      if (i + 1 < count) {\n        p_next = list[i + 1];\n"
+         "        tag_next = s_tag[p_next];\n      }\n",
+         "      const int p = act ? list[i] : 0, tag = s_tag[p];\n")],
+}
+VARIANTS["cache_scan"] = dict(WALK, **{
+    "no-min": [("  if (ln.team_log2 == 5) return __reduce_min_sync(kFull, key);",
+                "  if (ln.team_log2 >= 4) return key;")]})
+VARIANTS["stack_distance"] = dict(WALK, **{
+    "no-sum": [("  if (ln.team_log2 == 5) return __reduce_add_sync(kFull, x);",
+                "  if (ln.team_log2 >= 4) return x;")]})
 
 
 def time_ms(fn, reps: int) -> float:
@@ -191,11 +202,10 @@ def time_cold_ms(fn, reps: int, flush) -> float:
 
 def build(job) -> Path:
     kernel, name = job
-    path = _build.CSRC / f"{kernel}.cu"
-    src = path.read_text()
+    src = _build.source_text(kernel)
     for old, new in VARIANTS[kernel][name]:
         if old not in src:
-            raise SystemExit(f"{kernel} {name}: {old!r} is no longer in {path.name}")
+            raise SystemExit(f"{kernel} {name}: {old!r} is no longer in {kernel}.cu or its headers")
         src = src.replace(old, new)
     cu, lib = OUT / f"{kernel}_{name}.cu", OUT / f"lib{kernel}_{name}.so"
     cu.write_text(src)
@@ -292,6 +302,28 @@ def main() -> None:
             print(f"K1 {policy} {name}: {total!r} ms per classification ({total_cold!r} L2 "
                   f"flushed; per bucket {', '.join(per_bucket)}), equal to the kernel as it is: "
                   f"{same}", flush=True)
+    # K2 on the same buckets.
+    refs = [k2.stack_distance_groups(s, t, v, S, W) for s, t, v, S, W in buckets]
+    for name in ["as is", *VARIANTS["stack_distance"], "as is"]:
+        fn = launcher(k2, libs.get(("stack_distance", name)))
+        total, total_cold, same, per_bucket = 0.0, 0.0, True, []
+        for (s, t, v, S, W), ref in zip(buckets, refs):
+            dist, ev = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+
+            def run(s=s, t=t, v=v, S=S, W=W, dist=dist, ev=ev):
+                err = fn(s.data_ptr(), t.data_ptr(), v.data_ptr(), dist.data_ptr(),
+                         ev.data_ptr(), s.shape[0], s.shape[1], S, W, stream)
+                if err:
+                    raise SystemExit(f"stack_distance launch failed with CUDA error {err}")
+            run()
+            torch.cuda.synchronize()
+            same &= torch.equal(dist, ref[0]) and torch.equal(ev, ref[1])
+            ms = time_ms(run, 20)
+            per_bucket.append(f"{tuple(s.shape)} {ms!r}")
+            total += ms
+            total_cold += time_cold_ms(run, 20, flush)
+        print(f"K2 {name}: {total!r} ms per classification ({total_cold!r} L2 flushed; per "
+              f"bucket {', '.join(per_bucket)}), equal to the kernel as it is: {same}", flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 

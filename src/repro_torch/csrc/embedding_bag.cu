@@ -11,25 +11,27 @@
 //
 // What bounds them: bytes. Each is a gather whose row addresses come from
 // data; the arithmetic is one f32 add (K5: a multiply and an add) per
-// element gathered, far below the card's rate. The designs keep the loads
-// coalesced (a bag's columns go across consecutive threads, so a warp reads
-// 32 consecutive elements of one row) and keep many rows in flight (the
-// loads of a bag do not depend on its running sum, so the unrolled loop
-// issues them ahead of the adds). K5 reads its table from device memory
-// once per resident block instead of once per lookup; its lookups then
-// read shared memory, so what bounds it on the card is the chain of L
-// dependent adds of each bag: it runs one warp per bag (a lane holds 4
-// columns of a 128-wide row, one 16-byte shared load a step), spreads the
-// bags over every SM, and keeps the indices out of the chain (loaded 32
-// at a time, a block ahead, handed between lanes by shuffle).
+// element gathered, far below the card's rate. K3 and K5 run one warp per
+// bag, a lane holding 4 columns of a 128-column pass over the row (one
+// 16-byte f32 or 8-byte bf16 load a row where D and the table's alignment
+// allow it, else 4 scalar loads), and keep the indices out of the chain:
+// loaded 32 at a time, coalesced, a block ahead, and handed between lanes
+// by shuffle. K3 reads its rows from device memory, so what sets its pace
+// is how many rows are in flight: each lane issues the loads of a group
+// of kBagRows rows before it adds any of them, and every bag of a
+// DLRM request is resident at once. K4 copies rows a warp each, 16 bytes
+// a lane where it can. K5 reads its table from device memory once per
+// resident block instead of once per lookup; its lookups then read shared
+// memory, so what bounds it on the card is the chain of L dependent adds
+// of each bag: it spreads the bags over every SM.
 //
-// Summation order is the reference's: one thread owns each output column and
-// adds rows in l = 0..L-1 order with __fadd_rn (K5: __fmul_rn then
-// __fadd_rn; the library is built with -fmad=false), so a kernel equals its
-// plain torch version bit for bit. The one exception is a K5 hot table that
-// does not fit one block's shared memory: the kernel then stages it in
-// tiles of rows, one after the other, and each lookup adds in the tile that
-// holds its position, so the sum is taken tile by tile.
+// Summation order is the reference's: each output column adds its rows in
+// l = 0..L-1 order with __fadd_rn (K5: __fmul_rn then __fadd_rn; the
+// library is built with -fmad=false), so a kernel equals its plain torch
+// version bit for bit. The one exception is a K5 hot table that does not
+// fit one block's shared memory: the kernel then stages it in tiles of
+// rows, one after the other, and each lookup adds in the tile that holds
+// its position, so the sum is taken tile by tile.
 //
 // Indices are int32, as in the reference; element offsets are 64-bit (the
 // full DLRM table has 7.68e9 elements). An index outside the table reads
@@ -42,13 +44,10 @@ namespace {
 
 constexpr int kDtypeF32 = 0;
 constexpr int kDtypeBf16 = 1;
-// Threads of one block. A bag's columns take col_threads = min(D rounded up
-// to a warp, 256) of them; the block handles 512 / col_threads bags at once.
-constexpr int kBlockThreads = 512;
-constexpr int kMaxColThreads = 256;
-constexpr int kMaxGroups = kBlockThreads / 32;
-// K3 stages this many indices of each bag in shared memory at a time.
-constexpr int kChunk = 128;
+constexpr unsigned kFull = 0xffffffffu;
+// K3: warps of a block, one bag each; rows a lane loads before adding them.
+constexpr int kBagWarps = 4;
+constexpr int kBagRows = 16;
 // K5: warps of a block, one bag each.
 constexpr int kPoolMaxWarps = 32;
 
@@ -72,45 +71,82 @@ __device__ __forceinline__ int64_t clamp_row(int64_t r, int64_t rows) {
   return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
 }
 
-int col_threads_for(int D) {
-  const int c = (D + 31) / 32 * 32;
-  return c < kMaxColThreads ? c : kMaxColThreads;
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&v)[4]);
+template <>
+__device__ __forceinline__ void load4<float>(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+template <>
+__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16); v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16); v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
-// K3. Group g of the block owns bag blockIdx.x * groups + g; its threads
-// stride over the D columns. Every thread reaches every __syncthreads (the
-// loops around them have the same trip counts in the whole block).
-template <typename T>
-__global__ void __launch_bounds__(kBlockThreads)
+// K3. One warp per bag, grid-stride (warp w of the launch takes bags w, w
+// + the launch's warps, ...). A lane owns 4 columns of each pass of 128
+// over D: 4 consecutive ones (c0 + 4 lane + e), read as one 16-byte (f32)
+// or 8-byte (bf16) load, when VEC (D % 4 == 0 and the table aligned for
+// it); else every 32nd (c0 + lane + 32 e), scalar loads. The warp loads
+// its bag's indices 32 at a time, coalesced, one block ahead of the block
+// it sums (the next pass's or the next bag's first block after the last),
+// and hands each row's index from lane to lane by shuffle. A group of U
+// rows is loaded before any of it is added, straight-line: a position past
+// L (the last group's tail) loads row 0 and adds +0, which leaves every
+// sum as skipping it would (sums never hold -0); columns past D load
+// column 0 and are not stored. Each column adds in l order.
+template <typename T, bool VEC, int U>
+__global__ void __launch_bounds__(32 * kBagWarps)
 bag_kernel(const T* __restrict__ table, const int* __restrict__ idx, int64_t rows,
-           int64_t bags, int L, int D, int col_threads, T* __restrict__ out) {
-  __shared__ int idx_s[kMaxGroups][kChunk];
-  const int groups = blockDim.x / col_threads;
-  const int g = threadIdx.x / col_threads;
-  const int c = threadIdx.x % col_threads;
-  const int64_t bag = (int64_t)blockIdx.x * groups + g;
-  const bool live_bag = bag < bags;
-  for (int c0 = 0; c0 < D; c0 += col_threads) {
-    const int col = c0 + c;
-    const bool live = live_bag && col < D;
-    const T* column = table + col;
-    float acc = 0.0f;
-    for (int l0 = 0; l0 < L; l0 += kChunk) {
-      const int n = min(kChunk, L - l0);
-      __syncthreads();
-      if (live_bag) {
-        for (int i = c; i < n; i += col_threads) idx_s[g][i] = idx[bag * L + l0 + i];
+           int64_t bags, int L, int D, T* __restrict__ out) {
+  static_assert(32 % U == 0, "a group of rows stays inside a block of 32 indices");
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (int64_t)gridDim.x * kBagWarps;
+  int64_t bag = (int64_t)blockIdx.x * kBagWarps + threadIdx.x / 32;
+  int next = bag < bags && lane < L ? idx[bag * L + lane] : 0;
+  for (; bag < bags; bag += warps) {
+    for (int c0 = 0; c0 < D; c0 += 128) {
+      int col[4], ld[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        col[e] = VEC ? c0 + 4 * lane + e : c0 + lane + 32 * e;
+        ld[e] = col[e] < D ? col[e] : 0;
       }
-      __syncthreads();
-      if (live) {
-#pragma unroll 8
-        for (int i = 0; i < n; ++i) {
-          const int64_t r = clamp_row(idx_s[g][i], rows);
-          acc = __fadd_rn(acc, to_f32(column[r * D]));
+      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int l0 = 0; l0 < L; l0 += 32) {
+        const int cur = next;
+        // the block after this one, in flight while this one is summed
+        const int64_t nb = l0 + 32 < L || c0 + 128 < D ? bag : bag + warps;
+        const int nl = (l0 + 32 < L ? l0 + 32 : 0) + lane;
+        next = nb < bags && nl < L ? idx[nb * L + nl] : 0;
+        const int n = min(32, L - l0);
+        for (int g = 0; g < n; g += U) {
+          float r[U][4];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int q = __shfl_sync(kFull, cur, g + u);
+            const T* row = table + clamp_row(q, rows) * D;
+            if (VEC) {
+              load4<T>(row + ld[0], r[u]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) r[u][e] = to_f32(row[ld[e]]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], g + u < n ? r[u][e] : 0.0f);
+          }
         }
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col[e] < D) out[bag * D + col[e]] = from_f32<T>(acc[e]);
+      }
     }
-    if (live) out[bag * D + col] = from_f32<T>(acc);
   }
 }
 
@@ -141,20 +177,6 @@ __global__ void gather_kernel(const U* __restrict__ table, const int* __restrict
 // lane by shuffle, so no step of the chain waits on device memory. A bag's
 // running sums live in registers within a tile and in `scratch` (f32,
 // (bags, D)) between tiles; with one tile, scratch is not touched.
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&v)[4]);
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float (&v)[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(q.x << 16); v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16); v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    (uint32_t)__cvta_generic_to_shared(dst)), "l"(src));
@@ -269,16 +291,38 @@ pool_kernel(const T* __restrict__ hot, const int* __restrict__ pos,
   }
 }
 
-template <typename T>
-int launch_bag(const void* table, const int* idx, int64_t rows, int64_t bags, int L,
-               int D, void* out, cudaStream_t st) {
-  const int col_threads = col_threads_for(D);
-  const int groups = kBlockThreads / col_threads;
-  const int64_t grid = (bags + groups - 1) / groups;
-  if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  bag_kernel<T><<<(unsigned)grid, col_threads * groups, 0, st>>>(
-      (const T*)table, idx, rows, bags, L, D, col_threads, (T*)out);
+// Blocks of K3's kernel resident on one SM of the current card.
+template <typename T, bool VEC>
+int bag_blocks_per_sm() {
+  static const int n = [] {
+    int b = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, bag_kernel<T, VEC, kBagRows>, 32 * kBagWarps, 0);
+    return e == cudaSuccess ? b : 0;
+  }();
+  return n;
+}
+
+// A bag a warp while the card holds them all at once; past that, the grid
+// is what the card holds (one wave) and each warp takes several bags.
+template <typename T, bool VEC>
+int launch_bag_as(const void* table, const int* idx, int64_t rows, int64_t bags, int L, int D,
+                  int sms, void* out, cudaStream_t st) {
+  const int64_t cap = (int64_t)sms * bag_blocks_per_sm<T, VEC>();
+  if (cap < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t want = (bags + kBagWarps - 1) / kBagWarps;
+  bag_kernel<T, VEC, kBagRows><<<(unsigned)(want < cap ? want : cap), 32 * kBagWarps, 0, st>>>(
+      (const T*)table, idx, rows, bags, L, D, (T*)out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bag(const void* table, const int* idx, int64_t rows, int64_t bags, int L, int D,
+               int sms, void* out, cudaStream_t st) {
+  if (D % 4 == 0 && (uintptr_t)table % (4 * sizeof(T)) == 0) {
+    return launch_bag_as<T, true>(table, idx, rows, bags, L, D, sms, out, st);
+  }
+  return launch_bag_as<T, false>(table, idx, rows, bags, L, D, sms, out, st);
 }
 
 template <typename U>
@@ -368,11 +412,14 @@ int launch_pool(const void* hot, const int* pos, const int* mask, int H, int64_t
 // All return a cudaError_t code (0 = launched). `dtype`: 0 = f32, 1 = bf16.
 
 extern "C" int embedding_bag_launch(const void* table, const int* idx, int64_t rows,
-                                    int64_t bags, int L, int D, int dtype, void* out,
+                                    int64_t bags, int L, int D, int dtype, int sms, void* out,
                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kDtypeF32) return launch_bag<float>(table, idx, rows, bags, L, D, out, st);
-  if (dtype == kDtypeBf16) return launch_bag<__nv_bfloat16>(table, idx, rows, bags, L, D, out, st);
+  if (sms < 1 || L < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == kDtypeF32) return launch_bag<float>(table, idx, rows, bags, L, D, sms, out, st);
+  if (dtype == kDtypeBf16) {
+    return launch_bag<__nv_bfloat16>(table, idx, rows, bags, L, D, sms, out, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,97 +3,100 @@
 // Replaces the Pallas kernel `_stack_distance_kernel` of
 // src/repro/kernels/stack_distance.py. Each padded set-group sub-trace (one
 // row b of the (B, L) inputs) keeps a recency-ordered tag list per set
-// (way 0 = MRU, -1 = empty). Per access the position of its tag in the list
-// is the stack distance, capped at `ways`; the list then updates by one
-// rotate-insert toward MRU. A miss into a full set evicts. A padded slot
-// reports distance `ways` and leaves the state alone.
+// (position 0 = MRU, -1 = empty). Per access, the distance is the position
+// of its tag in the list (the reference sums the positions that hold it,
+// which is the position for any tag the list holds once), or `ways` if the
+// list does not hold it. Then positions [1, limit] take their left
+// neighbour and position 0 takes the tag (limit = the distance on a hit, at
+// most ways - 1; ways - 1 on a miss). A miss into a full set (the last
+// position holds a tag >= 0) evicts. Padding and out-of-range sets report
+// `ways` and no evict, and leave the lists alone.
 //
-// What bounds it: like K1, the L dependent updates of a row, not bytes.
-// Design: one warp per row, the (num_sets <= 16, ways) lists in shared
-// memory; ways across lanes with a loop for ways > 32; the match is
-// __ballot_sync + __ffs (the lowest way, as the reference's masked sum
-// gives for the single possible match); the rotate is done chunk by chunk
-// from the LRU end, each lane reading its left neighbour before any lane of
-// the chunk writes, so no chunk overwrites a value a lower chunk still has
-// to read. Inputs are loaded 32 at a time and broadcast by __shfl_sync.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What bounds it: like K1, not bytes but the chain of dependent updates of
+// the longest set. The first design walked the whole row with one warp and
+// the lists in shared memory (~600 cycles an access behind three __syncwarp
+// fences). This one is K1's walk (set_team_scan.cuh): a team of lanes per
+// set, one way per lane, with the list as a permutation in registers. A
+// lane holds a way's tag and its rank, the way's position in the list
+// (initially rank = way, tag = -1, so the empty ways hold the tail as in
+// the list). One access is one team sum over the lanes whose tag matches
+// (the distance, and whether any matched), then in each lane: rank ==
+// limit takes rank 0 and the tag (on a miss it evicts if its old tag is
+// >= 0), rank < limit moves one down (rank + 1), any other rank stays.
+// That is the reference's rotate-insert, exactly, even for a valid tag of
+// -1 that matches several empty positions.
+#include "set_team_scan.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNever = 1 << 20;  // the rank of a lane past `ways`: never at or before a limit
 
-__global__ void __launch_bounds__(32)
-stack_distance_kernel(const int* __restrict__ sets, const int* __restrict__ tags_in,
-                      const uint8_t* __restrict__ valid, int* __restrict__ dist,
-                      uint8_t* __restrict__ evict, int L, int num_sets, int ways) {
-  extern __shared__ int lists[];
-  const int lane = threadIdx.x;
-  for (int i = lane; i < num_sets * ways; i += 32) lists[i] = -1;
-  __syncwarp();
+// One team's recency list: a tag and a rank per way, in registers.
+template <int SLOTS>
+struct RankStep {
+  using Out = int;
+  using Staged = short;  // distances up to 2,016 (the sum of 64 ranks)
+  __device__ static Staged pad(int ways) { return (Staged)ways; }
 
-  const int last_chunk = ((ways - 1) / 32) * 32;
-  const size_t row = (size_t)blockIdx.x * (size_t)L;
-  for (int base = 0; base < L; base += 32) {
-    const int idx = base + lane;
-    int my_s = 0, my_tag = 0, my_v = 0;
-    if (idx < L) {
-      my_s = sets[row + idx];
-      my_tag = tags_in[row + idx];
-      my_v = valid[row + idx];
-    }
-    int my_dist = ways, my_evict = 0;
-    const int n = min(32, L - base);
-    for (int j = 0; j < n; ++j) {
-      const int s = __shfl_sync(kFull, my_s, j);
-      const int tag = __shfl_sync(kFull, my_tag, j);
-      const int v = __shfl_sync(kFull, my_v, j);
-      int d = ways, e = 0;
-      // An out-of-range set index is treated as padding.
-      if (v && s >= 0 && s < num_sets) {
-        int* list = lists + s * ways;
-        int pos = -1;
-        for (int c = 0; c < ways; c += 32) {
-          const int w = c + lane;
-          const unsigned bal = __ballot_sync(kFull, w < ways && list[w] == tag);
-          if (bal) {
-            pos = c + __ffs(bal) - 1;
-            break;
-          }
-        }
-        const bool found = pos >= 0;
-        d = found ? pos : ways;
-        const int limit = found ? pos : ways - 1;
-        e = !found && list[ways - 1] >= 0;
-        __syncwarp();
-        for (int c = last_chunk; c >= 0; c -= 32) {
-          const int w = c + lane;
-          int nv = 0;
-          bool write = false;
-          if (w < ways) {
-            if (w == 0) {
-              nv = tag;
-              write = true;
-            } else if (w <= limit) {
-              nv = list[w - 1];
-              write = true;
-            }
-          }
-          __syncwarp();
-          if (write) list[w] = nv;
-          __syncwarp();
-        }
-      }
-      if (lane == j) {
-        my_dist = d;
-        my_evict = e;
-      }
-    }
-    if (idx < L) {
-      dist[row + idx] = my_dist;
-      evict[row + idx] = (uint8_t)my_evict;
+  int tg[SLOTS], rank[SLOTS];
+  bool live[SLOTS];
+  int ways;
+
+  __device__ __forceinline__ RankStep(const set_team::Lane& ln, int ways_) : ways(ways_) {
+#pragma unroll
+    for (int q = 0; q < SLOTS; ++q) {
+      const int w = q * ln.team + ln.lt;
+      live[q] = ln.mine >= 0 && w < ways;
+      tg[q] = -1;
+      rank[q] = live[q] ? w : kNever;
     }
   }
+
+  __device__ __forceinline__ void step(const set_team::Lane& ln, bool act, int tag, int, int p,
+                                       short* s_dist, uint8_t* s_ev) {
+    // Each matching way adds 1 << 16 | rank: the team's sum holds how many
+    // matched above bit 16 and the sum of their ranks below it.
+    unsigned part = 0u;
+#pragma unroll
+    for (int q = 0; q < SLOTS; ++q) {
+      part += act && live[q] && tg[q] == tag ? (1u << 16) | (unsigned)rank[q] : 0u;
+    }
+    const unsigned sum = set_team::team_add(part, ln);
+    const bool found = sum >= (1u << 16);
+    const int d = found ? (int)(sum & 0xffffu) : ways;
+    const int limit = d < ways ? d : ways - 1;
+    bool ev = false;
+#pragma unroll
+    for (int q = 0; q < SLOTS; ++q) {
+      const bool at = act && rank[q] == limit;
+      ev |= at && !found && tg[q] >= 0;
+      rank[q] = at ? 0 : (act && rank[q] < limit ? rank[q] + 1 : rank[q]);
+      tg[q] = at ? tag : tg[q];
+    }
+    if (act && ln.lt == 0) s_dist[p] = (short)d;
+    if (ev) s_ev[p] = 1;
+  }
+};
+
+template <int SLOTS>
+__global__ void __launch_bounds__(set_team::kMaxThreads, SLOTS == 1 ? 2 : 1)
+stack_distance_kernel(const int* __restrict__ sets, const int* __restrict__ tags_in,
+                      const uint8_t* __restrict__ valid, int* __restrict__ dist,
+                      uint8_t* __restrict__ evict, int L, int num_sets, int ways,
+                      int team_log2) {
+  set_team::walk_row<RankStep<SLOTS>>(sets, tags_in, valid, dist, evict, L, num_sets, ways,
+                                      team_log2);
+}
+
+typedef void (*Kernel)(const int*, const int*, const uint8_t*, int*, uint8_t*, int, int, int,
+                       int);
+
+// The kernel for a geometry with its block size, team width and shared
+// memory; nullptr for what it does not take.
+Kernel configure(int L, int num_sets, int ways, int* threads, int* team_log2, size_t* smem) {
+  if (L < 1 || !set_team::geometry(num_sets, ways, threads, team_log2)) return nullptr;
+  *smem = set_team::smem_bytes<RankStep<1>>(L, num_sets);
+  return ways > 32 ? stack_distance_kernel<2> : stack_distance_kernel<1>;
 }
 
 }  // namespace
@@ -102,8 +105,20 @@ extern "C" int stack_distance_launch(const int* sets, const int* tags,
                                      const uint8_t* valid, int* dist,
                                      uint8_t* evict, int B, int L,
                                      int num_sets, int ways, void* stream) {
-  const size_t smem = (size_t)num_sets * ways * sizeof(int);
-  stack_distance_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(
-      sets, tags, valid, dist, evict, L, num_sets, ways);
+  int threads, team_log2;
+  size_t smem;
+  const Kernel k = configure(L, num_sets, ways, &threads, &team_log2, &smem);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  k<<<B, threads, smem, (cudaStream_t)stream>>>(sets, tags, valid, dist, evict, L, num_sets,
+                                                 ways, team_log2);
   return (int)cudaGetLastError();
+}
+
+// Blocks of one launch's shape resident on one SM of the current card.
+extern "C" int stack_distance_occupancy(int L, int num_sets, int ways, int* blocks) {
+  int threads, team_log2;
+  size_t smem;
+  const Kernel k = configure(L, num_sets, ways, &threads, &team_log2, &smem);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, threads, smem);
 }

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each source in ``csrc/`` is a self-contained ``.cu`` file with a plain C
-launch function, compiled for ``sm_90a`` into its own shared library. All
-libraries are built together (one ``nvcc`` per source, started at once) at
-the first launch of any kernel, into ``build/kernels/`` at the repository
-root, named by a hash of the source and flags so an unchanged source is
-never rebuilt. Nothing here runs at import time, so the package imports on
+Each source in ``csrc/`` is a ``.cu`` file with a plain C launch function,
+compiled for ``sm_90a`` into its own shared library; a source may include
+headers of ``csrc/`` (``#include "name.cuh"``). All libraries are built
+together (one ``nvcc`` per source, started at once) at the first launch of
+any kernel, into ``build/kernels/`` at the repository root, named by a hash
+of the source with its headers and the flags, so an unchanged source is
+never rebuilt and an edited header rebuilds every source that includes it. Nothing here runs at import time, so the package imports on
 machines without ``nvcc`` or a GPU.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,9 +60,28 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(r'^#include "([^"]+)"[^\n]*$', re.M)
+
+
+def source_text(name: str) -> str:
+    """``csrc/<name>.cu`` with each ``#include "..."`` of a ``csrc/`` header
+    replaced by the header's text (each header once): what the compiler
+    reads, as one file."""
+    seen = set()
+
+    def expand(text: str) -> str:
+        def header(m):
+            if m.group(1) in seen:
+                return ""
+            seen.add(m.group(1))
+            return expand((CSRC / m.group(1)).read_text().replace("#pragma once\n", ""))
+        return _INCLUDE.sub(header, text)
+
+    return expand((CSRC / f"{name}.cu").read_text())
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(nvcc_flags(name)).encode())
+    digest = hashlib.sha256((source_text(name) + " ".join(nvcc_flags(name))).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

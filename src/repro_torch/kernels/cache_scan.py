@@ -104,19 +104,14 @@ def cache_scan_plain(sets, tags, valid, num_sets: int, ways: int, policy: str = 
     return hits, evicts
 
 
-def cache_scan_by_set_plain(sets, tags, valid, num_sets: int, ways: int, policy: str = "lru"):
-    """``cache_scan_plain`` computed as the kernel's teams compute it.
+def set_sequences(sets, valid, num_sets: int):
+    """Each row's per-set sub-sequences, as the kernels' teams walk them.
 
-    Each row is split into its per-set sub-sequences (the valid accesses to
-    one set, in row order, with their row positions as timestamps), and
-    every (row, set) sequence walks a one-set cache of ``ways`` ways alone.
-    The victim is the least key ``order << 6 | way`` of the kernel (LRU/FIFO
-    order: timestamp + 1, 0 for an invalid way; SRRIP order: 3 - RRPV, whose
-    least value is also the aging step). Returns ``(hit, evict)`` bool
-    ``(B, L)``, equal to ``cache_scan_plain``'s.
+    Returns ``seq``, ``(B * num_sets, steps)`` int64: team ``b * num_sets +
+    s`` holds the flat positions ``b * L + p`` of row b's valid accesses to
+    set s, in row order, then -1 (``steps`` = the longest). Invalid and
+    out-of-range accesses belong to no team.
     """
-    if policy not in POLICY_IDS:
-        raise ValueError(f"unknown policy {policy!r}; options: {sorted(POLICY_IDS)}")
     B, L = sets.shape
     dev = sets.device
     s = sets.long()
@@ -133,7 +128,27 @@ def cache_scan_by_set_plain(sets, tags, valid, num_sets: int, ways: int, policy:
     rank = torch.arange(order.numel(), device=dev) - start[team_o]
     steps = int(count.max()) if count.numel() else 0
     seq = torch.full((n_teams, steps), -1, dtype=torch.long, device=dev)
-    seq[team_o, rank] = order                       # flat (b * L + p) of each access
+    seq[team_o, rank] = order
+    return seq
+
+
+def cache_scan_by_set_plain(sets, tags, valid, num_sets: int, ways: int, policy: str = "lru"):
+    """``cache_scan_plain`` computed as the kernel's teams compute it.
+
+    Each row is split into its per-set sub-sequences (``set_sequences``: the
+    valid accesses to one set, in row order, with their row positions as
+    timestamps), and every (row, set) sequence walks a one-set cache of
+    ``ways`` ways alone. The victim is the least key ``order << 6 | way`` of
+    the kernel (LRU/FIFO order: timestamp + 1, 0 for an invalid way; SRRIP
+    order: 3 - RRPV, whose least value is also the aging step). Returns
+    ``(hit, evict)`` bool ``(B, L)``, equal to ``cache_scan_plain``'s.
+    """
+    if policy not in POLICY_IDS:
+        raise ValueError(f"unknown policy {policy!r}; options: {sorted(POLICY_IDS)}")
+    B, L = sets.shape
+    dev = sets.device
+    seq = set_sequences(sets, valid, num_sets)
+    n_teams = seq.shape[0]
     flat_tags = tags.reshape(-1).to(torch.int32)
     way = torch.arange(ways, dtype=torch.int32, device=dev)
     state_tags = torch.full((n_teams, ways), -1, dtype=torch.int32, device=dev)
@@ -141,7 +156,7 @@ def cache_scan_by_set_plain(sets, tags, valid, num_sets: int, ways: int, policy:
                       dtype=torch.int32, device=dev)
     hits = torch.zeros(B * L, dtype=torch.bool, device=dev)
     evicts = torch.zeros(B * L, dtype=torch.bool, device=dev)
-    for j in range(steps):
+    for j in range(seq.shape[1]):
         at = seq[:, j]
         live = at >= 0
         idx = at.clamp_min(0)

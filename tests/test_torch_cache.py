@@ -20,7 +20,8 @@ from repro_torch.core.memory import cache as tcache
 from repro_torch.core.memory import stack as tstack
 from repro_torch.kernels.cache_scan import (
     cache_scan_by_set_plain, cache_scan_groups, cache_scan_plain)
-from repro_torch.kernels.stack_distance import stack_distance_groups
+from repro_torch.kernels.stack_distance import (
+    stack_distance_by_set_plain, stack_distance_groups, stack_distance_plain)
 
 POLICIES = ["lru", "srrip", "fifo"]
 # The issue's edge geometries plus those of tests/test_cache_pallas.py.
@@ -162,6 +163,68 @@ def test_stack_distance_plain_equals_numpy_stack_pass(sets, ways):
     np.testing.assert_array_equal(e.numpy()[0], miss & (distinct_before >= ways))
     gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), "lru")
     np.testing.assert_array_equal(d.numpy()[0] < ways, gold.run(lines))
+
+
+def _assert_stack_by_set_equals_plain(s, t, v, sets, ways):
+    """K2's decomposition equals K2's plain version (the reference's
+    recency-list scan)."""
+    d, e = stack_distance_by_set_plain(*_t(s, t, v), sets, ways)
+    dp, ep = stack_distance_plain(*_t(s, t, v), sets, ways)
+    assert torch.equal(d, dp) and torch.equal(e, ep)
+    return d, e
+
+
+@pytest.mark.parametrize("sets,ways", EDGE)
+def test_stack_distance_by_set_equals_plain_numpy_and_golden(sets, ways):
+    """The kernel's decomposition on the CPU: each row split into its
+    per-set sequences, each list held as a permutation of ranks, as K2's
+    lane teams hold it. Padded rows with sets out of range against the
+    plain version; an unpadded row against the numpy stack pass and
+    ``GoldenCache``."""
+    rng = np.random.default_rng(17 * sets + ways)
+    s, t, v = _rows(rng, 3, 160, sets, ways, pad_from=130)
+    s[:, ::9] = -1
+    s[:, 4::13] = sets
+    d, e = _assert_stack_by_set_equals_plain(s, t, v, sets, ways)
+    assert (d.numpy()[s < 0] == ways).all() and not e.numpy()[s >= sets].any()
+    lines = rng.integers(0, sets * ways * 3 + 1, size=250)
+    s1 = (lines % sets).astype(np.int32)[None, :]
+    d, e = stack_distance_by_set_plain(*_t(s1, lines.astype(np.int32)[None, :],
+                                           np.ones_like(s1, dtype=bool)), sets, ways)
+    dist, distinct_before = rstack.stack_distances_np(lines, sets)
+    np.testing.assert_array_equal(d.numpy()[0], np.minimum(dist, ways))
+    np.testing.assert_array_equal(e.numpy()[0], (dist >= ways) & (distinct_before >= ways))
+    gold = GoldenCache(rcache.CacheGeometry(sets, ways, 64), "lru")
+    np.testing.assert_array_equal(d.numpy()[0] < ways, gold.run(lines))
+    assert int(e.sum()) == gold.num_evictions
+
+
+@pytest.mark.parametrize("case", ["one_set", "tag_minus_one", "out_of_range", "two_tiles"])
+@pytest.mark.parametrize("sets,ways", [(16, 16), (2, 64), (3, 2)])
+def test_stack_distance_by_set_edge_rows(case, sets, ways):
+    """A row whose every access falls in one set (the longest chain a team
+    walks), valid tags of -1 into empty ways (the reference sums every
+    position that holds -1, so a distance can pass ``ways``), rows of sets
+    out of range (padding) and a row longer than the kernel's 1,024-position
+    tile, each beside ordinary rows."""
+    rng = np.random.default_rng(31 + ways)
+    L = 1100 if case == "two_tiles" else 200
+    s, t, v = _rows(rng, 4, L, sets, ways, pad_from=L - 30)
+    if case == "one_set":
+        s[0] = sets - 1
+        t[0] = rng.integers(0, 3 * ways, size=L)
+    elif case == "tag_minus_one":
+        t[:, :5] = -1
+        t[:, 50:54] = -1
+    elif case == "out_of_range":
+        s[1] = rng.integers(-3, sets + 3, size=L)
+        s[2] = sets
+    d, e = _assert_stack_by_set_equals_plain(s, t, v, sets, ways)
+    if case == "tag_minus_one" and ways > 2:
+        assert int(d.max()) > ways
+    if case in ("one_set", "two_tiles"):
+        h, _ = rcache._simulate_many(s, t, v, sets, ways, "lru")
+        np.testing.assert_array_equal(d.numpy() < ways, np.asarray(h))
 
 
 def test_stack_distance_plain_padding_reports_ways_and_no_evict():

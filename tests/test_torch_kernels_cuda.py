@@ -26,7 +26,8 @@ from repro_torch.kernels.embedding_bag import (
     vmem_tile_rows,
 )
 from repro_torch.kernels.decode_attention import CHUNK
-from repro_torch.kernels.stack_distance import stack_distance_groups, stack_distance_plain
+from repro_torch.kernels.stack_distance import (
+    stack_distance_by_set_plain, stack_distance_groups, stack_distance_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,7 +63,40 @@ def test_cache_scan_kernel_equals_plain(cuda, policy, sets, ways):
 
 @pytest.mark.parametrize("sets,ways", EDGE)
 def test_stack_distance_kernel_equals_plain(cuda, sets, ways):
+    """K2 against both plain versions: the reference's recency-list scan and
+    the kernel's own decomposition (a rank permutation per set)."""
     rows = _rows(cuda, sets, ways)
+    reset_launch_counts()
+    got = stack_distance_groups(*rows, sets, ways)
+    assert launch_counts()["stack_distance"] == 1
+    for plain in (stack_distance_plain, stack_distance_by_set_plain):
+        want = plain(*rows, sets, ways)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", ["one_set", "tag_minus_one", "out_of_range", "two_tiles"])
+@pytest.mark.parametrize("sets,ways", [(16, 16), (2, 33), (2, 64), (64, 16), (1, 1)])
+def test_stack_distance_kernel_edge_rows(cuda, case, sets, ways):
+    """K2's lane teams: a row whose every access falls in one set, valid
+    tags of -1 into empty ways (distances past ``ways``), sets out of range
+    (padding), a row over two 1,024-position tiles; 33 and 64 ways (a
+    second slot per lane) and 64 sets x 16 lanes (1,024 threads)."""
+    rng = np.random.default_rng(7 * sets + ways)
+    B, L = 4, 1100 if case == "two_tiles" else 300
+    sets_a = rng.integers(0, sets, size=(B, L)).astype(np.int32)
+    tags = rng.integers(0, sets * ways * 2 + 1, size=(B, L)).astype(np.int32)
+    valid = rng.random((B, L)) < 0.9
+    valid[:, L - 40:] = False
+    if case == "one_set":
+        sets_a[0] = sets - 1
+        tags[0] = rng.integers(0, 3 * ways, size=L)
+    elif case == "tag_minus_one":
+        tags[:, :6] = -1
+        tags[:, 70:74] = -1
+    elif case == "out_of_range":
+        sets_a[1] = rng.integers(-3, sets + 3, size=L)
+        sets_a[2] = sets
+    rows = [torch.from_numpy(a).to(cuda) for a in (sets_a, tags, valid)]
     reset_launch_counts()
     got = stack_distance_groups(*rows, sets, ways)
     assert launch_counts()["stack_distance"] == 1
@@ -150,6 +184,14 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     v = torch.ones((2, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="ways <= 64"):
         cache_scan_groups(s, s, v, 16, 4096, "lru")
+    # K2 takes K1's limits: at most 64 ways, at most 1,024 threads of teams
+    with pytest.raises(ValueError, match="ways <= 64"):
+        stack_distance_groups(s, s, v, 16, 65)
+    with pytest.raises(ValueError, match="num_sets x team <= 1024"):
+        stack_distance_groups(s, s, v, 33, 64)
+    with pytest.raises(ValueError, match="num_sets x team <= 1024"):
+        stack_distance_groups(s, s, v, 65, 16)
+    assert stack_distance_groups(s, s, v, 64, 16)[0].shape == (2, 8)
     with pytest.raises(ValueError, match="k_max <= 8"):
         dram_scan_chunked(s, s, s, v, 8, 9, 44.0, 22.0, 0.6016)
     with pytest.raises(ValueError, match="contiguous"):
@@ -215,6 +257,42 @@ def test_embedding_bag_kernel_equals_plain_bitwise(cuda, rows, D, B, T, L, dtype
     torch.cuda.synchronize()
     assert got.dtype == table.dtype and got.shape == (B, T, D)
     assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 120, 300])
+@pytest.mark.parametrize("D", [1, 3, 4, 100, 128, 200, 256, 512])
+@pytest.mark.parametrize("dtype", sorted(DT))
+def test_embedding_bag_warp_per_bag_bitwise(cuda, dtype, D, L, offset):
+    """K3, one warp per bag: 4 consecutive columns a lane (one 16- or
+    8-byte load a row) where D % 4 == 0 and the table is aligned, scalar
+    columns where it is not (D 1/3/100-with-offset, a view one element
+    off), one to four 128-column passes, L inside one block of 32 indices,
+    at its edge and over several; indices negative or past the table
+    (clamped as the reference clamps)."""
+    rows, B, T = 300, 40, 25
+    table = _table(cuda, rows + 1, D, dtype, seed=D).view(-1)[offset:offset + rows * D]
+    table = table.view(rows, D)
+    idx = _ints(cuda, -rows - 2, rows + 5, (B, T, L), seed=L)
+    reset_launch_counts()
+    got = embedding_bag_kernel(table, idx)
+    assert launch_counts()["embedding_bag"] == 1
+    want = embedding_bag_plain(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == table.dtype and got.shape == (B, T, D)
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("D", [128, 3])
+def test_embedding_bag_grid_stride(cuda, D):
+    """More bags (40,000) than the card holds warps at once: the grid is
+    what the card holds and each warp takes several bags in turn."""
+    table = _table(cuda, 1000, D, "float32")
+    idx = _ints(cuda, 0, 1000, (400, 100, 5), seed=D)
+    reset_launch_counts()
+    got = embedding_bag_kernel(table, idx)
+    assert launch_counts()["embedding_bag"] == 1
+    assert torch.equal(_bits(got), _bits(embedding_bag_plain(table, idx)))
 
 
 @pytest.mark.parametrize("dtype", sorted(DT))
