@@ -10,17 +10,21 @@ passed over):
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
      all at once), timed, with ptxas's registers and spills per kernel of
      ``cache_scan.cu``, ``stack_distance.cu``, ``dram_scan.cu``,
-     ``flash_attention.cu``, ``mamba2_ssd.cu`` and ``embedding_bag.cu``;
+     ``rrip_scan.cu``, ``flash_attention.cu``, ``mamba2_ssd.cu`` and
+     ``embedding_bag.cu``;
   3. the latency of one dependent step, timed by the probes of
      ``csrc/latency_probe.cu``; then each kernel against its plain torch
      version on the card: K1 cache scan and K2 stack distance on the
      full-size set-group buckets that ``simulate`` produces and on edge
      geometries (K2 also with sets out of range and valid tags of -1), D1
-     DRAM scan on the full-size chunk rows, bitwise; kernel times warm
+     DRAM scan on the full-size chunk rows, D2 FIFO/SRRIP row scans on the
+     full-size buckets of the on-chip cache (srrip, fifo) and of a FIFO TLB
+     with an L2 behind spm and on edge rows (ways 1 to 64), bitwise; kernel times warm
      (mean of 20 back-to-back launches) and with the L2 cache flushed
-     before each, K1's and K2's per bucket, with ns per longest-set access
-     (K1, K2) and per chunk (D1), each one's share of its chain bound and
-     the blocks resident per SM; plain times. Then the full-width DLRM-RMC2
+     before each, K1's, K2's and D2's per bucket, with ns per longest-set
+     access (K1, K2), per chunk (D1) and per step of the longest row (D2),
+     each one's share of its chain bound and the blocks resident per SM;
+     plain times. Then the full-width DLRM-RMC2
      model (60 x 1M x 128 f32 table, filled on the card) and the embedding
      kernels K3 bag, K4 gather and K5 hot-pinned pool on the inputs its
      first request gives them, against their plain versions (bitwise; allclose where K5's hot
@@ -42,12 +46,17 @@ passed over):
      held bitwise equal across two calls with NaN past valid_len;
   4. ``simulate`` on the full DLRM-RMC2 workload (60 tables x 1M rows x dim
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
-     policy/backend pair of the slice, with launch counts reset just before
-     and read just after each run; results bitwise equal across backends of
-     one policy; one more K1 run and one more K2 run under
+     policy/backend pair, with launch counts reset just before and read
+     just after each run (D2: exactly 4 per srrip/fifo ``stack`` or
+     ``stack_pallas`` run); results bitwise equal across backends of one
+     policy, srrip and fifo equal to the reference's totals; three runs
+     with address translation (lru + LRU TLB, srrip + FIFO TLB, spm + FIFO
+     TLB; 64 entries of 4 ways, an L2 of 1,024) equal to the reference's
+     totals and walks, D2 launched 2 more times per FIFO TLB; one K1, one
+     K2, one srrip/stack and one spm + FIFO TLB run under
      ``torch.profiler`` for the device's busy share and the device time of
-     D1 and K1 (K2) in it; small runs on the card equal to the same runs on
-     the CPU;
+     D1, K1, K2 and D2 in it; small runs on the card equal to the same runs
+     on the CPU (every pair, and the translation runs);
   6. the full-width DLRM-RMC2 forward: 4 requests of 32 from
      ``dlrm_batch`` (zipf 1.10), each through the plain path (K3) and the
      hot-pinned path (K5 + K4, the request's own top-256 rows pinned), with
@@ -113,16 +122,37 @@ RUNS = [
     ("lru", "pallas"),
     ("lru", "stack_pallas"),
     ("lru", "scan"),
+    ("srrip", "stack"),
+    ("srrip", "stack_pallas"),
     ("srrip", "pallas"),
     ("srrip", "scan"),
+    ("fifo", "stack"),
     ("fifo", "pallas"),
     ("fifo", "scan"),
 ]
+# The kernel each (policy, backend) pair's classification launches, and
+# how often per simulate where that is fixed (D2: one launch per bucket).
+PAIR_KERNEL = {("lru", "pallas"): "cache_scan", ("srrip", "pallas"): "cache_scan",
+               ("fifo", "pallas"): "cache_scan", ("lru", "stack_pallas"): "stack_distance",
+               ("srrip", "stack"): "rrip_scan", ("srrip", "stack_pallas"): "rrip_scan",
+               ("fifo", "stack"): "rrip_scan"}
+RRIP_LAUNCHES = 4
+# The reference's full-width totals (the JAX package run on the CPU; this
+# script imports nothing of JAX): srrip and fifo under any backend,
+# and three runs with translation(entries=64, ways=4, l2_entries=1024,
+# replacement=R): (on-chip policy, R) -> (total_cycles, tlb_walks), with
+# D2's launches for the TLB (two per FIFO TLB with an L2: L1, then L2).
+REF_TOTAL = {"srrip": 188579.2791375, "fifo": 188774.5291375}
+TRANSLATION = dict(entries=64, ways=4, l2_entries=1024)
+REF_TRANSLATION = {("lru", "lru"): (44106659.2791375, 406646, 0),
+                   ("srrip", "fifo"): (44109683.2791375, 406674, RRIP_LAUNCHES + 2),
+                   ("spm", "fifo"): (49056511.9041375, 452077, 2)}
 EDGE_GEOMETRIES = [(1, 1), (1, 4), (3, 2), (7, 5), (16, 7), (16, 16), (4, 32), (2, 33), (2, 64)]
 KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
     "stack_distance": ("src/repro_torch/csrc/stack_distance.cu", "src/repro/kernels/stack_distance.py:31"),
     "dram_scan": ("src/repro_torch/csrc/dram_scan.cu", "src/repro/core/memory/dram.py:315"),
+    "rrip_scan": ("src/repro_torch/csrc/rrip_scan.cu", "src/repro/core/memory/rrip.py:137"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:36"),
     "embedding_gather": ("src/repro_torch/csrc/embedding_bag.cu",
@@ -248,7 +278,8 @@ def ptxas_report(log: str):
             name = ln.split("'")[1]
             for word in ("flash_wgmma_kernel", "flash_kernel", "ssd_mma_kernel", "ssd_cumsum_kernel",
                          "ssd_kernel", "pool_kernel", "bag_kernel", "gather_kernel",
-                         "cache_scan_kernel", "stack_distance_kernel", "dram_scan_kernel"):
+                         "cache_scan_kernel", "stack_distance_kernel", "dram_scan_kernel",
+                         "rrip_scan_kernel"):
                 if word in name:
                     name = word + name.split(word, 1)[1][:24]
                     break
@@ -754,6 +785,10 @@ def main() -> None:
         blocks_per_sm as d1_blocks_per_sm, dram_scan_chunked, dram_scan_plain)
     from repro_torch.kernels.stack_distance import (
         blocks_per_sm as k2_blocks_per_sm, stack_distance_groups, stack_distance_plain)
+    from repro_torch.core.memory.rrip import row_buckets
+    from repro_torch.core.memory.tlb import classify_tlb, tlb_pages
+    from repro_torch.kernels.rrip_scan import (
+        PLAIN as RRIP_PLAIN, blocks_per_sm as rrip_blocks_per_sm, rrip_scan_rows)
     from repro_torch.kernels import ops as emb_ops
     from repro_torch.kernels.embedding_bag import (
         embedding_bag_kernel, embedding_bag_plain, embedding_gather_kernel,
@@ -791,7 +826,8 @@ def main() -> None:
     print(f"[2] built {sorted(p.name for p in libs.values())} in {build_s:.3f} s "
           f"({' | '.join(regs)})", flush=True)
     for lib, word in (("cache_scan", ""), ("stack_distance", ""), ("dram_scan", ""),
-                      ("flash_attention", ""), ("mamba2_ssd", ""), ("embedding_bag", "")):
+                      ("rrip_scan", ""), ("flash_attention", ""), ("mamba2_ssd", ""),
+                      ("embedding_bag", "")):
         log = libs[lib].with_suffix(".log")
         if log.exists():
             rep = [r for r in ptxas_report(log.read_text()) if word in r]
@@ -980,6 +1016,89 @@ def main() -> None:
         fail("dram_scan differs bitwise from its plain version on the ragged input")
     print("[3] dram_scan: bitwise equal to plain on a ragged (5, 96) input", flush=True)
 
+    # D2 on the rows simulate gives it: the lane stream of the on-chip cache
+    # under srrip and fifo, and the page streams of a FIFO TLB (L1, then an
+    # L2 that sees the L1 misses) behind spm, the run of phase 4 whose
+    # launches the TLB entry reads. Then edge rows.
+    hw_tr = hw.with_policy("spm").with_translation(replacement="fifo", **TRANSLATION)
+    tr = hw_tr.translation
+    cs = MemorySystem.from_hardware(hw_tr, "cuda").classify_embedding(etrace)
+    pages = tlb_pages(cs.miss_lines, hw.onchip.line_bytes, tr.page_bytes)
+    l1_hits = classify_tlb(pages, tr.num_sets, tr.ways, "fifo", device="cuda")
+    d2_sets = {
+        "rrip_scan[srrip]": ("srrip", etrace.vec_ids, lane.num_sets, lane.ways, "per simulate",
+                             "src/repro/core/memory/rrip.py:162"),
+        "rrip_scan[fifo]": ("fifo", etrace.vec_ids, lane.num_sets, lane.ways, "per simulate",
+                            "src/repro/core/memory/rrip.py:137"),
+        "rrip_scan[tlb fifo]": ("fifo", None, None, None, "per TLB charge (L1 + L2)",
+                                "src/repro/core/memory/rrip.py:137"),
+    }
+    tlb_buckets = (row_buckets(pages, tr.num_sets, tr.ways, "fifo")
+                   + row_buckets(pages[~l1_hits], tr.l2_num_sets, tr.l2_ways, "fifo"))
+    for name, (policy, lines, S, W, per, replaces) in d2_sets.items():
+        bk = tlb_buckets if lines is None else row_buckets(lines, S, W, policy)
+        err, k_ms, cold_ms, p_ms, per_bucket = 0.0, 0.0, 0.0, 0.0, []
+        nbytes, ops, lat_ms, steps_max, kept = 0, 0, 0.0, 0, 0
+        for _, _, tags_h, valid_h, w in bk:
+            t_d, v_d = torch.from_numpy(tags_h).to(dev), torch.from_numpy(valid_h).to(dev)
+            h = rrip_scan_rows(t_d, v_d, w, policy)
+            t1 = time.perf_counter()
+            hp = RRIP_PLAIN[policy](t_d, v_d, w)
+            torch.cuda.synchronize()
+            p_ms += (time.perf_counter() - t1) * 1e3
+            if not torch.equal(h, hp):
+                fail(f"{name} differs from its plain version at {tuple(t_d.shape)}, {w} ways")
+            err = max(err, max_abs_err(h, hp))
+
+            def run(t_d=t_d, v_d=v_d, w=w):
+                return rrip_scan_rows(t_d, v_d, w, policy)
+            b_ms, b_cold = time_ms(run, 20), time_cold_ms(run, 20, flush)
+            k_ms, cold_ms = k_ms + b_ms, cold_ms + b_cold
+            # The longest row is the bucket's chain of dependent steps; a
+            # step's chain is at least a compare, an OR tree over the ways
+            # and a select: 2 + log2(ways held) dependent integer ops. The
+            # buckets run one launch after another, so their chains add up,
+            # as their times do. Bytes: the tags of the valid steps, the
+            # whole valid mask read and the whole hit array written.
+            longest = int(valid_h.sum(axis=1).max())
+            chain_ops = 2 + (max(w, 1) - 1).bit_length()
+            b_lat = longest * chain_ops * f32_op_ms
+            nbytes += int(valid_h.sum()) * 4 + tags_h.size * (1 + 1)
+            ops += int(valid_h.sum()) * (4 * w + 8)
+            lat_ms += b_lat
+            steps_max = max(steps_max, longest)
+            kept += int(valid_h.sum())
+            per_bucket.append(
+                f"{tuple(t_d.shape)} x {w} ways: {b_ms!r} ms ({b_cold!r} L2 flushed), longest row "
+                f"{longest} steps, {b_ms * 1e6 / longest!r} ns each, {b_lat / b_ms!r} of its "
+                f"chain bound {b_lat!r} ms ({chain_ops} ops a step); "
+                f"{rrip_blocks_per_sm(t_d.shape[1], w, policy)} blocks of 32 rows per SM")
+        entries[name] = dict(
+            kind="rrip_scan", err=err, ms=k_ms, plain_ms=p_ms, nbytes=nbytes, ops=ops,
+            lat_ms=lat_ms, shapes=[tuple(b[2].shape) for b in bk], replaces=replaces,
+            library_none="no one PyTorch call computes a FIFO/SRRIP set scan")
+        print(f"[3] {name}: bitwise equal to plain on {len(bk)} buckets, {kept} kept accesses; "
+              f"kernel {k_ms!r} ms {per} ({cold_ms!r} L2 flushed), longest row {steps_max} steps, "
+              f"{k_ms * 1e6 / steps_max!r} ns per step of it, {lat_ms / k_ms!r} of its chain "
+              f"bound {lat_ms!r} ms (summed over the buckets; byte bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3!r} ms); plain {p_ms:.2f} ms; per bucket: "
+              f"{'; '.join(per_bucket)}",
+              flush=True)
+    for policy in ("fifo", "srrip"):
+        for w in (1, 2, 3, 4, 5, 7, 8, 13, 16, 17, 31, 32, 33, 63, 64):
+            B, L = 37, 200
+            tags_h = rng.integers(0, 2 * w + 2, size=(B, L)).astype(np.int32)
+            tags_h[rng.random((B, L)) < 0.03] = -1
+            valid_h = (np.arange(L)[None, :] < rng.integers(0, L + 1, size=B)[:, None]) \
+                & (rng.random((B, L)) < 0.95)
+            valid_h[B // 2] = False
+            tags_h[~valid_h] = -2
+            t_d, v_d = torch.from_numpy(tags_h).to(dev), torch.from_numpy(valid_h).to(dev)
+            if not torch.equal(rrip_scan_rows(t_d, v_d, w, policy), RRIP_PLAIN[policy](t_d, v_d, w)):
+                fail(f"rrip_scan[{policy}] differs from its plain version on edge rows, {w} ways")
+    print("[3] rrip_scan: bitwise equal to plain on edge rows (37 x 200, ragged lengths, an "
+          "all-padding row, valid tags of -1) at ways 1 to 64", flush=True)
+
     # K3, K4, K5 on the inputs the DLRM path gives them: the full-width
     # DLRM-RMC2 table (filled on the card, freed at the end of this phase and
     # built again, from the same seed, in phase 6) and request 0's lookups.
@@ -1150,7 +1269,6 @@ def main() -> None:
 
     # ---- 4. simulate on every policy/backend pair ------------------------
     results, launches = {}, {}
-    expect = {"pallas": "cache_scan", "stack_pallas": "stack_distance"}
     for policy, backend in RUNS:
         hw_run = tpuv6e().with_policy(policy).with_cache_backend(backend)
         torch.cuda.synchronize()
@@ -1169,13 +1287,19 @@ def main() -> None:
         if not res.total_cycles > 0:
             fail(f"{policy}/{backend}: total_cycles {res.total_cycles}")
         for kname, n in counts.items():
-            should = kname in ("dram_scan", expect.get(backend))
+            should = kname in ("dram_scan", PAIR_KERNEL.get((policy, backend)))
             if should and n == 0:
                 fail(f"{policy}/{backend}: kernel {kname} was not launched on the main path")
             if not should and n != 0:
                 fail(f"{policy}/{backend}: kernel {kname} launched {n} times off its path")
         if counts["dram_scan"] != 1:
             fail(f"{policy}/{backend}: {counts['dram_scan']} DRAM scan launches, expected 1")
+        if PAIR_KERNEL.get((policy, backend)) == "rrip_scan" and counts["rrip_scan"] != RRIP_LAUNCHES:
+            fail(f"{policy}/{backend}: {counts['rrip_scan']} row-scan launches, expected "
+                 f"{RRIP_LAUNCHES} (one per bucket)")
+        if policy in REF_TOTAL and res.total_cycles != REF_TOTAL[policy]:
+            fail(f"{policy}/{backend}: total_cycles {res.total_cycles!r}, the reference's "
+                 f"{REF_TOTAL[policy]!r}")
         results[(policy, backend)] = dataclasses.asdict(res)
         launches[(policy, backend)] = counts
         acc = res.cache_hits + res.cache_misses
@@ -1188,7 +1312,33 @@ def main() -> None:
         same = [results[k] for k in results if k[0] == policy]
         if any(r != same[0] for r in same[1:]):
             fail(f"{policy}: results differ across backends")
-    print("[4] results bitwise equal across backends for every policy", flush=True)
+    print(f"[4] results bitwise equal across backends for every policy; srrip and fifo "
+          f"total_cycles equal the reference's {REF_TOTAL}", flush=True)
+
+    # Address translation: three runs with a TLB (L1 + L2), against the
+    # reference's totals and walks; D2 runs the FIFO TLB's two levels.
+    for (policy, repl), (ref_cycles, ref_walks, n_rrip) in REF_TRANSLATION.items():
+        hw_run = tpuv6e().with_policy(policy).with_translation(replacement=repl, **TRANSLATION)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with profiling.collect() as prof:
+            res = simulate(wl, hw_run)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if (res.total_cycles, res.tlb_walks) != (ref_cycles, ref_walks):
+            fail(f"{policy} + {repl} TLB: total_cycles {res.total_cycles!r}, tlb_walks "
+                 f"{res.tlb_walks}; the reference's {ref_cycles!r}, {ref_walks}")
+        if counts["rrip_scan"] != n_rrip or counts["dram_scan"] != 1:
+            fail(f"{policy} + {repl} TLB: launches {counts}; expected rrip_scan {n_rrip}, "
+                 f"dram_scan 1")
+        launches[(policy, "tlb " + repl)] = counts
+        stages = {k: round(v, 4) for k, v in prof.breakdown(wall).items()}
+        print(f"[4] {policy}/stack + {repl} TLB {TRANSLATION}: wall {wall:.3f} s, total_cycles "
+              f"{res.total_cycles!r}, tlb_walks {res.tlb_walks}, translation_cycles "
+              f"{res.translation_cycles!r}, launches {counts}, stages {json.dumps(stages)}; "
+              f"equal to the reference", flush=True)
 
     # Device busy share of one run of the K1 path.
     from torch.profiler import ProfilerActivity, profile
@@ -1210,15 +1360,33 @@ def main() -> None:
         wall = time.perf_counter() - t0
     print(f"[4] profiled lru/stack_pallas: wall {wall!r} s, "
           f"{device_busy(tprof.events(), wall, ('dram_scan', 'stack_distance'))}", flush=True)
+    for policy, tlb in (("srrip", None), ("spm", "fifo")):
+        hw_run = tpuv6e().with_policy(policy)
+        if tlb:
+            hw_run = hw_run.with_translation(replacement=tlb, **TRANSLATION)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+            t0 = time.perf_counter()
+            simulate(wl, hw_run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        print(f"[4] profiled {policy}/stack{' + FIFO TLB' if tlb else ''}: wall {wall!r} s, "
+              f"{device_busy(tprof.events(), wall, ('dram_scan', 'rrip_scan'))}", flush=True)
 
     small_wl = dlrm_rmc2_small(num_tables=2, rows_per_table=300, batch_size=2, num_batches=2)
-    for policy, backend in RUNS:
+    small_tr = dict(entries=16, ways=4, l2_entries=64)
+    small_runs = [(p, b, None) for p, b in RUNS] + [
+        (p, "stack", repl) for p, repl in REF_TRANSLATION]
+    for policy, backend, repl in small_runs:
         hw_small = tpuv6e().with_policy(policy, capacity_bytes=1 << 14).with_cache_backend(backend)
+        if repl:
+            hw_small = hw_small.with_translation(replacement=repl, **small_tr)
         on_card = dataclasses.asdict(simulate(small_wl, hw_small))
         on_cpu = dataclasses.asdict(simulate(small_wl, hw_small, device="cpu"))
         if on_card != on_cpu:
-            fail(f"{policy}/{backend}: small run on the card differs from the CPU")
-    print("[4] small runs on the card equal the same runs on the CPU", flush=True)
+            fail(f"{policy}/{backend} (TLB {repl}): small run on the card differs from the CPU")
+    print("[4] small runs on the card equal the same runs on the CPU (every pair, and the "
+          "three translation runs)", flush=True)
 
     # ---- 6. the full-width DLRM-RMC2 forward, plain and hot-pinned -------
     torch.cuda.synchronize()
@@ -1355,7 +1523,8 @@ def main() -> None:
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
-                "dram_scan[spm]": ("spm", "stack")}
+                "dram_scan[spm]": ("spm", "stack"), "rrip_scan[srrip]": ("srrip", "stack"),
+                "rrip_scan[fifo]": ("fifo", "stack"), "rrip_scan[tlb fifo]": ("spm", "tlb fifo")}
     for name, e in entries.items():
         e["launches"] = (launches[main_run[name]][e["kind"]] if name in main_run
                          else dlrm_launches[e["kind"]])
@@ -1375,6 +1544,7 @@ def main() -> None:
               f"{'; library: null, ' + e['library_none'] if 'library_none' in e else ''}",
               flush=True)
         src, replaces = KERNEL_SOURCES[e["kind"]]
+        replaces = e.get("replaces", replaces)
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": e["launches"],

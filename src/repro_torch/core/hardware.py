@@ -98,10 +98,12 @@ PLACEMENTS = ("interleave", "table_rank", "hot_replicate")
 #   "stack"        — analytic engines (the default): LRU via the
 #                    stack-distance engine (memory/stack.py; one sort-based
 #                    distance pass per (stream, num_sets) classifies EVERY
-#                    associativity). srrip/fifo under "stack" are not ported
-#                    yet and raise NotImplementedError.
+#                    associativity), srrip/fifo via the compressed per-set
+#                    engines (memory/rrip.py; shared presort per (stream,
+#                    num_sets), short per-set row scans on the kernel D2).
 #   "stack_pallas" — like "stack", but the LRU distance pass runs the
-#                    stack-distance kernel (kernels/stack_distance.py).
+#                    stack-distance kernel (kernels/stack_distance.py);
+#                    identical to "stack" for srrip/fifo.
 # Every backend is bit-exact against the golden model — the knob trades
 # execution strategy, never results.
 CACHE_BACKENDS = ("scan", "pallas", "stack", "stack_pallas")
@@ -407,9 +409,10 @@ class HardwareConfig:
 
         Results are bit-exact across backends (test-enforced); this only
         chooses how set-associative classification executes. The "stack"
-        variants classify LRU through stack distances ("stack_pallas" runs
-        the distance pass as the K2 kernel); srrip/fifo under them are not
-        ported yet and raise at classification.
+        variants cover every policy analytically (stack distances for LRU,
+        compressed per-set engines for srrip/fifo); "stack_pallas" differs
+        from "stack" only in LRU's distance pass, which runs as the K2
+        kernel.
         """
         if backend not in CACHE_BACKENDS:
             raise ValueError(

@@ -20,11 +20,13 @@ Backends: ``"scan"`` runs ``cache_scan_plain``, K1's plain version: a torch
 loop over L vectorised over the B rows, step for step the reference's
 ``lax.scan`` engine ``_simulate_many``. It is a backend the caller chooses,
 never a stand-in for a kernel that failed. ``"pallas"`` runs the cache
-scan kernel K1 and ``"stack_pallas"`` the stack-distance kernel K2 (CUDA on
-the card, their plain versions for CPU tensors); ``"stack"`` (the default)
-classifies LRU through the analytic Mattson stack-distance pass
-(``memory/stack.py``). srrip/fifo under ``"stack"`` need the compressed
-per-set engines of the reference's ``rrip.py``, which are not ported yet.
+scan kernel K1 (CUDA on the card, its plain version for CPU tensors).
+Under ``"stack"`` (the default) and ``"stack_pallas"`` every policy
+classifies without a full-trace sequential scan: LRU through the analytic
+Mattson stack-distance pass (``memory/stack.py``; ``"stack_pallas"`` runs
+the distance pass as the stack-distance kernel K2), srrip/fifo through the
+compressed per-set engines (``memory/rrip.py``: a shared presort per
+(stream, num_sets), then short per-set row scans on the kernel D2).
 
 Replacement semantics (matching ChampSim):
   * LRU   — victim = first invalid way, else least-recently-used way.
@@ -219,15 +221,16 @@ def _run_buckets(lines_list, geometries, policy: str, backend: str,
 
 
 def _classify_analytic(lines_list, geometries, policy, device):
-    """(hits, evictions) pairs from the policy's analytic engine."""
+    """(hits, evictions) pairs from the policy's analytic engine: Mattson
+    stack distances for LRU, compressed per-set engines for srrip/fifo."""
     if policy == "lru":
         from .stack import classify_lru_stack_many
 
         return classify_lru_stack_many(lines_list, geometries, device)
-    raise NotImplementedError(
-        f"cache_backend='stack' for policy {policy!r} needs the compressed "
-        "per-set engines of rrip.py, which are not ported yet (see "
-        "ROADMAP.md); use cache_backend='pallas' or 'scan'"
+    from .rrip import classify_analytic_many
+
+    return classify_analytic_many(
+        lines_list, [(g.num_sets, g.ways) for g in geometries], policy, device=device
     )
 
 

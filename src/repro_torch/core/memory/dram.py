@@ -25,6 +25,10 @@ per-segment aggregates are reduced on the host in original access order.
 
 ``estimate_dram_fast`` is a closed-form vectorized estimate (per-channel bus
 occupancy vs per-bank row-op serialization) used for very long traces.
+
+``simulate_dram`` with a non-zero issue interval or start cycle needs the
+reference's per-access scan with arrival times (``_scan_channel_full``, D3),
+which is not ported yet: it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -256,6 +260,75 @@ def simulate_dram_contended(
         _contended_start(lines, seg, src, num_segments, num_sources, model, dev),
         aggregate,
     )
+
+
+def simulate_dram(
+    lines: np.ndarray,
+    model: DramModel,
+    issue_interval_cycles: float = 0.0,
+    start_cycle: float = 0.0,
+    *,
+    device: DeviceLike = "cuda",
+) -> DramResult:
+    """Event-scan the (miss) line trace through the DRAM model.
+
+    ``issue_interval_cycles`` models the upstream request rate; 0 means the
+    controller queue is always full (memory-bound phase), the usual regime for
+    embedding gathers. That default (zero issue interval, zero start cycle)
+    routes through the chunked one-segment engine, the same code path as the
+    segmented/contended timing. Non-zero arrivals need the per-access scan
+    with arrival times (the reference's ``_scan_channel_full``, queued as D3
+    in ROADMAP.md), which is not ported yet: they raise.
+    """
+    lines = np.asarray(lines, dtype=np.int64).reshape(-1)
+    n = lines.size
+    if n == 0:
+        return DramResult(start_cycle, 0.0, 0, 0, 0)
+    if issue_interval_cycles != 0.0 or start_cycle != 0.0:
+        raise NotImplementedError(
+            "simulate_dram with a non-zero issue interval or start cycle needs "
+            "the per-access DRAM scan with arrival times (D3), which is not "
+            "ported yet (see ROADMAP.md)"
+        )
+    results, _ = simulate_dram_contended(
+        lines,
+        np.zeros(n, dtype=np.int64),
+        np.zeros(n, dtype=np.int64),
+        1,
+        1,
+        model,
+        device=device,
+    )
+    return results[0]
+
+
+def simulate_dram_segmented(
+    lines: np.ndarray,
+    seg: np.ndarray,
+    num_segments: int,
+    model: DramModel,
+    *,
+    device: DeviceLike = "cuda",
+) -> List[DramResult]:
+    """One batched event scan over a concatenated multi-segment miss trace.
+
+    Each segment (e.g. one inference batch) is timed against *fresh* DRAM
+    state, exactly as if ``simulate_dram`` ran per segment, but all
+    (segment, channel) scans run as one launch. Implemented as the
+    one-source reduction of the contended multi-core scan, so the
+    single-core and cluster DRAM paths cannot drift apart.
+    """
+    lines = np.asarray(lines, dtype=np.int64).reshape(-1)
+    results, _ = simulate_dram_contended(
+        lines,
+        seg,
+        np.zeros(lines.size, dtype=np.int64),
+        num_segments,
+        1,
+        model,
+        device=device,
+    )
+    return results
 
 
 def chunk_rows(
@@ -609,6 +682,36 @@ def estimate_dram_fast(
 DETAILED_DRAM_MAX = 2_000_000
 
 
+def dram_timing(
+    lines: np.ndarray, model: DramModel, *, device: DeviceLike = "cuda", **kw
+) -> DramResult:
+    if np.asarray(lines).size > DETAILED_DRAM_MAX:
+        return estimate_dram_fast(lines, model)
+    return simulate_dram(lines, model, device=device, **kw)
+
+
+def dram_timing_segmented(
+    lines: np.ndarray,
+    seg: np.ndarray,
+    num_segments: int,
+    model: DramModel,
+    *,
+    device: DeviceLike = "cuda",
+) -> List[DramResult]:
+    """Segmented counterpart of ``dram_timing``.
+
+    Segments longer than ``DETAILED_DRAM_MAX`` use the closed-form estimate
+    (matching the per-segment switch in ``dram_timing``); the rest share one
+    batched event scan. One-source reduction of ``dram_timing_contended``.
+    """
+    lines = np.asarray(lines, dtype=np.int64).reshape(-1)
+    out, _ = dram_timing_contended(
+        lines, seg, np.zeros(lines.size, dtype=np.int64), num_segments, 1, model,
+        device=device,
+    )
+    return out
+
+
 def dram_timing_contended(
     lines: np.ndarray,
     seg: np.ndarray,
@@ -676,6 +779,104 @@ def dram_timing_single(req: DramRequest, device: DeviceLike = "cuda"):
         req.lines, req.seg, req.src, req.num_segments, req.num_sources,
         req.model, device=device,
     )
+
+
+def _timing_contended_start(lines, seg, src, num_segments, num_sources, model, device):
+    """``dram_timing_contended`` split for pipelined dispatch.
+
+    The common case (no segment above ``DETAILED_DRAM_MAX``) returns a
+    pending ``_contended_start`` state (its scan launched, not waited on);
+    the estimate fallback is evaluated eagerly.
+    """
+    n_total = np.asarray(lines).size
+    if n_total > DETAILED_DRAM_MAX and (np.bincount(
+        np.asarray(seg, dtype=np.int64).reshape(-1), minlength=num_segments
+    ) > DETAILED_DRAM_MAX).any():
+        return ("eager", dram_timing_contended(
+            lines, seg, src, num_segments, num_sources, model, device=device
+        ))
+    return ("pending", _contended_start(
+        lines, seg, src, num_segments, num_sources, model, device
+    ))
+
+
+def _timing_contended_finish(started):
+    tag, value = started
+    if tag == "eager":
+        return value
+    return _contended_finish(value)
+
+
+def dram_timing_many(
+    requests: "list[DramRequest]", batch: bool = True, *, device: DeviceLike = "cuda"
+):
+    """Time many independent requests; same-``DramModel`` requests share ONE
+    batched event scan.
+
+    Each request's segments are remapped into a disjoint range of one
+    concatenated ``dram_timing_contended`` call. Per-segment results are
+    independent of which other segments share a dispatch (FR-FCFS ordering is
+    segment-qualified, per-segment aggregation runs on the host in original
+    access order), so every request's results are bitwise identical to its
+    unbatched ``dram_timing_single`` dispatch. ``batch=False`` is that
+    reference path.
+
+    Returns one ``(results, finish)`` pair per request, where ``finish`` is
+    sliced back to the request's own ``num_sources``.
+    """
+    dev = resolve_device(device)
+    out = [None] * len(requests)
+    if not batch:
+        return [dram_timing_single(r, dev) for r in requests]
+    groups: "dict[tuple, list[int]]" = {}
+    for i, r in enumerate(requests):
+        # Group by model AND estimated padded row length: co-dispatching a
+        # tiny miss trace with a huge one would pad the tiny one's
+        # (segment, channel) rows to the huge one's chunk count. The estimate
+        # only shapes the grouping — results are exact for any grouping.
+        n_req = np.asarray(r.lines).size
+        est_row = max(1, n_req // max(1, r.num_segments * r.model.channels
+                                      * max(1, min(r.model.lines_per_block, 8))))
+        groups.setdefault((r.model, _chunk_bucket_len(est_row)), []).append(i)
+    # Start every group (host prep + a launch that is not waited on) before
+    # finishing any, then drain singles, then extract, so each group's host
+    # bookkeeping overlaps the earlier groups' scans on the card. Grouping
+    # never changes results.
+    singles: "list[int]" = []
+    started = []
+    for (model, _), idxs in groups.items():
+        if len(idxs) == 1:
+            singles.append(idxs[0])
+            continue
+        reqs = [requests[i] for i in idxs]
+        with stage("dram"):
+            offsets = np.cumsum([0] + [r.num_segments for r in reqs])
+            lines = np.concatenate([
+                np.asarray(r.lines, dtype=np.int64).reshape(-1) for r in reqs
+            ])
+            seg = np.concatenate([
+                np.asarray(r.seg, dtype=np.int64).reshape(-1) for r in reqs
+            ])
+            # One in-place remap pass instead of per-request temporaries.
+            seg += np.repeat(
+                offsets[:-1],
+                [np.asarray(r.seg).size for r in reqs],
+            )
+            src = np.concatenate([
+                np.asarray(r.src, dtype=np.int64).reshape(-1) for r in reqs
+            ])
+            num_sources = max(r.num_sources for r in reqs)
+        st = _timing_contended_start(
+            lines, seg, src, int(offsets[-1]), num_sources, model, dev
+        )
+        started.append((idxs, reqs, offsets, st))
+    for i in singles:
+        out[i] = dram_timing_single(requests[i], dev)
+    for idxs, reqs, offsets, st in started:
+        results, finish = _timing_contended_finish(st)
+        for i, r, lo, hi in zip(idxs, reqs, offsets[:-1], offsets[1:]):
+            out[i] = (results[lo:hi], finish[lo:hi, :r.num_sources].copy())
+    return out
 
 
 def bulk_transfer_cycles(data_bytes: float, hw: HardwareConfig) -> float:

@@ -29,7 +29,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 from dataclasses import dataclass
-from typing import ClassVar, Dict, List, Optional, Tuple, Type, Union
+from typing import ClassVar, Dict, List, Optional, Sequence, Tuple, Type, Union
 
 import numpy as np
 import torch
@@ -155,6 +155,17 @@ class MemoryPolicy(abc.ABC):
     def classify(self, lines: np.ndarray, ctx: PolicyContext) -> np.ndarray:
         """Return a bool (N,) array: on-chip hit per access."""
 
+    def classify_many(
+        self, streams: Sequence[np.ndarray], ctxs: Sequence[PolicyContext]
+    ) -> List[np.ndarray]:
+        """Classify several independent (stream, ctx) pairs.
+
+        Default is a plain loop; policies backed by the cache engine
+        override this to share launches across pairs. MUST be bit-exact with
+        per-pair ``classify``.
+        """
+        return [self.classify(s, c) for s, c in zip(streams, ctxs)]
+
     def setup_writes(self, ctx: PolicyContext) -> int:
         """One-time on-chip fills at load time (before the first batch)."""
         return 0
@@ -181,6 +192,19 @@ class MemoryPolicy(abc.ABC):
             lines = np.asarray(lines, dtype=np.int64).reshape(-1)
             ctx = self.prepare(lines, ctx)
             return self._outcome(lines, ctx, self.classify(lines, ctx))
+
+    def run_many(
+        self, streams: Sequence[np.ndarray], ctxs: Sequence[PolicyContext]
+    ) -> List[PolicyOutcome]:
+        """Batched ``run``: same contract, one ``classify_many`` dispatch."""
+        with stage("classify"):
+            streams = [np.asarray(s, dtype=np.int64).reshape(-1) for s in streams]
+            ctxs = [self.prepare(s, c) for s, c in zip(streams, ctxs)]
+            hits_list = self.classify_many(streams, ctxs)
+            return [
+                self._outcome(s, c, h)
+                for s, c, h in zip(streams, ctxs, hits_list)
+            ]
 
 
 # --------------------------------------------------------------------------
@@ -250,6 +274,27 @@ class _CacheModePolicy(MemoryPolicy):
             [lines], [ctx.geometry], policy=self.name, backend=ctx.backend,
             device=ctx.device,
         )[0]
+
+    def classify_many(
+        self, streams: Sequence[np.ndarray], ctxs: Sequence[PolicyContext]
+    ) -> List[np.ndarray]:
+        """One ``classify_streams`` call per (backend, device) among the
+        pairs, so their shape buckets (or analytic passes) are shared."""
+        out: List[Optional[np.ndarray]] = [None] * len(ctxs)
+        groups: Dict[tuple, List[int]] = {}
+        for i, c in enumerate(ctxs):
+            groups.setdefault((c.backend, c.device), []).append(i)
+        for (backend, device), idxs in groups.items():
+            hits = classify_streams(
+                [streams[i] for i in idxs],
+                [ctxs[i].geometry for i in idxs],
+                policy=self.name,
+                backend=backend,
+                device=device,
+            )
+            for i, h in zip(idxs, hits):
+                out[i] = h
+        return out  # type: ignore[return-value]
 
 
 @register_policy

@@ -314,10 +314,20 @@ def stack_distances_torch(
 # Classification entry point (what cache_backend="stack" routes through)
 # --------------------------------------------------------------------------
 
+_distance_passes = 0
+
+
+def distance_pass_count() -> int:
+    """Total distance passes computed (monotone; tests read deltas)."""
+    return _distance_passes
+
+
 def stack_distances(
     lines: np.ndarray, num_sets: int, device: torch.device
 ) -> Tuple[np.ndarray, np.ndarray]:
     """The torch pass on the card, the numpy twin on the CPU (equal results)."""
+    global _distance_passes
+    _distance_passes += 1
     if device.type == "cuda":
         return stack_distances_torch(lines, num_sets, device)
     return stack_distances_np(lines, num_sets)

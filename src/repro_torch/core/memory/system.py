@@ -35,14 +35,23 @@ into policy groups; each group classifies its sub-stream under a
 set-proportional slice of the on-chip capacity (``PolicyContext.scaled``),
 and the groups' miss streams merge back in global trace order.
 
+Address translation (``hw.translation``, ``memory/tlb.py``): the virtual
+miss-line stream goes through the TLB hierarchy before placement, and each
+batch's page-walk stall is added to its DRAM path. ``None`` skips it.
+
+Many configurations of one policy (``classify_embedding_many``,
+``prepare_embedding_many``, ``simulate_embedding_many``) classify through
+one ``MemoryPolicy.run_many`` and time DRAM through one
+``dram_timing_many``; results are bitwise those of per-system calls.
+
 This package runs the single-core pipeline on ``device``. Multi-core
-clusters, address translation (``hw.translation``) and non-identity NUMA
-placements raise ``NotImplementedError`` until their slices are ported.
+clusters and non-identity NUMA placements raise ``NotImplementedError``
+until their slices are ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +69,7 @@ from ..trace import (
 )
 from ..workload import EmbeddingOpSpec
 from .cache import CacheGeometry
-from .dram import DramModel, DramRequest, dram_timing_single
+from .dram import DramModel, DramRequest, dram_timing_many, dram_timing_single
 from .policies import (
     MemoryPolicy,
     PolicyContext,
@@ -68,6 +77,7 @@ from .policies import (
     get_policy,
     resolve_policy_mix,
 )
+from .tlb import charge_cache_lookup, tlb_pages
 
 # --------------------------------------------------------------------------
 # Lane-decomposition transform
@@ -106,8 +116,8 @@ class EmbeddingBatchStats:
     cache_misses: int = 0
     dram_row_hits: int = 0
     dram_row_misses: int = 0
-    # Address-translation detail (always zero here: hw.translation is
-    # not ported yet, and None is the exact-identity default).
+    # Address-translation detail (all zero when hw.translation is None —
+    # the exact-identity default; see memory/tlb.py).
     tlb_hits: int = 0            # L1 TLB hits (free, pipelined)
     tlb_misses: int = 0          # L1 TLB misses
     tlb_walks: int = 0           # full page-table walks
@@ -143,6 +153,8 @@ class EmbeddingTrace:
         self._vec_ids: Optional[np.ndarray] = None
         self._lookup_batch: Optional[np.ndarray] = None
         self._atraces: Dict[int, AddressTrace] = {}
+        self._unique_lines: Dict[int, int] = {}
+        self._unique_pages: Dict[Tuple[int, int], np.ndarray] = {}
 
     @property
     def num_batches(self) -> int:
@@ -173,6 +185,32 @@ class EmbeddingTrace:
             self._atraces[line_bytes] = at
         return at
 
+    def unique_line_count(self, line_bytes: int) -> int:
+        """Distinct on-chip lines this op's whole trace touches — the line
+        footprint. A ``capacity_saturates`` policy classifies identically at
+        any capacity at or above it. Hardware-independent apart from the line
+        geometry, so cached."""
+        n = self._unique_lines.get(line_bytes)
+        if n is None:
+            n = int(np.unique(self.address_trace(line_bytes).lines).size)
+            self._unique_lines[line_bytes] = n
+        return n
+
+    def unique_pages(self, line_bytes: int, page_bytes: int) -> np.ndarray:
+        """Distinct translation pages this op's whole trace touches — the
+        page footprint, sorted. Every miss stream is a subsequence of this
+        trace, so a TLB that ``tlb.translation_saturated`` says the
+        footprint never evicts from classifies every config identically
+        (first-touch-only walks). Cached like the line footprint."""
+        key = (line_bytes, page_bytes)
+        up = self._unique_pages.get(key)
+        if up is None:
+            up = np.unique(
+                tlb_pages(self.address_trace(line_bytes).lines,
+                          line_bytes, page_bytes))
+            self._unique_pages[key] = up
+        return up
+
 
 # --------------------------------------------------------------------------
 # Classification result (decoupled from DRAM timing)
@@ -199,6 +237,11 @@ class ClassifiedStream:
     # Shared memo for the group-independent half of the placement transform
     # (PlacementMap.place), reused across placement siblings of this stream.
     place_cache: dict = field(default_factory=dict)
+    # Memoized translation charges keyed by TranslationConfig.key —
+    # translation observes the VIRTUAL miss stream (pre-placement), so
+    # placement siblings sharing this stream share each TLB configuration's
+    # charge too (memory/tlb.py).
+    tlb_cache: dict = field(default_factory=dict)
 
 
 def _lane_context(
@@ -301,11 +344,6 @@ class MemorySystem:
 
     @staticmethod
     def from_hardware(hw: HardwareConfig, device: DeviceLike = "cuda") -> "MemorySystem":
-        if hw.translation is not None:
-            raise NotImplementedError(
-                "address translation (hw.translation, memory/tlb.py) is not "
-                "ported yet (see ROADMAP.md)"
-            )
         return MemorySystem(
             hw=hw,
             policy=get_policy(hw.onchip.policy),
@@ -527,7 +565,7 @@ class MemorySystem:
 
     # -- stats assembly -----------------------------------------------------
     def _assemble_stats(
-        self, etrace: EmbeddingTrace, cs: ClassifiedStream, drams
+        self, etrace: EmbeddingTrace, cs: ClassifiedStream, drams, tlb=None
     ) -> List[EmbeddingBatchStats]:
         hw = self.hw
         line = hw.onchip.line_bytes
@@ -551,10 +589,56 @@ class MemorySystem:
             # on-chip service, off-chip service and pooling overlap in a
             # double-buffered stream; the slowest stage bounds the batch.
             s.cycles = max(s.onchip_cycles, s.dram_cycles, s.vector_cycles)
+            if tlb is not None:
+                # Page walks serialize with the off-chip path: a miss line
+                # cannot issue to DRAM before its physical address exists.
+                s.tlb_hits = int(tlb.hits[b])
+                s.tlb_misses = int(tlb.misses[b])
+                s.tlb_walks = int(tlb.walks[b])
+                s.translation_cycles = float(tlb.cycles[b])
+                s.cycles = max(
+                    s.onchip_cycles,
+                    s.dram_cycles + s.translation_cycles,
+                    s.vector_cycles,
+                )
             stats.append(s)
         return stats
 
+    def _charge_translation(self, cs: ClassifiedStream):
+        """Memoized TLB charge for this stream, or None without translation."""
+        tcfg = self.hw.translation
+        if tcfg is None:
+            return None
+        return charge_cache_lookup(
+            cs.tlb_cache, cs.miss_lines, cs.miss_batch, cs.num_batches,
+            self.hw.onchip.line_bytes, tcfg, device=self.device,
+        )
+
     # -- deferred-DRAM pipeline ---------------------------------------------
+    def classify_for_pending(
+        self,
+        etrace: EmbeddingTrace,
+        pinned_lines: Optional[np.ndarray] = None,
+        allow_lane: bool = True,
+    ) -> ClassifiedStream:
+        """The placement-invariant half of ``prepare_embedding``.
+
+        Classification never reads the NUMA axes (``channel_affinity`` /
+        ``placement``), which only remap miss-line addresses on the way to
+        DRAM, so one classified stream serves every placement variant of a
+        config through ``pending_from``.
+        """
+        return self.classify_embedding(etrace, pinned_lines, allow_lane)
+
+    def pending_from(
+        self, etrace: EmbeddingTrace, cs: ClassifiedStream
+    ) -> PendingEmbedding:
+        """Apply THIS config's placement transform to an already classified
+        stream and package the deferred DRAM dispatch. ``cs`` may come from a
+        placement sibling (same config up to affinity/placement), bit-exact
+        with classifying under this config directly."""
+        return self._pending(etrace, cs)
+
     def prepare_embedding(
         self,
         etrace: EmbeddingTrace,
@@ -592,6 +676,10 @@ class MemorySystem:
         return pm.place(miss_lines, miss_src, cache=place_cache)
 
     def _pending(self, etrace: EmbeddingTrace, cs: ClassifiedStream) -> PendingEmbedding:
+        # Translation observes the VIRTUAL miss stream, before PlacementMap
+        # relocates lines: the charge is placement-invariant and memoized
+        # on the classified stream.
+        tlb = self._charge_translation(cs)
         req = DramRequest(
             lines=self._place_misses(
                 etrace, cs.miss_lines, None, place_cache=cs.place_cache
@@ -604,7 +692,9 @@ class MemorySystem:
         )
         return PendingEmbedding(
             request=req,
-            _finalize=lambda drams, finish: self._assemble_stats(etrace, cs, drams),
+            _finalize=lambda drams, finish: self._assemble_stats(
+                etrace, cs, drams, tlb
+            ),
         )
 
     # -- multi-batch embedding-op pipeline ----------------------------------
@@ -622,6 +712,71 @@ class MemorySystem:
         """
         p = self.prepare_embedding(etrace, pinned_lines, allow_lane)
         return p.finalize(*dram_timing_single(p.request, self.device))
+
+
+def classify_embedding_many(
+    systems: Sequence[MemorySystem],
+    etrace: EmbeddingTrace,
+    allow_lane: bool = True,
+) -> List[ClassifiedStream]:
+    """Batched classification across configurations of ONE policy on ONE
+    device — the placement-invariant half of ``prepare_embedding_many``.
+
+    All systems must share the same registered policy and device (and carry
+    no policy mix); their classification runs through
+    ``MemoryPolicy.run_many``, which shares shape-bucket launches and
+    analytic passes across them. Per-system results are bit-exact with
+    independent ``classify_embedding`` calls.
+    """
+    if not systems:
+        return []
+    policy = systems[0].policy
+    if any(ms.policy is not policy for ms in systems):
+        raise ValueError("classify_embedding_many requires one shared policy")
+    if any(ms.device != systems[0].device for ms in systems):
+        raise ValueError("classify_embedding_many requires one shared device")
+    if any(ms.hw.onchip.policy_mix for ms in systems):
+        raise ValueError("policy-mix configs must use the unbatched path")
+    preps = [ms._prepare_stream(etrace, None, allow_lane) for ms in systems]
+    outs = policy.run_many([p.stream for p in preps], [p.ctx for p in preps])
+    return [
+        ms._account(etrace, prep, out, None)
+        for ms, prep, out in zip(systems, preps, outs)
+    ]
+
+
+def prepare_embedding_many(
+    systems: Sequence[MemorySystem],
+    etrace: EmbeddingTrace,
+    allow_lane: bool = True,
+) -> List[PendingEmbedding]:
+    """Batched classification across configurations of ONE policy, with DRAM
+    timing deferred (``classify_embedding_many`` + per-system packaging)."""
+    return [
+        ms._pending(etrace, cs)
+        for ms, cs in zip(
+            systems, classify_embedding_many(systems, etrace, allow_lane)
+        )
+    ]
+
+
+def simulate_embedding_many(
+    systems: Sequence[MemorySystem],
+    etrace: EmbeddingTrace,
+    allow_lane: bool = True,
+) -> List[List[EmbeddingBatchStats]]:
+    """Batched ``simulate_embedding`` across configurations of ONE policy:
+    ``prepare_embedding_many`` + one batched DRAM dispatch."""
+    pending = prepare_embedding_many(systems, etrace, allow_lane)
+    if not pending:
+        return []
+    return [
+        p.finalize(*out)
+        for p, out in zip(
+            pending,
+            dram_timing_many([p.request for p in pending], device=systems[0].device),
+        )
+    ]
 
 
 def memory_system_for(hw: HardwareConfig, device: DeviceLike = "cuda") -> MemorySystem:

@@ -26,8 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # latency_probe holds no kernel of the port: chip_smoke.py times its chains
 # for the kernels' latency bounds.
-SOURCES = ("cache_scan", "stack_distance", "dram_scan", "embedding_bag", "latency_probe",
-           "flash_attention", "decode_attention", "mamba2_ssd")
+SOURCES = ("cache_scan", "stack_distance", "dram_scan", "rrip_scan", "embedding_bag",
+           "latency_probe", "flash_attention", "decode_attention", "mamba2_ssd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -264,10 +264,16 @@ def test_port_srrip_fifo_equal_jax_scan_through_set_groups(policy):
 
 @pytest.mark.parametrize("policy", ["srrip", "fifo"])
 @pytest.mark.parametrize("backend", ["stack", "stack_pallas"])
-def test_srrip_fifo_stack_backend_not_ported_yet(policy, backend):
+def test_srrip_fifo_stack_backends_equal_golden(policy, backend):
+    """srrip/fifo under the stack variants run the compressed per-set
+    engines (``memory/rrip.py``, row scans on D2's plain version here)."""
+    lines = np.random.default_rng(9).integers(0, 40, size=600)
     geom = tcache.CacheGeometry(4, 2, 64)
-    with pytest.raises(NotImplementedError, match="rrip.py"):
-        tcache.simulate_cache(np.arange(10), geom, policy, backend=backend, device="cpu")
+    ours = tcache.simulate_cache(lines, geom, policy, backend=backend, device="cpu")
+    golden = GoldenCache(rcache.CacheGeometry(4, 2, 64), policy)
+    np.testing.assert_array_equal(ours.hits, golden.run(lines))
+    assert ours.num_evictions == golden.num_evictions
+    assert ours.num_misses == golden.num_misses
 
 
 @pytest.mark.parametrize("n,space,sets", [(1, 5, 1), (300, 50, 3), (5000, 2000, 16), (20000, 3000, 33)])

@@ -138,3 +138,81 @@ def test_dram_scan_validates_inputs():
         dram_scan_chunked(a, a, a.float(), v, 8, 8, 44.0, 22.0, 0.6)
     with pytest.raises(ValueError, match="shape"):
         dram_scan_chunked(a, a, a[:, :4], v, 8, 8, 44.0, 22.0, 0.6)
+
+
+def _requests(rng, rm, tm):
+    """Requests of several sizes, segment counts and sources, one model
+    (and a second model for one of them, so the groups split)."""
+    out = []
+    for n_vec, n_seg, n_src in ((400, 2, 1), (300, 3, 2), (20, 1, 1), (900, 2, 1), (0, 2, 1)):
+        lines = _vec_trace(rng, n_vec, 30_000) if n_vec else np.zeros(0, np.int64)
+        seg = np.sort(rng.integers(0, n_seg, size=lines.size))
+        src = rng.integers(0, n_src, size=lines.size)
+        out.append((lines, seg, src, n_seg, n_src))
+    other = (dataclasses.replace(rm, channels=8), dataclasses.replace(tm, channels=8))
+    models = [(rm, tm)] * 4 + [other]
+    return ([rdram.DramRequest(*r, m[0]) for r, m in zip(out, models)],
+            [tdram.DramRequest(*r, m[1]) for r, m in zip(out, models)])
+
+
+def test_dram_timing_many_equals_per_request_and_jax_package():
+    rm, tm = _models()
+    rreqs, treqs = _requests(np.random.default_rng(6), rm, tm)
+    batched = tdram.dram_timing_many(treqs, device="cpu")
+    single = tdram.dram_timing_many(treqs, batch=False, device="cpu")
+    ref = rdram.dram_timing_many(rreqs)
+    assert len(batched) == len(treqs)
+    for b, s, r in zip(batched, single, ref):
+        assert_bitwise_equal_results(_as_dicts(b), _as_dicts(s))
+        assert_bitwise_equal_results(_as_dicts(b), _as_dicts(r))
+    assert tdram.dram_timing_many([], device="cpu") == []
+
+
+@pytest.mark.parametrize("pattern", ["vectors", "random", "one", "empty"])
+def test_simulate_dram_and_dram_timing_equal_jax_package(pattern):
+    rng = np.random.default_rng(12)
+    lines = {"vectors": _vec_trace(rng, 700, 40_000), "random": rng.integers(0, 10**6, size=3000),
+             "one": np.array([77]), "empty": np.zeros(0, np.int64)}[pattern]
+    rm, tm = _models()
+    for ours, ref in (
+        (tdram.simulate_dram(lines, tm, device="cpu"), rdram.simulate_dram(lines, rm)),
+        (tdram.dram_timing(lines, tm, device="cpu"), rdram.dram_timing(lines, rm)),
+    ):
+        assert_bitwise_equal_results(dataclasses.asdict(ours), dataclasses.asdict(ref))
+    seg = np.sort(rng.integers(0, 3, size=lines.size))
+    for ours, ref in (
+        (tdram.simulate_dram_segmented(lines, seg, 3, tm, device="cpu"),
+         rdram.simulate_dram_segmented(lines, seg, 3, rm)),
+        (tdram.dram_timing_segmented(lines, seg, 3, tm, device="cpu"),
+         rdram.dram_timing_segmented(lines, seg, 3, rm)),
+    ):
+        assert_bitwise_equal_results([dataclasses.asdict(r) for r in ours],
+                                     [dataclasses.asdict(r) for r in ref])
+
+
+def test_dram_timing_switches_to_the_estimate_past_the_detailed_limit(monkeypatch):
+    rng = np.random.default_rng(13)
+    lines = _vec_trace(rng, 300, 40_000)
+    rm, tm = _models()
+    monkeypatch.setattr(tdram, "DETAILED_DRAM_MAX", 1000)
+    monkeypatch.setattr(rdram, "DETAILED_DRAM_MAX", 1000)
+    ours, ref = tdram.dram_timing(lines, tm, device="cpu"), rdram.dram_timing(lines, rm)
+    assert not ours.detailed
+    assert_bitwise_equal_results(dataclasses.asdict(ours), dataclasses.asdict(ref))
+    seg = (np.arange(lines.size) >= 2000).astype(np.int64)    # 2,000 and 400 lines
+    ours = tdram.dram_timing_segmented(lines, seg, 2, tm, device="cpu")
+    ref = rdram.dram_timing_segmented(lines, seg, 2, rm)
+    assert [r.detailed for r in ours] == [False, True]
+    assert_bitwise_equal_results([dataclasses.asdict(r) for r in ours],
+                                 [dataclasses.asdict(r) for r in ref])
+
+
+@pytest.mark.parametrize("kw", [dict(issue_interval_cycles=2.0), dict(start_cycle=10.0)])
+def test_simulate_dram_with_arrivals_raises_naming_d3(kw):
+    """Non-zero arrivals need the per-access scan with arrival times (D3),
+    which the port has not ported yet."""
+    _, tm = _models()
+    with pytest.raises(NotImplementedError, match="D3"):
+        tdram.simulate_dram(np.arange(100), tm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="D3"):
+        tdram.dram_timing(np.arange(100), tm, device="cpu", **kw)

@@ -179,6 +179,105 @@ def test_dram_scan_kernel_tiles_and_blocks(cuda, R, Lc, banks, k_max, offset):
     assert float(got[0][0][R // 2]) == 0.0 and not bool(got[1][1][R // 2].any())
 
 
+# ---------------------------------------------------------------------------
+# D2 (the FIFO / SRRIP row scans)
+# ---------------------------------------------------------------------------
+
+RRIP_WAYS = [1, 2, 3, 4, 5, 7, 8, 13, 16, 17, 31, 32, 33, 63, 64]
+
+
+def _rrip_rows(cuda, B, L, ways, seed, offset=0, max_len=None):
+    """Random rows from a small tag space (refills and evictions), some
+    valid tags of -1, ragged valid lengths (at most ``max_len``) padded with
+    the pad tag -2, an all-padding row; ``offset`` shifts the tensors off
+    16 bytes."""
+    rng = np.random.default_rng(seed)
+    tags = rng.integers(0, 2 * ways + 2, size=(B, L)).astype(np.int32)
+    tags[rng.random((B, L)) < 0.03] = -1
+    lens = rng.integers(0, (max_len or L) + 1, size=B)
+    valid = (np.arange(L)[None, :] < lens[:, None]) & (rng.random((B, L)) < 0.95)
+    valid[B // 2] = False
+    tags[~valid] = -2
+    out = []
+    for a in (tags, valid):
+        t = torch.from_numpy(a)
+        flat = torch.zeros(a.size + offset, dtype=t.dtype, device=cuda)
+        flat[offset:] = t.reshape(-1).to(cuda)
+        out.append(flat[offset:].view(B, L))
+    return out
+
+
+@pytest.mark.parametrize("policy", ["fifo", "srrip"])
+@pytest.mark.parametrize("ways", RRIP_WAYS)
+def test_rrip_scan_kernel_equals_plain(cuda, policy, ways):
+    """Two blocks of 32 rows (the second partial), L = 200 (not a multiple
+    of 16: copied element by element), every instance of ways held (powers
+    of two, with and without ways past the real count)."""
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_rows
+
+    rows = _rrip_rows(cuda, 37, 200, ways, seed=ways)
+    reset_launch_counts()
+    got = rrip_scan_rows(*rows, ways, policy)
+    assert launch_counts()["rrip_scan"] == 1
+    assert torch.equal(got, PLAIN[policy](*rows, ways))
+
+
+@pytest.mark.parametrize("policy", ["fifo", "srrip"])
+@pytest.mark.parametrize("B,L,ways,offset,max_len", [
+    (16, 4096, 4, 0, None),   # a TLB's long rows: 16 tiles through two stages
+    (8, 8, 16, 0, None),      # the shortest bucket: one group of 16, half past L
+    (3, 1000, 8, 1, None),    # off 16 bytes: copied element by element
+    (64, 256, 16, 0, None),   # one full tile, two full blocks
+    (1, 1, 1, 0, None),
+    (40, 1024, 4, 0, 100),    # rows far shorter than L: groups past them skipped
+    (33, 512, 16, 0, 300),
+])
+def test_rrip_scan_kernel_tiles_and_blocks(cuda, policy, B, L, ways, offset, max_len):
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_rows
+
+    rows = _rrip_rows(cuda, B, L, ways, seed=B * L, offset=offset, max_len=max_len)
+    assert torch.equal(rrip_scan_rows(*rows, ways, policy), PLAIN[policy](*rows, ways))
+
+
+@pytest.fixture(scope="module")
+def full_size_streams():
+    """The full-width DLRM-RMC2 x tpuv6e() streams D2 sees: the lane stream
+    of the on-chip cache, and the page streams of a FIFO TLB (entries 64,
+    ways 4) and its L2 (1,024 entries, 8 ways) behind srrip/stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import dlrm_rmc2_small, tpuv6e
+    from repro_torch.core.engine import build_embedding_traces
+    from repro_torch.core.memory.system import MemorySystem, lane_geometry
+    from repro_torch.core.memory.tlb import classify_tlb, tlb_pages
+
+    hw = tpuv6e().with_policy("srrip").with_translation(
+        entries=64, ways=4, l2_entries=1024, replacement="fifo")
+    etrace = build_embedding_traces(dlrm_rmc2_small(num_batches=2))[0]
+    lane = lane_geometry(hw, etrace.spec)
+    cs = MemorySystem.from_hardware(hw, "cuda").classify_embedding(etrace)
+    tr = hw.translation
+    pages = tlb_pages(cs.miss_lines, hw.onchip.line_bytes, tr.page_bytes)
+    l1 = classify_tlb(pages, tr.num_sets, tr.ways, "fifo", device="cuda")
+    return {"onchip": (etrace.vec_ids, lane.num_sets, lane.ways),
+            "tlb_l1": (pages, tr.num_sets, tr.ways),
+            "tlb_l2": (pages[~l1], tr.l2_num_sets, tr.l2_ways)}
+
+
+@pytest.mark.parametrize("stream,policy", [("onchip", "srrip"), ("onchip", "fifo"),
+                                           ("tlb_l1", "fifo"), ("tlb_l2", "fifo")])
+def test_rrip_scan_kernel_equals_plain_full_size(cuda, full_size_streams, stream, policy):
+    from repro_torch.core.memory.rrip import row_buckets
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_rows
+
+    lines, num_sets, ways = full_size_streams[stream]
+    buckets = row_buckets(lines, num_sets, ways, policy)
+    assert buckets
+    for _, _, tags, valid, w in buckets:
+        rows = [torch.from_numpy(a).to(cuda) for a in (tags, valid)]
+        assert torch.equal(rrip_scan_rows(*rows, w, policy), PLAIN[policy](*rows, w))
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     s = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     v = torch.ones((2, 8), dtype=torch.bool, device=cuda)
@@ -194,29 +293,38 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     assert stack_distance_groups(s, s, v, 64, 16)[0].shape == (2, 8)
     with pytest.raises(ValueError, match="k_max <= 8"):
         dram_scan_chunked(s, s, s, v, 8, 9, 44.0, 22.0, 0.6016)
+    from repro_torch.kernels.rrip_scan import rrip_scan_rows
+    with pytest.raises(ValueError, match="ways <= 64"):
+        rrip_scan_rows(s, v, 65, "srrip")
+    assert rrip_scan_rows(s, v, 64, "fifo").shape == (2, 8)
     with pytest.raises(ValueError, match="contiguous"):
         cache_scan_groups(s.t().contiguous().t(), s, v, 1, 1, "lru")
     with pytest.raises(ValueError, match="devices|on cpu|cuda"):
         stack_distance_groups(s, s.cpu(), v, 1, 1)
 
 
-@pytest.mark.parametrize("policy,backend,kernel", [
-    ("lru", "pallas", "cache_scan"), ("srrip", "pallas", "cache_scan"),
-    ("fifo", "pallas", "cache_scan"), ("lru", "stack_pallas", "stack_distance"),
-    ("lru", "stack", None), ("spm", "stack", None), ("srrip", "scan", None),
+@pytest.mark.parametrize("policy,backend,kernel,translation", [
+    ("lru", "pallas", "cache_scan", None), ("srrip", "pallas", "cache_scan", None),
+    ("fifo", "pallas", "cache_scan", None), ("lru", "stack_pallas", "stack_distance", None),
+    ("lru", "stack", None, None), ("spm", "stack", None, None), ("srrip", "scan", None, None),
+    ("srrip", "stack", "rrip_scan", None), ("fifo", "stack_pallas", "rrip_scan", None),
+    ("lru", "stack", None, "lru"), ("spm", "stack", "rrip_scan", "fifo"),
+    ("srrip", "stack", "rrip_scan", "fifo"),
 ])
-def test_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel):
+def test_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel, translation):
     import dataclasses
 
     from repro_torch.core import dlrm_rmc2_small, simulate, tpuv6e
 
     wl = dlrm_rmc2_small(num_tables=2, rows_per_table=300, batch_size=2, num_batches=2)
     hw = tpuv6e().with_policy(policy, capacity_bytes=1 << 14, ways=3).with_cache_backend(backend)
+    if translation:
+        hw = hw.with_translation(entries=16, ways=4, l2_entries=64, replacement=translation)
     reset_launch_counts()
     on_card = simulate(wl, hw)
     counts = launch_counts()
     assert counts["dram_scan"] == 1
-    for name in ("cache_scan", "stack_distance"):
+    for name in ("cache_scan", "stack_distance", "rrip_scan"):
         assert (counts[name] > 0) == (name == kernel), counts
     assert dataclasses.asdict(on_card) == dataclasses.asdict(simulate(wl, hw, device="cpu"))
 

@@ -5,6 +5,8 @@ size: 2 tables x 300 rows, batch 2, 2 batches, 16 KiB of on-chip memory.
 Where the JAX backend is a Pallas one (``pallas``, ``stack_pallas``) the
 reference runs the JAX ``scan`` engine instead: the Pallas kernels cannot
 run on the installed jax, and every JAX backend is bit-exact with ``scan``.
+srrip and fifo resolve ``stack_pallas`` to ``stack`` in both packages, so
+there the reference runs its own ``stack`` engine.
 """
 import dataclasses
 import enum
@@ -32,13 +34,11 @@ def _workloads():
 
 
 def _ref_backend(policy, backend):
-    if backend in ("pallas", "stack_pallas") or (backend == "stack" and policy in ("srrip", "fifo")):
+    if backend == "stack_pallas" and policy in ("srrip", "fifo"):
+        return "stack"
+    if backend in ("pallas", "stack_pallas"):
         return "scan"
     return backend
-
-
-def _not_ported(policy, backend):
-    return policy in ("srrip", "fifo") and backend in ("stack", "stack_pallas")
 
 
 def _plain(x):
@@ -74,10 +74,6 @@ def _reference(policy, backend, **onchip):
 def test_simulate_equals_jax_package(policy, backend):
     _, wl = _workloads()
     hw = T.tpuv6e().with_policy(policy, capacity_bytes=CAP).with_cache_backend(backend)
-    if _not_ported(policy, backend):
-        with pytest.raises(NotImplementedError, match="rrip.py"):
-            T.simulate(wl, hw, device="cpu")
-        return
     _assert_same(T.simulate(wl, hw, device="cpu"), _reference(policy, backend))
 
 
@@ -132,7 +128,6 @@ def test_convert_round_trip():
 @pytest.mark.parametrize("change,match", [
     (lambda hw: hw.with_cluster(2), "MultiCoreMemorySystem"),
     (lambda hw: hw.with_cluster(1, "shared"), "MultiCoreMemorySystem"),
-    (lambda hw: hw.with_translation(entries=64), "translation"),
 ])
 def test_outside_the_slice_raises_not_implemented(change, match):
     _, wl = _workloads()
