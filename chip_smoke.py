@@ -18,13 +18,16 @@ passed over):
      full-size set-group buckets that ``simulate`` produces and on edge
      geometries (K2 also with sets out of range and valid tags of -1), D1
      DRAM scan on the full-size chunk rows, D2 FIFO/SRRIP row scans on the
-     full-size buckets of the on-chip cache (srrip, fifo) and of a FIFO TLB
-     with an L2 behind spm and on edge rows (ways 1 to 64), bitwise; kernel times warm
-     (mean of 20 back-to-back launches) and with the L2 cache flushed
-     before each, K1's, K2's and D2's per bucket, with ns per longest-set
-     access (K1, K2), per chunk (D1) and per step of the longest row (D2),
-     each one's share of its chain bound and the blocks resident per SM;
-     plain times. Then the full-width DLRM-RMC2
+     full-size calls of the on-chip cache (srrip, fifo: the short route,
+     one launch) and of a FIFO TLB with an L2 behind spm (the chunked
+     route, speculate + fix-up, with its re-run count against the chunked
+     plain version's) and on edge rows (ways 1 to 64, both routes),
+     bitwise; kernel times warm (mean of 20 back-to-back launches) and with
+     the L2 cache flushed before each, K1's and K2's per bucket, D2's per
+     call with its route, virtual rows, blocks and re-runs, with ns per
+     longest-set access (K1, K2) and per chunk (D1), each one's share of its
+     chain bound (D2: its own design's and the serial one of a lane per row) and the
+     blocks resident per SM; plain times. Then the full-width DLRM-RMC2
      model (60 x 1M x 128 f32 table, filled on the card) and the embedding
      kernels K3 bag, K4 gather and K5 hot-pinned pool on the inputs its
      first request gives them, against their plain versions (bitwise; allclose where K5's hot
@@ -47,12 +50,13 @@ passed over):
   4. ``simulate`` on the full DLRM-RMC2 workload (60 tables x 1M rows x dim
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
      policy/backend pair, with launch counts reset just before and read
-     just after each run (D2: exactly 4 per srrip/fifo ``stack`` or
+     just after each run (D2: exactly 1 per srrip/fifo ``stack`` or
      ``stack_pallas`` run); results bitwise equal across backends of one
      policy, srrip and fifo equal to the reference's totals; three runs
      with address translation (lru + LRU TLB, srrip + FIFO TLB, spm + FIFO
      TLB; 64 entries of 4 ways, an L2 of 1,024) equal to the reference's
-     totals and walks, D2 launched 2 more times per FIFO TLB; one K1, one
+     totals and walks, D2 launched 4 more times per FIFO TLB (L1 and L2,
+     each a speculate and a fix-up launch); one K1, one
      K2, one srrip/stack and one spm + FIFO TLB run under
      ``torch.profiler`` for the device's busy share and the device time of
      D1, K1, K2 and D2 in it; small runs on the card equal to the same runs
@@ -131,22 +135,26 @@ RUNS = [
     ("fifo", "scan"),
 ]
 # The kernel each (policy, backend) pair's classification launches, and
-# how often per simulate where that is fixed (D2: one launch per bucket).
+# how often per simulate where that is fixed (D2: one call per
+# classification, its rows short: one launch).
 PAIR_KERNEL = {("lru", "pallas"): "cache_scan", ("srrip", "pallas"): "cache_scan",
                ("fifo", "pallas"): "cache_scan", ("lru", "stack_pallas"): "stack_distance",
                ("srrip", "stack"): "rrip_scan", ("srrip", "stack_pallas"): "rrip_scan",
                ("fifo", "stack"): "rrip_scan"}
-RRIP_LAUNCHES = 4
+RRIP_LAUNCHES = 1
+# D2's launches per FIFO-TLB charge with an L2: the L1's and the L2's rows
+# both take the chunked route (speculate + fix-up).
+TLB_LAUNCHES = 4
 # The reference's full-width totals (the JAX package run on the CPU; this
 # script imports nothing of JAX): srrip and fifo under any backend,
 # and three runs with translation(entries=64, ways=4, l2_entries=1024,
-# replacement=R): (on-chip policy, R) -> (total_cycles, tlb_walks), with
-# D2's launches for the TLB (two per FIFO TLB with an L2: L1, then L2).
+# replacement=R): (on-chip policy, R) -> (total_cycles, tlb_walks, D2's
+# launches in the run).
 REF_TOTAL = {"srrip": 188579.2791375, "fifo": 188774.5291375}
 TRANSLATION = dict(entries=64, ways=4, l2_entries=1024)
 REF_TRANSLATION = {("lru", "lru"): (44106659.2791375, 406646, 0),
-                   ("srrip", "fifo"): (44109683.2791375, 406674, RRIP_LAUNCHES + 2),
-                   ("spm", "fifo"): (49056511.9041375, 452077, 2)}
+                   ("srrip", "fifo"): (44109683.2791375, 406674, RRIP_LAUNCHES + TLB_LAUNCHES),
+                   ("spm", "fifo"): (49056511.9041375, 452077, TLB_LAUNCHES)}
 EDGE_GEOMETRIES = [(1, 1), (1, 4), (3, 2), (7, 5), (16, 7), (16, 16), (4, 32), (2, 33), (2, 64)]
 KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
@@ -279,7 +287,7 @@ def ptxas_report(log: str):
             for word in ("flash_wgmma_kernel", "flash_kernel", "ssd_mma_kernel", "ssd_cumsum_kernel",
                          "ssd_kernel", "pool_kernel", "bag_kernel", "gather_kernel",
                          "cache_scan_kernel", "stack_distance_kernel", "dram_scan_kernel",
-                         "rrip_scan_kernel"):
+                         "rrip_scan_walk_kernel", "rrip_scan_fixup_kernel"):
                 if word in name:
                     name = word + name.split(word, 1)[1][:24]
                     break
@@ -785,10 +793,11 @@ def main() -> None:
         blocks_per_sm as d1_blocks_per_sm, dram_scan_chunked, dram_scan_plain)
     from repro_torch.kernels.stack_distance import (
         blocks_per_sm as k2_blocks_per_sm, stack_distance_groups, stack_distance_plain)
-    from repro_torch.core.memory.rrip import row_buckets
+    from repro_torch.core.memory.rrip import row_plan
     from repro_torch.core.memory.tlb import classify_tlb, tlb_pages
     from repro_torch.kernels.rrip_scan import (
-        PLAIN as RRIP_PLAIN, blocks_per_sm as rrip_blocks_per_sm, rrip_scan_rows)
+        PLAIN as RRIP_PLAIN, blocks_per_sm as rrip_blocks_per_sm, rrip_scan_chunked_plain,
+        rrip_scan_flat, rrip_scan_rows, state_ints)
     from repro_torch.kernels import ops as emb_ops
     from repro_torch.kernels.embedding_bag import (
         embedding_bag_kernel, embedding_bag_plain, embedding_gather_kernel,
@@ -1016,74 +1025,111 @@ def main() -> None:
         fail("dram_scan differs bitwise from its plain version on the ragged input")
     print("[3] dram_scan: bitwise equal to plain on a ragged (5, 96) input", flush=True)
 
-    # D2 on the rows simulate gives it: the lane stream of the on-chip cache
-    # under srrip and fifo, and the page streams of a FIFO TLB (L1, then an
-    # L2 that sees the L1 misses) behind spm, the run of phase 4 whose
-    # launches the TLB entry reads. Then edge rows.
+    # D2 on the calls simulate makes: the lane stream of the on-chip cache
+    # under srrip and fifo (one call each, the short route), and the page
+    # streams of a FIFO TLB (L1, then an L2 that sees the L1 misses; the
+    # chunked route) behind spm, the run of phase 4 whose launches the TLB
+    # entry reads. Then edge rows on both routes.
     hw_tr = hw.with_policy("spm").with_translation(replacement="fifo", **TRANSLATION)
     tr = hw_tr.translation
     cs = MemorySystem.from_hardware(hw_tr, "cuda").classify_embedding(etrace)
     pages = tlb_pages(cs.miss_lines, hw.onchip.line_bytes, tr.page_bytes)
     l1_hits = classify_tlb(pages, tr.num_sets, tr.ways, "fifo", device="cuda")
     d2_sets = {
-        "rrip_scan[srrip]": ("srrip", etrace.vec_ids, lane.num_sets, lane.ways, "per simulate",
-                             "src/repro/core/memory/rrip.py:162"),
-        "rrip_scan[fifo]": ("fifo", etrace.vec_ids, lane.num_sets, lane.ways, "per simulate",
-                            "src/repro/core/memory/rrip.py:137"),
-        "rrip_scan[tlb fifo]": ("fifo", None, None, None, "per TLB charge (L1 + L2)",
-                                "src/repro/core/memory/rrip.py:137"),
+        "rrip_scan[srrip]": ("srrip", [row_plan(etrace.vec_ids, lane.num_sets, lane.ways, "srrip")],
+                             "per simulate", "src/repro/core/memory/rrip.py:162"),
+        "rrip_scan[fifo]": ("fifo", [row_plan(etrace.vec_ids, lane.num_sets, lane.ways, "fifo")],
+                            "per simulate", "src/repro/core/memory/rrip.py:137"),
+        "rrip_scan[tlb fifo]": ("fifo", [row_plan(pages, tr.num_sets, tr.ways, "fifo"),
+                                         row_plan(pages[~l1_hits], tr.l2_num_sets, tr.l2_ways,
+                                                  "fifo")],
+                                "per TLB charge (L1 + L2)", "src/repro/core/memory/rrip.py:137"),
     }
-    tlb_buckets = (row_buckets(pages, tr.num_sets, tr.ways, "fifo")
-                   + row_buckets(pages[~l1_hits], tr.l2_num_sets, tr.l2_ways, "fifo"))
-    for name, (policy, lines, S, W, per, replaces) in d2_sets.items():
-        bk = tlb_buckets if lines is None else row_buckets(lines, S, W, policy)
-        err, k_ms, cold_ms, p_ms, per_bucket = 0.0, 0.0, 0.0, 0.0, []
-        nbytes, ops, lat_ms, steps_max, kept = 0, 0, 0.0, 0, 0
-        for _, _, tags_h, valid_h, w in bk:
+    for name, (policy, plans, per, replaces) in d2_sets.items():
+        err, k_ms, cold_ms, p_ms, per_call = 0.0, 0.0, 0.0, 0.0, []
+        nbytes, ops, lat_ms, chain_ms, kept = 0, 0, 0.0, 0.0, 0
+        for tags_h, valid_h, groups in plans:
+            (_, table), = groups
+            w = table.ways
             t_d, v_d = torch.from_numpy(tags_h).to(dev), torch.from_numpy(valid_h).to(dev)
-            h = rrip_scan_rows(t_d, v_d, w, policy)
+            count = torch.zeros(1, dtype=torch.int32, device=dev)
+            h = rrip_scan_flat(t_d, v_d, table, policy, reruns=count)
+            # The plain versions on the rows gathered into a matrix: the
+            # serial one (timed), and on the chunked route the chunked one
+            # (hits and re-run count).
+            at = torch.from_numpy(table.off).to(dev)[:, None] + torch.arange(
+                table.max_len, device=dev)[None, :]
+            inr = at < torch.from_numpy(table.off + table.length).to(dev)[:, None]
+            at = at.clamp(max=table.total - 1)
+            t_m, v_m = t_d[at], v_d[at] & inr
             t1 = time.perf_counter()
-            hp = RRIP_PLAIN[policy](t_d, v_d, w)
+            hp = RRIP_PLAIN[policy](t_m, v_m, w)
             torch.cuda.synchronize()
             p_ms += (time.perf_counter() - t1) * 1e3
-            if not torch.equal(h, hp):
-                fail(f"{name} differs from its plain version at {tuple(t_d.shape)}, {w} ways")
-            err = max(err, max_abs_err(h, hp))
+            if not torch.equal(h[at[inr]], hp[inr]):
+                fail(f"{name} differs from its plain version on {table.rows} rows, {w} ways")
+            reruns = int(count)
+            if table.chunked:
+                hc, rc = rrip_scan_chunked_plain(t_m, v_m, w, policy, lengths=table.length,
+                                                 chunk=table.chunk, warmup=table.warmup)
+                if not torch.equal(h[at[inr]], hc[inr]) or rc != reruns:
+                    fail(f"{name} differs from its chunked plain version: re-runs {reruns}, "
+                         f"plain {rc}")
+            err = max(err, max_abs_err(h[at[inr]], hp[inr]))
+            out = torch.empty_like(h)
 
-            def run(t_d=t_d, v_d=v_d, w=w):
-                return rrip_scan_rows(t_d, v_d, w, policy)
+            def run(t_d=t_d, v_d=v_d, table=table, out=out):
+                return rrip_scan_flat(t_d, v_d, table, policy, out=out)
             b_ms, b_cold = time_ms(run, 20), time_cold_ms(run, 20, flush)
             k_ms, cold_ms = k_ms + b_ms, cold_ms + b_cold
-            # The longest row is the bucket's chain of dependent steps; a
-            # step's chain is at least a compare, an OR tree over the ways
-            # and a select: 2 + log2(ways held) dependent integer ops. The
-            # buckets run one launch after another, so their chains add up,
-            # as their times do. Bytes: the tags of the valid steps, the
-            # whole valid mask read and the whole hit array written.
-            longest = int(valid_h.sum(axis=1).max())
+            # Bounds. A step's chain is at least a compare, an OR tree over
+            # the ways and a select: 2 + log2(ways held) dependent integer
+            # ops. The serial bound: the longest row walked in sequence. This
+            # design's own: its longest virtual row (a chunk and its
+            # warm-up), then the fix-up, whose warp compares 32 chunks of a
+            # row at once: a round of a compare, an AND tree over the state's
+            # ints and a ballot for each 32 chunks after the first, and the
+            # steps of the chunks that ran again in sequence (at the least
+            # the re-runs spread evenly over the rows). Launches run one
+            # after another, so chains add up, as their times do. Bytes: the
+            # tags of the valid steps, the whole valid mask read and the
+            # whole hit array written.
+            per_row = np.add.reduceat(valid_h.astype(np.int64), table.off)
+            longest = int(per_row.max())
             chain_ops = 2 + (max(w, 1) - 1).bit_length()
-            b_lat = longest * chain_ops * f32_op_ms
+            b_chain = longest * chain_ops * f32_op_ms
+            if table.chunked:
+                rounds = -(-(int((-(-table.length // table.chunk)).max()) - 1) // 32)
+                cmp_ops = 2 + (state_ints(w, policy) - 1).bit_length()
+                redo = -(-reruns // table.rows) * table.chunk * chain_ops
+                b_lat = (min(longest, table.chunk + table.warmup) * chain_ops
+                         + rounds * cmp_ops + redo) * f32_op_ms
+            else:
+                b_lat = b_chain
             nbytes += int(valid_h.sum()) * 4 + tags_h.size * (1 + 1)
             ops += int(valid_h.sum()) * (4 * w + 8)
             lat_ms += b_lat
-            steps_max = max(steps_max, longest)
+            chain_ms += b_chain
             kept += int(valid_h.sum())
-            per_bucket.append(
-                f"{tuple(t_d.shape)} x {w} ways: {b_ms!r} ms ({b_cold!r} L2 flushed), longest row "
-                f"{longest} steps, {b_ms * 1e6 / longest!r} ns each, {b_lat / b_ms!r} of its "
-                f"chain bound {b_lat!r} ms ({chain_ops} ops a step); "
-                f"{rrip_blocks_per_sm(t_d.shape[1], w, policy)} blocks of 32 rows per SM")
+            steps = table.max_steps
+            per_call.append(
+                f"{table.rows} rows (longest {longest} valid steps) x {w} ways, "
+                f"{'chunked' if table.chunked else 'short'} route: {table.virtual_rows} virtual "
+                f"rows of at most {steps} steps, {table.blocks} blocks "
+                f"({rrip_blocks_per_sm(steps, w, policy)} per SM), re-runs {reruns}: {b_ms!r} ms "
+                f"({b_cold!r} L2 flushed), {b_ms / b_lat!r} x its bound {b_lat!r} ms, "
+                f"{b_chain / b_ms!r} of the serial chain bound {b_chain!r} ms")
         entries[name] = dict(
             kind="rrip_scan", err=err, ms=k_ms, plain_ms=p_ms, nbytes=nbytes, ops=ops,
-            lat_ms=lat_ms, shapes=[tuple(b[2].shape) for b in bk], replaces=replaces,
+            lat_ms=lat_ms, shapes=[(int(p[0].size),) for p in plans], replaces=replaces,
             library_none="no one PyTorch call computes a FIFO/SRRIP set scan")
-        print(f"[3] {name}: bitwise equal to plain on {len(bk)} buckets, {kept} kept accesses; "
-              f"kernel {k_ms!r} ms {per} ({cold_ms!r} L2 flushed), longest row {steps_max} steps, "
-              f"{k_ms * 1e6 / steps_max!r} ns per step of it, {lat_ms / k_ms!r} of its chain "
-              f"bound {lat_ms!r} ms (summed over the buckets; byte bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3!r} ms); plain {p_ms:.2f} ms; per bucket: "
-              f"{'; '.join(per_bucket)}",
-              flush=True)
+        print(f"[3] {name}: bitwise equal to plain on {len(plans)} call(s), {kept} kept accesses; "
+              f"kernel {k_ms!r} ms {per} ({cold_ms!r} L2 flushed); its bound {lat_ms!r} ms "
+              f"(the chains of this design, summed over the calls; byte bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3!r} ms), {k_ms / lat_ms!r} x it; the serial chain "
+              f"bound {chain_ms!r} ms, {chain_ms / k_ms!r} of it; plain {p_ms:.2f} ms; per call: "
+              f"{'; '.join(per_call)}", flush=True)
+    edge_reruns = {}
     for policy in ("fifo", "srrip"):
         for w in (1, 2, 3, 4, 5, 7, 8, 13, 16, 17, 31, 32, 33, 63, 64):
             B, L = 37, 200
@@ -1094,10 +1140,25 @@ def main() -> None:
             valid_h[B // 2] = False
             tags_h[~valid_h] = -2
             t_d, v_d = torch.from_numpy(tags_h).to(dev), torch.from_numpy(valid_h).to(dev)
-            if not torch.equal(rrip_scan_rows(t_d, v_d, w, policy), RRIP_PLAIN[policy](t_d, v_d, w)):
+            want = RRIP_PLAIN[policy](t_d, v_d, w)
+            if not torch.equal(rrip_scan_rows(t_d, v_d, w, policy), want):
                 fail(f"rrip_scan[{policy}] differs from its plain version on edge rows, {w} ways")
-    print("[3] rrip_scan: bitwise equal to plain on edge rows (37 x 200, ragged lengths, an "
-          "all-padding row, valid tags of -1) at ways 1 to 64", flush=True)
+            # The chunked route on the same rows: chunks of 32, warm-ups of
+            # 16 and 0 (no warm-up: the fix-up re-runs chunks).
+            for warmup in (16, 0):
+                count = torch.zeros(1, dtype=torch.int32, device=dev)
+                got = rrip_scan_rows(t_d, v_d, w, policy, reruns=count, chunk=32, warmup=warmup,
+                                     long_row=64)
+                _, rc = rrip_scan_chunked_plain(t_d, v_d, w, policy, chunk=32, warmup=warmup)
+                if not torch.equal(got, want) or int(count) != rc or (
+                        warmup == 0 and w > 1 and rc == 0):
+                    fail(f"rrip_scan[{policy}] chunked route differs on edge rows, {w} ways, "
+                         f"warm-up {warmup}: re-runs {int(count)}, plain {rc}")
+                edge_reruns[(policy, warmup)] = edge_reruns.get((policy, warmup), 0) + rc
+    print(f"[3] rrip_scan: bitwise equal to plain on edge rows (37 x 200, ragged lengths, an "
+          f"all-padding row, valid tags of -1) at ways 1 to 64, short route and chunked (chunks "
+          f"of 32; re-runs, summed over the ways: "
+          f"{ {f'{p} K={k}': n for (p, k), n in edge_reruns.items()} })", flush=True)
 
     # K3, K4, K5 on the inputs the DLRM path gives them: the full-width
     # DLRM-RMC2 table (filled on the card, freed at the end of this phase and
@@ -1296,7 +1357,7 @@ def main() -> None:
             fail(f"{policy}/{backend}: {counts['dram_scan']} DRAM scan launches, expected 1")
         if PAIR_KERNEL.get((policy, backend)) == "rrip_scan" and counts["rrip_scan"] != RRIP_LAUNCHES:
             fail(f"{policy}/{backend}: {counts['rrip_scan']} row-scan launches, expected "
-                 f"{RRIP_LAUNCHES} (one per bucket)")
+                 f"{RRIP_LAUNCHES} (one per classification)")
         if policy in REF_TOTAL and res.total_cycles != REF_TOTAL[policy]:
             fail(f"{policy}/{backend}: total_cycles {res.total_cycles!r}, the reference's "
                  f"{REF_TOTAL[policy]!r}")

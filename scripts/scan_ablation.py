@@ -14,7 +14,8 @@ on the (32, 16384) chunk rows of the SPM miss stream, K1
 (967, 512) and (57, 1024), 16 sets x 16 ways, K1 for each policy, and D2
 (``src/repro_torch/csrc/rrip_scan.cu``) on the buckets of the on-chip
 cache's lane stream under srrip and fifo (16 ways) and of a FIFO TLB
-(64 entries of 4 ways, an L2 of 1,024 entries of 8 ways) behind spm. Each
+(64 entries of 4 ways, an L2 of 1,024 entries of 8 ways) behind spm, as
+``core/memory/rrip.py`` ``row_plan`` lays them out. Each
 variant is built from the kernel's source, its ``csrc/`` headers inlined
 (``_build.source_text``), by text substitution, checked bitwise against
 the kernel as it is, and timed as ``chip_smoke.py`` times the kernels: the
@@ -52,22 +53,37 @@ K1 only:
                  reductions cost).
 K2 only:
   no-sum         the team sum of matching ranks left out (wrong output).
-D2 variants:
-  walk-padding   every group of 16 steps walked, also those past the block's
-                 longest row;
-  keyed-min      SRRIP's key held as (key << 6) | way, so one min tree gives
-                 the minimum and its first way (no find-first-set);
-  int-chain      FIFO's step in integer operations only: equality as the
-                 unsigned minimum of tag XORs, the head a one-hot mask, each
-                 update a masked XOR (no predicates on the chain);
+D2 variants (of the walk both routes run, and of the fix-up):
+  walk-padding   every group of 16 steps walked, also those in which no
+                 row of the block has a valid step;
   branch-a-step  FIFO's state update under `if (miss)`, not as selects;
   one-stage      one stage of tiles;
-  tile-64        tiles of 64 steps, not 256;
+  tile-256       tiles of 256 steps, not 64;
   masked-only    every ways count run by the instance that masks the ways
                  past it, also where the ways fill the instance (no
                  instance without the mask);
-  no-walk        no step walked: staging the rows and writing the outputs
-                 back (wrong output: what the rest costs).
+  rerun-lockstep the fix-up's re-run of a chunk walked by every lane alike,
+                 each loading every step's tag from global memory, lane 0
+                 writing the hits a byte at a time (not a step a lane
+                 staged in shared memory, hits stored coalesced);
+  no-walk        no step walked: staging the rows, writing the outputs
+                 back and, on the chunked route, storing the states and
+                 comparing them in the fix-up (every comparison ignored;
+                 wrong output: what the rest costs).
+Then D2's own parameters, as ``RowTable``'s chunk, warmup and long_row
+(``kernels/rrip_scan.py``): the FIFO TLB's L1 and L2 for chunk C in {64,
+128, 256, 512, 1024} x warm-up K in {0, 8, 16, 32, 64}, with the chunks
+the fix-up ran again, and LONG_ROW T in {1024, 2048, 4096} (the L2's
+rows, up to 3,690 steps, take the chunked route below 4096) and past
+the longest row (a lane per row); on two FIFO TLB geometries whose sets
+hit more often (4 sets and 1 set of 16 ways, on the same page stream;
+every variant above runs on them too), K in {0, 16, 32, 64, 256}, the
+module's warm-up for 16 ways and a lane per row. Where chunks re-run, the
+rerun-lockstep variant is timed beside the kernel. And the
+short route's one launch per call against one launch per bucket of rows
+of one power-of-two length (the buckets of a launch per bucket) and
+against every row on the chunked route, the launches alone and the whole
+call with its copies (``core/memory/rrip.py`` ``scan_rows``, host clock).
 
 Builds into ``build/ablation/``. Last, the card's name and power limit.
 Imports nothing of JAX.
@@ -77,9 +93,11 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -94,7 +112,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_scan as k1  # noqa: E402
 from repro_torch.kernels import dram_scan as d1  # noqa: E402
 from repro_torch.kernels import rrip_scan as d2  # noqa: E402
-from repro_torch.core.memory.rrip import row_buckets  # noqa: E402
+from repro_torch.core.memory.rrip import row_plan, scan_rows  # noqa: E402
 from repro_torch.core.memory.tlb import classify_tlb, tlb_pages  # noqa: E402
 from repro_torch.kernels import stack_distance as k2  # noqa: E402
 
@@ -189,87 +207,8 @@ WALK = {
          "        tag_next = s_tag[p_next];\n      }\n",
          "      const int p = act ? list[i] : 0, tag = s_tag[p];\n")],
 }
-KEYED_MIN = """template <int W, bool FULL>
-struct SrripRow {
-  int t[W], kj[W];
-  int A, nf, ways;
-  __device__ __forceinline__ void init(int ways_) {
-    ways = ways_;
-    A = 0;
-    nf = 0;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      t[j] = -1;
-      kj[j] = (FULL || j < ways) ? j : INT_MAX;  // a way past `ways` is never the minimum
-    }
-  }
-  __device__ __forceinline__ bool step(int tag, bool v) {
-    bool e[W], any[W];
-    int km[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      e[j] = (FULL || j < ways) && t[j] == tag;
-      any[j] = e[j];
-      km[j] = kj[j];
-    }
-    const bool hit = tree(any, Or());
-    const int mk = tree(km, Min());
-    const int m = mk >> 6;  // an arithmetic shift: keys may be negative
-    const bool warm = nf >= ways;
-    const int vic = warm ? (mk & 63) : nf;
-    const int fill = warm ? m + 1 : A - 2;
-    const bool hitb = v && hit, missb = v && !hit;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const bool put = missb && vic == j;
-      t[j] = put ? tag : t[j];
-      kj[j] = (hitb && e[j]) ? A * 64 + j : (put ? fill * 64 + j : kj[j]);
-    }
-    A = (missb && warm) ? m + 3 : A;
-    nf = (missb && !warm) ? nf + 1 : nf;
-    return hitb;
-  }
-};
-"""
-INT_CHAIN = """struct UMin {
-  __device__ __forceinline__ unsigned operator()(unsigned x, unsigned y) const { return x < y ? x : y; }
-};
-template <int W, bool FULL>
-struct FifoRow {
-  using Mask = typename std::conditional<(W > 32), unsigned long long, unsigned>::type;
-  int t[W];
-  Mask head, low;
-  int ways;
-  __device__ __forceinline__ void init(int ways_) {
-    ways = ways_;
-    head = 1;
-    low = ways >= (int)(8 * sizeof(Mask)) ? ~(Mask)0 : (((Mask)1 << ways) - 1);
-#pragma unroll
-    for (int j = 0; j < W; ++j) t[j] = -1;
-  }
-  __device__ __forceinline__ bool step(int tag, bool v) {
-    unsigned z[W], zm[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      z[j] = (unsigned)(t[j] ^ tag);
-      zm[j] = (FULL || j < ways) ? z[j] : 0xffffffffu;
-    }
-    const unsigned mz = tree(zm, UMin());
-    const int mm = ((int)(mz | (0u - mz)) >> 31) & -(int)v;
-#pragma unroll
-    for (int j = 0; j < W; ++j) t[j] ^= (int)z[j] & mm & -(int)((head >> j) & 1u);
-    const Mask rot = ((head << 1) | (head >> (ways - 1))) & low;
-    head ^= (head ^ rot) & (Mask)(long long)mm;
-    return v && mz == 0u;
-  }
-};
-"""
 VARIANTS["rrip_scan"] = {
-    "walk-padding": [("__any_sync(0xffffffffu, live)", "(live || true)")],
-    "keyed-min": [("template <int W, bool FULL>\nstruct SrripRow {",
-                   KEYED_MIN + "template <int W, bool FULL>\nstruct SrripRowTwoTrees {")],
-    "int-chain": [("template <int W, bool FULL>\nstruct FifoRow {",
-                   INT_CHAIN + "template <int W, bool FULL>\nstruct FifoRowPredicates {")],
+    "walk-padding": [("__any_sync(kFull, live)", "(live || true)")],
     "branch-a-step": [
         ("    for (int j = 0; j < W; ++j) t[j] = (miss && head == j) ? tag : t[j];\n"
          "    const int nxt = head + 1;\n"
@@ -277,12 +216,62 @@ VARIANTS["rrip_scan"] = {
          "    if (miss) {\n      for (int j = 0; j < W; ++j) {\n        if (head == j) t[j] = tag;\n"
          "      }\n      head = head + 1 == ways ? 0 : head + 1;\n    }\n")],
     "one-stage": [("constexpr int kStages = 2;", "constexpr int kStages = 1;")],
-    "tile-64": [("constexpr int kMaxTile = 256;", "constexpr int kMaxTile = 64;")],
+    "tile-256": [("constexpr int kMaxTile = 64;", "constexpr int kMaxTile = 256;")],
     "masked-only": [("    return a.ways == W ? run<W, true, SRRIP>(a, stream, occ)\n"
                      "                       : run<W, false, SRRIP>(a, stream, occ);",
                      "    return run<W, false, SRRIP>(a, stream, occ);")],
+    "rerun-lockstep": [(
+        '  int tag = s + lane < e ? a.tags[off + s + lane] : 0;\n'
+        '  uint8_t v = s + lane < e ? a.valid[off + s + lane] : 0;\n'
+        '  for (int q = s; q < e; q += 32) {\n'
+        '    st_tag[lane] = tag;\n'
+        "    st_v[lane] = v;  // 0 past the chunk's end: a step that changes nothing\n"
+        '    __syncwarp();\n'
+        '    const int pn = q + 32 + lane;\n'
+        '    tag = pn < e ? a.tags[off + pn] : 0;\n'
+        '    v = pn < e ? a.valid[off + pn] : 0;\n'
+        '    unsigned hm = 0u;\n'
+        '#pragma unroll\n'
+        '    for (int g = 0; g < 32; g += kGroup) {\n'
+        '      int t[kGroup];\n'
+        '#pragma unroll\n'
+        '      for (int j = 0; j < kGroup; j += 4) {\n'
+        '        const int4 x = *(const int4*)(st_tag + g + j);\n'
+        '        t[j] = x.x;\n'
+        '        t[j + 1] = x.y;\n'
+        '        t[j + 2] = x.z;\n'
+        '        t[j + 3] = x.w;\n'
+        '      }\n'
+        '      const uint4 vq = *(const uint4*)(st_v + g);\n'
+        '      const unsigned vw[4] = {vq.x, vq.y, vq.z, vq.w};\n'
+        '#pragma unroll\n'
+        '      for (int j = 0; j < kGroup; ++j) {\n'
+        '        const bool vj = ((vw[j / 4] >> (8 * (j % 4))) & 0xffu) != 0u;\n'
+        '        hm |= (unsigned)row.step(t[j], vj) << (g + j);\n'
+        '      }\n'
+        '    }\n'
+        '    if (q + lane < e) a.hits[off + q + lane] = (uint8_t)((hm >> lane) & 1u);\n'
+        '    __syncwarp();  // the piece is read by every lane before the next overwrites it\n'
+        '  }\n',
+        '  for (int p = s; p < e; p += kGroup) {\n'
+        '    int tag[kGroup];\n'
+        '    bool v[kGroup];\n'
+        '#pragma unroll\n'
+        '    for (int j = 0; j < kGroup; ++j) {\n'
+        '      const bool in = p + j < e;\n'
+        '      tag[j] = in ? a.tags[off + p + j] : 0;\n'
+        '      v[j] = in && a.valid[off + p + j] != 0;\n'
+        '    }\n'
+        '#pragma unroll\n'
+        '    for (int j = 0; j < kGroup; ++j) {\n'
+        '      const bool hit = row.step(tag[j], v[j]);\n'
+        '      if (lane == 0 && p + j < e) a.hits[off + p + j] = hit;\n'
+        '    }\n'
+        '  }\n')],
     "no-walk": [("hw[j / 4] |= (unsigned)row.step(tag[j], v) << (8 * (j % 4));",
-                 "hw[j / 4] |= (unsigned)(v && tag[j] == 0) << (8 * (j % 4));")],
+                 "hw[j / 4] |= (unsigned)(v && tag[j] == 0) << (8 * (j % 4));"),
+                ("!Row::same(end + (c - 1) * S, start + c * S, a.ways);",
+                 "!Row::same(end + (c - 1) * S, start + c * S, a.ways) && a.ways < 0;")],
 }
 VARIANTS["cache_scan"] = dict(WALK, **{
     "no-min": [("  if (ln.team_log2 == 5) return __reduce_min_sync(kFull, key);",
@@ -344,6 +333,190 @@ def launcher(module, lib: Path | None):
     ref = module._launcher()
     fn.argtypes, fn.restype = ref.argtypes, ref.restype
     return fn
+
+
+def rrip_plans(etrace, hw, lane):
+    """D2's calls: ``{label: (policy, [(tags, valid, table)])}`` for the
+    on-chip cache under srrip and fifo and the FIFO TLB (L1, L2)."""
+    hw_tr = hw.with_policy("spm").with_translation(
+        entries=64, ways=4, l2_entries=1024, replacement="fifo")
+    tr = hw_tr.translation
+    cs = MemorySystem.from_hardware(hw_tr, "cuda").classify_embedding(etrace)
+    pages = tlb_pages(cs.miss_lines, hw.onchip.line_bytes, tr.page_bytes)
+    l1 = classify_tlb(pages, tr.num_sets, tr.ways, "fifo", device="cuda")
+    calls = {"srrip on-chip": ("srrip", [(etrace.vec_ids, lane.num_sets, lane.ways)]),
+             "fifo on-chip": ("fifo", [(etrace.vec_ids, lane.num_sets, lane.ways)]),
+             "fifo TLB L1": ("fifo", [(pages, tr.num_sets, tr.ways)]),
+             "fifo TLB L2": ("fifo", [(pages[~l1], tr.l2_num_sets, tr.l2_ways)]),
+             # Geometries whose sets hit more often, where a short warm-up
+             # rebuilds fewer start states: 64 entries of 16 ways, and one
+             # set of 16 (the whole stream one row).
+             "fifo TLB 4x16 L1": ("fifo", [(pages, 4, 16)]),
+             "fifo TLB 1x16 L1": ("fifo", [(pages, 1, 16)])}
+    out = {}
+    for label, (policy, streams) in calls.items():
+        plan = []
+        for lines, S, W in streams:
+            tags, valid, groups = row_plan(lines, S, W, policy)
+            (base, table), = groups
+            plan.append((tags, valid, table))
+        out[label] = (policy, plan)
+    return out
+
+
+def rrip_launch(fn, t, v, table, policy, out, stream, scratch):
+    """One call of D2 through the C launcher ``fn`` (the package's or a
+    variant's), as ``rrip_scan_flat`` makes it on the card."""
+    states, count = scratch
+    err = fn(t.data_ptr(), v.data_ptr(), out.data_ptr(), table.on(t.device).data_ptr(),
+             table.rows, table.virtual_rows, table.max_steps, table.ways, d2.POLICY_IDS[policy],
+             table.chunk if table.chunked else 0, table.warmup,
+             states.data_ptr() if table.chunked else 0, count.data_ptr() if table.chunked else 0,
+             stream)
+    if err:
+        raise SystemExit(f"rrip_scan launch failed with CUDA error {err}")
+
+
+def rrip_ablation(etrace, hw, lane, dev, stream, flush, libs) -> None:
+    plans = rrip_plans(etrace, hw, lane)
+    inputs = {}
+    for label, (policy, plan) in plans.items():
+        calls = []
+        for tags, valid, table in plan:
+            t, v = torch.from_numpy(tags).to(dev), torch.from_numpy(valid).to(dev)
+            ref = d2.rrip_scan_flat(t, v, table, policy)
+            scratch = (torch.empty(2 * max(table.virtual_rows, 1)
+                                   * d2.state_ints(table.ways, policy), dtype=torch.int32,
+                                   device=dev), torch.zeros(1, dtype=torch.int32, device=dev))
+            calls.append((t, v, table, ref, scratch))
+        inputs[label] = (policy, calls)
+        print(f"D2 {label}: {[(tb.rows, tb.max_len, tb.virtual_rows, tb.blocks, tb.chunked) for _, _, tb, _, _ in calls]} "
+              f"(rows, longest, virtual rows, blocks, chunked)", flush=True)
+    for label, (policy, calls) in inputs.items():
+        for name in ["as is", *VARIANTS["rrip_scan"], "as is"]:
+            fn = launcher(d2, libs.get(("rrip_scan", name)))
+            total, total_cold, same, reruns = 0.0, 0.0, True, []
+            for t, v, table, ref, scratch in calls:
+                hits = torch.empty_like(ref)
+
+                def run(t=t, v=v, table=table, hits=hits, scratch=scratch):
+                    rrip_launch(fn, t, v, table, policy, hits, stream, scratch)
+                run()
+                torch.cuda.synchronize()
+                same &= torch.equal(hits, ref)
+                reruns.append(int(scratch[1]) if table.chunked else 0)
+                total += time_ms(run, 20)
+                total_cold += time_cold_ms(run, 20, flush)
+            print(f"D2 {label} {name}: {total!r} ms ({total_cold!r} L2 flushed), re-runs "
+                  f"{reruns}, equal to the kernel as it is: {same}", flush=True)
+
+    # The chunked route's parameters on the TLB's two levels; on the
+    # geometries that hit more, the warm-up; on all, a lane per row (T past
+    # the longest row: one lane walks a whole row). K None: the module's
+    # warm-up for the ways. Where chunks re-run, the rerun-lockstep variant
+    # too.
+    fn = launcher(d2, None)
+    lockstep = libs.get(("rrip_scan", "rerun-lockstep"))
+    sweep = [(c, k, 2048) for c in (64, 128, 256, 512, 1024) for k in (0, 8, 16, 32, 64)]
+    sweep += [(d2.CHUNK, None, T) for T in (1024, 2048, 4096, 1 << 30)]
+    hot = [(d2.CHUNK, k, d2.LONG_ROW) for k in (0, 16, 32, 64, 256, None)]
+    hot += [(d2.CHUNK, None, 1 << 30)]
+    for label, params in (("fifo TLB L1", sweep), ("fifo TLB L2", sweep),
+                          ("fifo TLB 4x16 L1", hot), ("fifo TLB 1x16 L1", hot)):
+        policy, calls = inputs[label]
+        t, v, table0, ref, _ = calls[0]
+        for chunk, warmup, long_row in params:
+            table = d2.RowTable(table0.off, table0.length, table0.ways, chunk=chunk,
+                                warmup=warmup, long_row=long_row)
+            scratch = (torch.empty(2 * table.virtual_rows * d2.state_ints(table.ways, policy),
+                                   dtype=torch.int32, device=dev),
+                       torch.zeros(1, dtype=torch.int32, device=dev))
+            hits = torch.empty_like(ref)
+
+            def run(table=table, hits=hits, scratch=scratch):
+                rrip_launch(fn, t, v, table, policy, hits, stream, scratch)
+            run()
+            torch.cuda.synchronize()
+            ms = time_ms(run, 20)
+            redo = int(scratch[1]) if table.chunked else 0
+            old = ""
+            if redo and lockstep is not None:
+                fn_old = launcher(d2, lockstep)
+
+                def run_old(table=table, hits=hits, scratch=scratch):
+                    rrip_launch(fn_old, t, v, table, policy, hits, stream, scratch)
+                old = f", rerun-lockstep {time_ms(run_old, 20)!r} ms"
+            print(f"D2 {label} C={chunk} K={table.warmup} T={long_row}: {ms!r} ms, chunked "
+                  f"{table.chunked}, virtual rows {table.virtual_rows}, blocks {table.blocks}, "
+                  f"re-runs {redo}, equal: {torch.equal(hits, ref)}{old}", flush=True)
+
+    # The short route: one launch per call against one per power-of-two
+    # length bucket and against the chunked route (what a call whose longest
+    # row is long makes of its short rows); launches alone, then the whole
+    # call with its copies.
+    for label in ("srrip on-chip", "fifo on-chip"):
+        policy, plan = plans[label]
+        tags, valid, table = plan[0]
+        t, v, _, ref, scratch = inputs[label][1][0]
+        lb = np.array([1 << (int(n) - 1).bit_length() for n in table.length])
+        cuts = np.flatnonzero(np.concatenate(([True], lb[1:] != lb[:-1], [True])))
+        buckets = []
+        for i0, i1 in zip(cuts[:-1], cuts[1:]):
+            base = int(table.off[i0])
+            sub = d2.RowTable(table.off[i0:i1] - base, table.length[i0:i1], table.ways)
+            buckets.append((slice(base, base + sub.total), sub))
+        hits = torch.empty_like(ref)
+
+        def one():
+            rrip_launch(fn, t, v, table, policy, hits, stream, scratch)
+
+        def per_bucket():
+            for sl, sub in buckets:
+                rrip_launch(fn, t[sl], v[sl], sub, policy, hits[sl], stream, scratch)
+        per_bucket()
+        torch.cuda.synchronize()
+        same = torch.equal(hits, ref)
+        chunked = d2.RowTable(table.off, table.length, table.ways, long_row=1)
+        c_hits = torch.empty_like(ref)
+        c_scratch = (torch.empty(2 * chunked.virtual_rows * d2.state_ints(table.ways, policy),
+                                 dtype=torch.int32, device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev))
+
+        def as_chunked():
+            rrip_launch(fn, t, v, chunked, policy, c_hits, stream, c_scratch)
+        as_chunked()
+        torch.cuda.synchronize()
+        c_same = torch.equal(c_hits, ref)
+        groups = [(0, table)]
+
+        def call_one():
+            scan_rows(tags, valid, groups, policy, dev)
+
+        def call_per_bucket():
+            out = np.empty(tags.size, bool)
+            for sl, sub in buckets:
+                td = torch.from_numpy(tags[sl]).to(dev)
+                vd = torch.from_numpy(valid[sl]).to(dev)
+                hd = torch.empty(sub.total, dtype=torch.bool, device=dev)
+                rrip_launch(fn, td, vd, sub, policy, hd, stream, scratch)
+                out[sl] = hd.cpu().numpy()
+        walls = {}
+        for name, f in (("one", call_one), ("per-bucket", call_per_bucket),
+                        ("per-bucket", call_per_bucket), ("one", call_one)):
+            f()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                f()
+            torch.cuda.synchronize()
+            walls.setdefault(name, []).append((time.perf_counter() - t0) / 20 * 1e3)
+        print(f"D2 {label} short route: one launch {time_ms(one, 20)!r} ms against "
+              f"{len(buckets)} per-bucket launches {time_ms(per_bucket, 20)!r} ms (equal: {same}; "
+              f"buckets {[sub.rows for _, sub in buckets]} rows), every row chunked "
+              f"{time_ms(as_chunked, 20)!r} ms ({chunked.virtual_rows} virtual rows, re-runs "
+              f"{int(c_scratch[1])}, equal: {c_same}); the whole call with its copies "
+              f"(host clock) one {walls['one']!r} ms, per bucket {walls['per-bucket']!r} ms",
+              flush=True)
 
 
 def main() -> None:
@@ -452,44 +625,7 @@ def main() -> None:
             print(f"K2 {name}: {total!r} ms per classification ({total_cold!r} L2 flushed; per "
                   f"bucket {', '.join(per_bucket)}), equal to the kernel as it is: {same}", flush=True)
     if "rrip_scan" in wanted:
-        # D2 on the buckets simulate and a FIFO TLB give it.
-        hw_tr = hw.with_policy("spm").with_translation(
-            entries=64, ways=4, l2_entries=1024, replacement="fifo")
-        tr = hw_tr.translation
-        cs = MemorySystem.from_hardware(hw_tr, "cuda").classify_embedding(etrace)
-        pages = tlb_pages(cs.miss_lines, hw.onchip.line_bytes, tr.page_bytes)
-        l1 = classify_tlb(pages, tr.num_sets, tr.ways, "fifo", device="cuda")
-        sets = {
-            "srrip on-chip": ("srrip", row_buckets(etrace.vec_ids, lane.num_sets, lane.ways, "srrip")),
-            "fifo on-chip": ("fifo", row_buckets(etrace.vec_ids, lane.num_sets, lane.ways, "fifo")),
-            "fifo TLB": ("fifo", row_buckets(pages, tr.num_sets, tr.ways, "fifo")
-                         + row_buckets(pages[~l1], tr.l2_num_sets, tr.l2_ways, "fifo")),
-        }
-        for label, (policy, bk) in sets.items():
-            pid = d2.POLICY_IDS[policy]
-            rows = [(torch.from_numpy(t).to(dev), torch.from_numpy(v).to(dev), w)
-                    for _, _, t, v, w in bk]
-            refs = [d2.rrip_scan_rows(t, v, w, policy) for t, v, w in rows]
-            for name in ["as is", *VARIANTS["rrip_scan"], "as is"]:
-                fn = launcher(d2, libs.get(("rrip_scan", name)))
-                total, total_cold, same, per_bucket = 0.0, 0.0, True, []
-                for (t, v, w), ref in zip(rows, refs):
-                    hits = torch.empty_like(ref)
-
-                    def run(t=t, v=v, w=w, hits=hits):
-                        err = fn(t.data_ptr(), v.data_ptr(), hits.data_ptr(), t.shape[0],
-                                 t.shape[1], w, pid, stream)
-                        if err:
-                            raise SystemExit(f"rrip_scan launch failed with CUDA error {err}")
-                    run()
-                    torch.cuda.synchronize()
-                    same &= torch.equal(hits, ref)
-                    ms = time_ms(run, 20)
-                    per_bucket.append(f"{tuple(t.shape)} {ms!r}")
-                    total += ms
-                    total_cold += time_cold_ms(run, 20, flush)
-                print(f"D2 {label} {name}: {total!r} ms ({total_cold!r} L2 flushed; per bucket "
-                      f"{', '.join(per_bucket)}), equal to the kernel as it is: {same}", flush=True)
+        rrip_ablation(etrace, hw, lane, dev, stream, flush, libs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 

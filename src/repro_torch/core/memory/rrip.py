@@ -19,11 +19,13 @@ every set of every config in the call:
   exposes the counter so tests can assert sharing. The presort stays numpy
   on the host: its sort order is what makes the result bitwise.
 * **vectorized flat packing**: per-set rows from *all* configs of the call
-  are bucketed by (ways, pow2 row length) and scattered into one flat
-  buffer with a single vectorized pass per config — no per-row host loop.
-  Each bucket is ONE launch of the row scan D2 (``kernels/rrip_scan.py``:
-  the CUDA kernel on the card, its plain torch version on the CPU); rows
-  from different configs share launches.
+  are grouped by ways and scattered into one flat buffer (each row padded
+  to a multiple of 16 steps) with a single vectorized pass per config — no
+  per-row host loop. The buffer goes to the device once, each ways group is
+  ONE call of the row scan D2 (``kernels/rrip_scan.py``: the CUDA kernels
+  on the card, their plain torch versions on the CPU; one launch for short
+  rows, two where a row is long enough for the chunked route), and the
+  hits come back in one copy; rows from different configs share launches.
 * **compressed per-set state**:
   - FIFO: a ring buffer of ``ways`` tags plus a head pointer. Fills land
     at the head in arrival order, so the head is always the oldest fill —
@@ -50,7 +52,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
-from ...kernels.rrip_scan import POLICY_IDS, rrip_scan_rows
+from ...kernels.rrip_scan import POLICY_IDS, RowTable, rrip_scan_flat
 from ..profiling import is_active as _profiling_active, stage
 
 __all__ = [
@@ -60,12 +62,9 @@ __all__ = [
     "classify_srrip_many",
 ]
 
-_MIN_ROW_BUCKET = 8   # pow-2 floor for compressed per-set row length
-_MIN_ROWS = 8         # pow-2 floor for rows per launch
+_GROUP = 16           # rows are padded to a multiple of the kernel's step group
 _PAD_TAG = -2         # never matches a real tag (>=0) nor invalid (-1)
 _DEPTH = {"fifo": 1, "srrip": 2}   # run prefix a policy must keep
-
-_POW2 = 1 << np.arange(31, dtype=np.int64)
 
 _passes = 0
 
@@ -80,15 +79,6 @@ def _check_int32(lines: np.ndarray) -> np.ndarray:
     if lines.size and (lines.max() >= 2**31 or lines.min() < 0):
         raise ValueError("line numbers exceed int32 range; rebase the trace")
     return lines
-
-
-def _pow2_at_least(n: int, floor: int) -> int:
-    return max(floor, 1 << (max(1, int(n)) - 1).bit_length())
-
-
-def _pow2_bucket(lens: np.ndarray, floor: int) -> np.ndarray:
-    """Vectorized pow-2 round-up with a floor (exact, no float log)."""
-    return _POW2[np.searchsorted(_POW2, np.maximum(lens, floor))]
 
 
 class _Presort:
@@ -128,33 +118,34 @@ class _Presort:
         self.seg_len = np.bincount(self.sg)
 
 
-def bucket_rows(presorts: Sequence[_Presort], ways: Sequence[int]):
-    """The global row table of several (presort, ways) configs, bucketed.
+def pack_rows(presorts: Sequence[_Presort], ways: Sequence[int]):
+    """The flat buffer of several (presort, ways) configs and its launches.
 
-    Every per-set segment of every config is one row; rows group by (ways,
-    pow-2 row length) and each group is one ``(B, Lb)`` launch, its row
-    count padded to a power of two (floor ``_MIN_ROWS``) with invalid rows.
-    Returns ``(buckets, elem_pos, total)``: per bucket ``(e0, B, tags,
-    valid, ways)`` with the bucket's host arrays (int32 tags, ``_PAD_TAG``
-    in padding; bool valid) and its first flat slot ``e0``; per config the
-    flat slot of each kept access; the flat buffer's length.
+    Every per-set segment of every config is one row, padded with invalid
+    steps to a multiple of 16 (the kernel's group of steps); rows are
+    grouped by ways, longest first within a group (a block of the kernel
+    walks neighbouring rows), and laid out in that order. Returns
+    ``(tags, valid, groups, elem_pos)``: the flat host arrays (int32 tags,
+    ``_PAD_TAG`` in padding; bool valid), one ``(base, RowTable)`` per
+    distinct ways (its rows are steps ``[base, base + table.total)``, one
+    launch of D2, two on its chunked route), and per config the flat slot
+    of each kept access.
     """
     seg_counts = [p.seg_len.size for p in presorts]
     row_base = np.cumsum([0] + seg_counts)
     n_rows = int(row_base[-1])
     if not n_rows:
-        return [], [np.zeros(0, np.int64) for _ in presorts], 0
+        return (np.zeros(0, np.int32), np.zeros(0, bool), [],
+                [np.zeros(0, np.int64) for _ in presorts])
     row_len = np.concatenate([p.seg_len for p in presorts])
     row_ways = np.repeat(np.asarray(ways, np.int64), seg_counts)
-    row_lb = _pow2_bucket(row_len, _MIN_ROW_BUCKET)
-    # bucket = (ways, Lb); group rows contiguously per bucket
-    kb = row_ways * (np.int64(1) << 40) + row_lb
-    order_rows = np.argsort(kb, kind="stable")
-    lb_sorted = row_lb[order_rows]
-    off_sorted = np.cumsum(lb_sorted) - lb_sorted
-    total = int(off_sorted[-1] + lb_sorted[-1])
+    row_pad = (row_len + _GROUP - 1) // _GROUP * _GROUP
+    order = np.lexsort((-row_len, row_ways))
+    pad_sorted = row_pad[order]
+    off_sorted = np.cumsum(pad_sorted) - pad_sorted
+    total = int(off_sorted[-1] + pad_sorted[-1])
     off_row = np.empty(n_rows, np.int64)
-    off_row[order_rows] = off_sorted
+    off_row[order] = off_sorted
     tags_flat = np.full(total, _PAD_TAG, np.int32)
     valid_flat = np.zeros(total, bool)
     elem_pos: List[np.ndarray] = []
@@ -163,30 +154,45 @@ def bucket_rows(presorts: Sequence[_Presort], ways: Sequence[int]):
         tags_flat[pos] = p.kept_tag
         valid_flat[pos] = True
         elem_pos.append(pos)
-    kb_sorted = kb[order_rows]
-    bnd = np.flatnonzero(np.concatenate(([True], kb_sorted[1:] != kb_sorted[:-1])))
+    ways_sorted = row_ways[order]
+    bnd = np.flatnonzero(np.concatenate(([True], ways_sorted[1:] != ways_sorted[:-1])))
     bnd = np.append(bnd, n_rows)
-    buckets = []
+    groups = []
     for i0, i1 in zip(bnd[:-1], bnd[1:]):
-        B = int(i1 - i0)
-        Lb = int(lb_sorted[i0])
-        e0 = int(off_sorted[i0])
-        e1 = e0 + B * Lb
-        Bp = _pow2_at_least(B, _MIN_ROWS)
-        tags_m = np.full((Bp, Lb), _PAD_TAG, np.int32)
-        valid_m = np.zeros((Bp, Lb), bool)
-        tags_m[:B] = tags_flat[e0:e1].reshape(B, Lb)
-        valid_m[:B] = valid_flat[e0:e1].reshape(B, Lb)
-        buckets.append((e0, B, tags_m, valid_m, int(row_ways[order_rows[i0]])))
-    return buckets, elem_pos, total
+        base = int(off_sorted[i0])
+        groups.append((base, RowTable(off_sorted[i0:i1] - base, pad_sorted[i0:i1],
+                                      int(ways_sorted[i0]))))
+    return tags_flat, valid_flat, groups, elem_pos
 
 
-def row_buckets(lines: np.ndarray, num_sets: int, ways: int, policy: str):
-    """The launches classifying ``lines`` under ``(num_sets, ways)`` gives
-    the row scan: ``bucket_rows``'s buckets for that one config."""
+def row_plan(lines: np.ndarray, num_sets: int, ways: int, policy: str):
+    """What classifying ``lines`` under ``(num_sets, ways)`` gives D2:
+    ``pack_rows``'s ``(tags, valid, groups)`` for that one config (one
+    group)."""
     presort = _Presort(_check_int32(np.asarray(lines).reshape(-1)), int(num_sets),
                        _DEPTH[policy])
-    return bucket_rows([presort], [int(ways)])[0]
+    return pack_rows([presort], [int(ways)])[:3]
+
+
+def scan_rows(tags: np.ndarray, valid: np.ndarray, groups, policy: str,
+              device: torch.device) -> np.ndarray:
+    """D2 over ``pack_rows``'s flat buffer: the buffer and each group's row
+    table go to ``device`` once, one call of the row scan per group, and
+    the hits come back in one copy."""
+    if not tags.size:
+        return np.zeros(0, bool)
+    tags_d = torch.from_numpy(tags).to(device)
+    valid_d = torch.from_numpy(valid).to(device)
+    hits_d = torch.empty(tags.size, dtype=torch.bool, device=device)
+    for base, table in groups:
+        sl = slice(base, base + table.total)
+        rrip_scan_flat(tags_d[sl], valid_d[sl], table, policy, out=hits_d[sl])
+    if _profiling_active() and device.type == "cuda":
+        # Attribute async device compute to "cache_scan", not to the
+        # extraction below (profiling sessions only).
+        torch.cuda.synchronize(device)
+    with stage("host_sync"):
+        return hits_d.cpu().numpy()
 
 
 def _stream_id(arr: np.ndarray) -> tuple:
@@ -226,21 +232,9 @@ def _classify_many(
             cfg_out[c].append(i)
 
     with stage("cache_scan"):
-        buckets, elem_pos, total = bucket_rows([presorts[sid] for sid in cfg_sid], cfg_ways)
-        hits_flat = np.zeros(total, bool)
-        for e0, B, tags_m, valid_m, ways in buckets:
-            hits_d = rrip_scan_rows(
-                torch.from_numpy(tags_m).to(device),
-                torch.from_numpy(valid_m).to(device),
-                ways, policy,
-            )
-            if _profiling_active() and device.type == "cuda":
-                # Attribute async device compute to "cache_scan", not to the
-                # extraction below (profiling sessions only).
-                torch.cuda.synchronize(device)
-            with stage("host_sync"):
-                hits_h = hits_d.cpu().numpy()
-            hits_flat[e0:e0 + B * tags_m.shape[1]] = hits_h[:B].reshape(-1)
+        tags, valid, groups, elem_pos = pack_rows(
+            [presorts[sid] for sid in cfg_sid], cfg_ways)
+        hits_flat = scan_rows(tags, valid, groups, policy, device)
         # per-config gather + eviction counts
         for c, sid in enumerate(cfg_sid):
             p = presorts[sid]

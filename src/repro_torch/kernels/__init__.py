@@ -5,7 +5,7 @@
 | K1 cache scan | ``cache_scan.cache_scan_groups`` | ``kernels/cache_scan.py:_cache_scan_kernel`` |
 | K2 stack distance | ``stack_distance.stack_distance_groups`` | ``kernels/stack_distance.py:_stack_distance_kernel`` |
 | D1 DRAM event scan | ``dram_scan.dram_scan_chunked`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_chunked`` |
-| D2 FIFO / SRRIP row scans | ``rrip_scan.rrip_scan_rows`` | the ``lax.scan`` s of ``core/memory/rrip.py:_fifo_scan_rows`` and ``_srrip_scan_rows`` |
+| D2 FIFO / SRRIP row scans | ``rrip_scan.rrip_scan_flat`` | the ``lax.scan`` s of ``core/memory/rrip.py:_fifo_scan_rows`` and ``_srrip_scan_rows`` |
 | K3 embedding bag | ``embedding_bag.embedding_bag_kernel`` | ``kernels/embedding_bag.py:_bag_kernel`` |
 | K4 row gather | ``embedding_bag.embedding_gather_kernel`` | ``kernels/embedding_bag.py:_gather_kernel`` |
 | K5 hot-pinned pool | ``embedding_bag.vmem_gather_pool_kernel`` | ``kernels/embedding_bag.py:_vmem_pool_kernel`` |
@@ -18,7 +18,8 @@ only where it launches its CUDA kernel; K6 and K8 also count them by route
 (``flash_attention_kernel.routes``: the bf16 tensor-core kernel, "wgmma",
 and the f32 scalar kernel, "scalar"; ``mamba2_ssd_kernel.routes``: the bf16
 tensor-core kernel, "mma", and the f32 scalar kernel, "scalar"). K8's bf16
-route is two CUDA kernels (a cumsum pre-pass and the scan) under one count.
+route is two CUDA kernels (a cumsum pre-pass and the scan) under one count;
+D2's chunked route counts its two launches (speculate, fix-up).
 """
 from typing import Dict
 
@@ -32,14 +33,14 @@ from .embedding_bag import (
 )
 from .flash_attention import flash_attention_kernel
 from .mamba2_ssd import mamba2_ssd_kernel
-from .rrip_scan import rrip_scan_rows
+from .rrip_scan import rrip_scan_flat
 from .stack_distance import stack_distance_groups
 
 KERNELS = {
     "cache_scan": cache_scan_groups,
     "stack_distance": stack_distance_groups,
     "dram_scan": dram_scan_chunked,
-    "rrip_scan": rrip_scan_rows,
+    "rrip_scan": rrip_scan_flat,
     "embedding_bag": embedding_bag_kernel,
     "embedding_gather": embedding_gather_kernel,
     "vmem_gather_pool": vmem_gather_pool_kernel,

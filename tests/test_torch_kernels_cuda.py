@@ -212,7 +212,8 @@ def _rrip_rows(cuda, B, L, ways, seed, offset=0, max_len=None):
 def test_rrip_scan_kernel_equals_plain(cuda, policy, ways):
     """Two blocks of 32 rows (the second partial), L = 200 (not a multiple
     of 16: copied element by element), every instance of ways held (powers
-    of two, with and without ways past the real count)."""
+    of two, with and without ways past the real count); the short route,
+    one launch."""
     from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_rows
 
     rows = _rrip_rows(cuda, 37, 200, ways, seed=ways)
@@ -224,8 +225,8 @@ def test_rrip_scan_kernel_equals_plain(cuda, policy, ways):
 
 @pytest.mark.parametrize("policy", ["fifo", "srrip"])
 @pytest.mark.parametrize("B,L,ways,offset,max_len", [
-    (16, 4096, 4, 0, None),   # a TLB's long rows: 16 tiles through two stages
-    (8, 8, 16, 0, None),      # the shortest bucket: one group of 16, half past L
+    (16, 4096, 4, 0, None),   # a TLB's long rows: the chunked route
+    (8, 8, 16, 0, None),      # the shortest rows: one group of 16, half past L
     (3, 1000, 8, 1, None),    # off 16 bytes: copied element by element
     (64, 256, 16, 0, None),   # one full tile, two full blocks
     (1, 1, 1, 0, None),
@@ -239,11 +240,49 @@ def test_rrip_scan_kernel_tiles_and_blocks(cuda, policy, B, L, ways, offset, max
     assert torch.equal(rrip_scan_rows(*rows, ways, policy), PLAIN[policy](*rows, ways))
 
 
+def _chunked_check(rows, ways, policy, **route):
+    """The kernel's chunked route against the serial plain version and the
+    chunked plain version (hits and re-run count); returns the count."""
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_chunked_plain, rrip_scan_rows
+
+    count = torch.zeros(1, dtype=torch.int32, device=rows[0].device)
+    reset_launch_counts()
+    got = rrip_scan_rows(*rows, ways, policy, reruns=count, **route)
+    assert launch_counts()["rrip_scan"] == 2
+    assert torch.equal(got, PLAIN[policy](*rows, ways))
+    want, reruns = rrip_scan_chunked_plain(*rows, ways, policy, chunk=route["chunk"],
+                                           warmup=route["warmup"])
+    assert torch.equal(got, want) and int(count) == reruns
+    return reruns
+
+
+@pytest.mark.parametrize("policy", ["fifo", "srrip"])
+@pytest.mark.parametrize("ways", RRIP_WAYS)
+@pytest.mark.parametrize("case", ["warm-up 16", "no warm-up", "warm-up 40", "hot rows",
+                                  "chunks of 80"])
+def test_rrip_scan_chunked_kernel_equals_plain(cuda, policy, ways, case):
+    """The chunked route (speculate + fix-up) at every instance: rows of
+    300 steps in chunks of 32 (a ragged last chunk), 16-step and 40-step
+    warm-ups (off 16: leading steps not walked), and re-runs forced by no
+    warm-up or by rows of 3 tags that mostly hit, off 16 bytes; chunks of
+    80 re-run in pieces of 32, 32 and 16 steps."""
+    offset, space, warmup, chunk = {
+        "warm-up 16": (0, None, 16, 32), "no warm-up": (0, None, 0, 32),
+        "warm-up 40": (0, None, 40, 32), "hot rows": (1, 3, 8, 32),
+        "chunks of 80": (0, None, 0, 80)}[case]
+    rows = _rrip_rows(cuda, 13, 300, ways, seed=7 * ways, offset=offset)
+    if space:
+        rows[0].copy_(torch.where(rows[1], rows[0] % space, rows[0]))
+    reruns = _chunked_check(rows, ways, policy, chunk=chunk, warmup=warmup, long_row=64)
+    if warmup == 0 and ways > 1:
+        assert reruns > 0
+
+
 @pytest.fixture(scope="module")
 def full_size_streams():
     """The full-width DLRM-RMC2 x tpuv6e() streams D2 sees: the lane stream
     of the on-chip cache, and the page streams of a FIFO TLB (entries 64,
-    ways 4) and its L2 (1,024 entries, 8 ways) behind srrip/stack."""
+    ways 4) and its L2 (1,024 entries, 8 ways) behind spm/stack."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from repro_torch.core import dlrm_rmc2_small, tpuv6e
@@ -251,7 +290,7 @@ def full_size_streams():
     from repro_torch.core.memory.system import MemorySystem, lane_geometry
     from repro_torch.core.memory.tlb import classify_tlb, tlb_pages
 
-    hw = tpuv6e().with_policy("srrip").with_translation(
+    hw = tpuv6e().with_policy("spm").with_translation(
         entries=64, ways=4, l2_entries=1024, replacement="fifo")
     etrace = build_embedding_traces(dlrm_rmc2_small(num_batches=2))[0]
     lane = lane_geometry(hw, etrace.spec)
@@ -264,18 +303,36 @@ def full_size_streams():
             "tlb_l2": (pages[~l1], tr.l2_num_sets, tr.l2_ways)}
 
 
-@pytest.mark.parametrize("stream,policy", [("onchip", "srrip"), ("onchip", "fifo"),
-                                           ("tlb_l1", "fifo"), ("tlb_l2", "fifo")])
-def test_rrip_scan_kernel_equals_plain_full_size(cuda, full_size_streams, stream, policy):
-    from repro_torch.core.memory.rrip import row_buckets
-    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_rows
+@pytest.mark.parametrize("stream,policy,launches", [
+    ("onchip", "srrip", 1), ("onchip", "fifo", 1), ("tlb_l1", "fifo", 2), ("tlb_l2", "fifo", 2),
+    ("tlb_l1", "srrip", 2)])
+def test_rrip_scan_kernel_equals_plain_full_size(cuda, full_size_streams, stream, policy,
+                                                 launches):
+    """The one call of D2 that classifying each full-size stream makes (the
+    on-chip buckets in one launch; a TLB level on the chunked route) against
+    the serial plain version and the plain version of its route (hits and
+    re-run count)."""
+    from repro_torch.core.memory.rrip import row_plan
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_flat
 
     lines, num_sets, ways = full_size_streams[stream]
-    buckets = row_buckets(lines, num_sets, ways, policy)
-    assert buckets
-    for _, _, tags, valid, w in buckets:
-        rows = [torch.from_numpy(a).to(cuda) for a in (tags, valid)]
-        assert torch.equal(rrip_scan_rows(*rows, w, policy), PLAIN[policy](*rows, w))
+    tags, valid, groups = row_plan(lines, num_sets, ways, policy)
+    (base, table), = groups
+    assert base == 0 and table.total == tags.size
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    got = rrip_scan_flat(torch.from_numpy(tags).to(cuda), torch.from_numpy(valid).to(cuda),
+                         table, policy, reruns=count).cpu()
+    assert launch_counts()["rrip_scan"] == launches
+    t, v = torch.from_numpy(tags), torch.from_numpy(valid)
+    cpu_count = torch.zeros(1, dtype=torch.int32)
+    assert torch.equal(got, rrip_scan_flat(t, v, table, policy, reruns=cpu_count))
+    assert int(count) == int(cpu_count)
+    at = torch.from_numpy(table.off)[:, None] + torch.arange(table.max_len)[None, :]
+    inr = at < torch.from_numpy(table.off + table.length)[:, None]
+    at = at.clamp(max=table.total - 1)
+    want = PLAIN[policy](t[at].to(cuda), (v[at] & inr).to(cuda), ways).cpu()
+    assert torch.equal(got[at[inr]], want[inr])
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -303,15 +360,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         stack_distance_groups(s, s.cpu(), v, 1, 1)
 
 
-@pytest.mark.parametrize("policy,backend,kernel,translation", [
-    ("lru", "pallas", "cache_scan", None), ("srrip", "pallas", "cache_scan", None),
-    ("fifo", "pallas", "cache_scan", None), ("lru", "stack_pallas", "stack_distance", None),
-    ("lru", "stack", None, None), ("spm", "stack", None, None), ("srrip", "scan", None, None),
-    ("srrip", "stack", "rrip_scan", None), ("fifo", "stack_pallas", "rrip_scan", None),
-    ("lru", "stack", None, "lru"), ("spm", "stack", "rrip_scan", "fifo"),
-    ("srrip", "stack", "rrip_scan", "fifo"),
+@pytest.mark.parametrize("policy,backend,kernel,translation,n_rrip", [
+    ("lru", "pallas", "cache_scan", None, 0), ("srrip", "pallas", "cache_scan", None, 0),
+    ("fifo", "pallas", "cache_scan", None, 0),
+    ("lru", "stack_pallas", "stack_distance", None, 0),
+    ("lru", "stack", None, None, 0), ("spm", "stack", None, None, 0),
+    ("srrip", "scan", None, None, 0), ("srrip", "stack", "rrip_scan", None, 1),
+    ("fifo", "stack_pallas", "rrip_scan", None, 1), ("lru", "stack", None, "lru", 0),
+    ("spm", "stack", "rrip_scan", "fifo", 2), ("srrip", "stack", "rrip_scan", "fifo", 3),
 ])
-def test_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel, translation):
+def test_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel, translation, n_rrip):
+    """Launch counts of a small run (D2: one launch per classification, as
+    its rows are short: the on-chip cache, then the TLB's L1 and L2)."""
     import dataclasses
 
     from repro_torch.core import dlrm_rmc2_small, simulate, tpuv6e
@@ -326,6 +386,7 @@ def test_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel, translat
     assert counts["dram_scan"] == 1
     for name in ("cache_scan", "stack_distance", "rrip_scan"):
         assert (counts[name] > 0) == (name == kernel), counts
+    assert counts["rrip_scan"] == n_rrip, counts
     assert dataclasses.asdict(on_card) == dataclasses.asdict(simulate(wl, hw, device="cpu"))
 
 

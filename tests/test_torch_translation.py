@@ -6,6 +6,7 @@ and ``classify_embedding_many`` / ``simulate_embedding_many`` against a
 per-system loop and against the reference.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -19,9 +20,11 @@ from repro.core.memory import tlb as rtlb
 import repro_torch.core as T
 from repro_torch.convert import workload_from_dict
 from repro_torch.core.engine import build_embedding_traces as t_build
+from repro_torch.core.memory import rrip as trrip
 from repro_torch.core.memory import system as tsystem
 from repro_torch.core.memory import tlb as ttlb
 from repro_torch.core.memory.stack import distance_pass_count
+from repro_torch.kernels import rrip_scan as d2
 
 CAP = 1 << 14
 POLICIES = ["spm", "lru", "srrip", "fifo", "pinning"]
@@ -64,6 +67,39 @@ def test_classify_tlb_equals_golden_and_jax_package(replacement, num_sets, ways)
             rtlb.classify_tlb(pages, num_sets, ways, replacement, engine="np"), want)
         got = ttlb.classify_tlb(pages, num_sets, ways, replacement, device="cpu")
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("num_sets,ways", [(1, 4), (4, 4), (16, 2), (8, 1), (1, 64), (3, 5)])
+def test_classify_tlb_fifo_chunked_route_equals_golden_and_jax_package(num_sets, ways,
+                                                                        monkeypatch):
+    """A FIFO TLB's rows on D2's chunked route (row tables built with a
+    small ``long_row`` and ``chunk``, as the full-size TLB's rows take it on
+    the card), one-set geometries included: the whole stream is one row,
+    cut into chunks."""
+    monkeypatch.setattr(trrip, "RowTable", functools.partial(d2.RowTable, chunk=16, long_row=32))
+    for name, pages in _page_streams().items():
+        want = rtlb.golden_tlb_hits(pages, num_sets, ways, "fifo")
+        np.testing.assert_array_equal(
+            rtlb.classify_tlb(pages, num_sets, ways, "fifo", engine="np"), want)
+        got = ttlb.classify_tlb(pages, num_sets, ways, "fifo", device="cpu")
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("cfg_index", [0, 1, 2])
+@pytest.mark.parametrize("warmup", [16, 0])
+def test_charge_translation_fifo_chunked_route_equals_jax_package(cfg_index, warmup,
+                                                                  monkeypatch):
+    """The translation charge with both TLB levels on the chunked route,
+    with a warm-up and without (every chunk after a row's first re-run)."""
+    monkeypatch.setattr(trrip, "RowTable", functools.partial(
+        d2.RowTable, chunk=32, warmup=warmup, long_row=64))
+    rng = np.random.default_rng(11 + cfg_index)
+    lines = rng.integers(0, 40000, size=2000)
+    batch = np.sort(rng.integers(0, 3, size=2000))
+    cfg = _configs("fifo")[cfg_index]
+    want = rtlb.charge_translation(lines, batch, 3, 128, cfg, engine="np")
+    got = ttlb.charge_translation(lines, batch, 3, 128, _port_cfg(cfg), device="cpu")
+    assert_bitwise_equal_results(dataclasses.asdict(got), dataclasses.asdict(want))
 
 
 def test_classify_tlb_lru_counts_one_distance_pass_and_rejects_bad_input():
