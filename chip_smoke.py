@@ -80,23 +80,46 @@ passed over):
      smoke-size Zamba2 on the card against the same model on the CPU (f32
      held at 2e-4 / 2e-3, bf16 at 8e-2); one decode step and one prefill
      under ``torch.profiler``;
+  8. the DSE sweep at full width: ``sweep`` of the phase-4 workload x
+     ``tpuv6e()`` over spm, lru, srrip, fifo and pinning x 32 and 128 MiB x 8
+     and 16 ways x translation off / the phase-4 FIFO TLB (40
+     configurations), with launch counts reset just before and read just
+     after (D1 and D2, D2 by route; K1 and K2 none under ``stack``); wall s
+     per configuration and per memo key and the ``profiling.collect()``
+     stages, with the card's name and power limit; four entries bitwise equal
+     to independent ``simulate`` calls on the card, with their wall s per
+     configuration beside the sweep's; the entries phase 4 pins to the
+     reference's totals; on the 128 MiB sub-grid, ``devices=2`` (two shard
+     threads on the one card, each on its own stream) timed against the
+     unsharded sweep in the order unsharded, sharded, sharded, unsharded,
+     and a checkpointed run killed after its first cadence round (an
+     injected torn journal append) and resumed, all bitwise equal to the
+     grid's entries; a lru sub-grid (32, 64 and 128 MiB x 8 and 16 ways,
+     whose configurations share shape buckets) under ``pallas`` (K1) and
+     ``stack_pallas`` (K2) equal to ``stack``, with exactly one launch per
+     shape bucket across its configurations (fewer than their buckets one
+     by one); one sweep of the grid under ``torch.profiler`` for the card's
+     busy share;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
      dependent steps times the probed step latency.
 
 Then it prints the ``nvidia-smi`` name/power line, one ``{"kernels": ...}``
-JSON line and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
+JSON line (K1, K2 and D1 also with their launches in phase 8's sweeps,
+``sweep_launches``, on their first entry; D2's, by route, on ``rrip_scan[srrip]``) and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -155,6 +178,14 @@ TRANSLATION = dict(entries=64, ways=4, l2_entries=1024)
 REF_TRANSLATION = {("lru", "lru"): (44106659.2791375, 406646, 0),
                    ("srrip", "fifo"): (44109683.2791375, 406674, RRIP_LAUNCHES + TLB_LAUNCHES),
                    ("spm", "fifo"): (49056511.9041375, 452077, TLB_LAUNCHES)}
+# The DSE sweep of phase 8: these axes x translation off / the FIFO TLB of
+# phase 4 over the phase-4 workload, 40 configurations; journal rounds of
+# SWEEP_CADENCE memo keys in its kill-and-resume check.
+SWEEP_POLICIES = ("spm", "lru", "srrip", "fifo", "pinning")
+SWEEP_CAPACITIES = (32 << 20, 128 << 20)
+SWEEP_WAYS = (8, 16)
+LRU_SUB_CAPACITIES = (32 << 20, 64 << 20, 128 << 20)
+SWEEP_CADENCE = 4
 EDGE_GEOMETRIES = [(1, 1), (1, 4), (3, 2), (7, 5), (16, 7), (16, 16), (4, 32), (2, 33), (2, 64)]
 KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
@@ -773,6 +804,218 @@ def serve_zamba2(dev, K):
         print(f"[7] smoke Zamba2 {dtype} on the card vs the CPU, teacher-forced (prefill of 64 + "
               f"6 steps): max abs diff {worst!r} (allclose {tol})", flush=True)
     return main_counts, k4
+
+
+def sweep_phase(dev, K, wl):
+    """Phase 8: the DSE sweep on the card at full width (the phase-4
+    workload x ``tpuv6e()``: policies x 2 capacities x 2 ways x translation
+    off / the FIFO TLB of phase 4, 40 configurations), with its checks.
+    Returns the launches of each scan kernel in the sweep's runs (D1, D2:
+    the grid; K1, K2: the lru sub-grid under ``pallas``/``stack_pallas``)."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import (FaultEvent, FaultPlan, SweepCheckpoint, TranslationConfig,
+                                  profiling, simulate, sweep, tpuv6e)
+    from repro_torch.core.engine import build_embedding_traces
+    from repro_torch.core.faults import InjectedKill
+    from repro_torch.core.memory.cache import bucket_rows
+    from repro_torch.core.memory.system import lane_geometry
+    from repro_torch.distributed import sweep_shard
+    from repro_torch.kernels.rrip_scan import rrip_scan_flat
+
+    tlb = TranslationConfig(replacement="fifo", **TRANSLATION)
+    axes = dict(policies=SWEEP_POLICIES, capacities=SWEEP_CAPACITIES, ways=SWEEP_WAYS,
+                translations=(None, tlb), zipf_s=0.8, seed=0)
+    big, small = max(SWEEP_CAPACITIES), min(SWEEP_CAPACITIES)
+    sub_axes = dict(axes, capacities=(big,))
+
+    def records(entries):
+        return [(e.config, dataclasses.asdict(e.result)) for e in entries]
+
+    def timed_sweep(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(wl, device=dev, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # The grid, with the launch counts reset just before and read just after,
+    # under profiling.collect() for its stages (as phase 4 times simulate).
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.collect() as prof:
+        main = sweep(wl, tpuv6e(), device=dev, **axes)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, d2_routes = K.launch_counts(), dict(rrip_scan_flat.routes)
+    n, keys = main.num_configs, main.distinct_memo_keys
+    if n != len(SWEEP_POLICIES) * len(SWEEP_CAPACITIES) * len(SWEEP_WAYS) * 2:
+        fail(f"sweep: {n} configurations")
+    for e in main.entries:
+        summ = e.result.summary()
+        if len(e.result.batches) != wl.num_batches or not e.result.total_cycles > 0 or not all(
+                math.isfinite(v) for v in summ.values() if isinstance(v, float)):
+            fail(f"sweep {e.config.label}: malformed result {summ}")
+    for kname, c in counts.items():
+        should = kname in ("dram_scan", "rrip_scan")
+        if should and c == 0:
+            fail(f"sweep: kernel {kname} was not launched")
+        if not should and c != 0:
+            fail(f"sweep: kernel {kname} launched {c} times off the stack backend's path")
+    by = {(e.config.policy, e.config.capacity_bytes, e.config.ways,
+           e.config.translation is not None): e for e in main.entries}
+    stages = {k: round(v, 4) for k, v in prof.breakdown(wall).items()}
+    print(f"[8] sweep of {n} configurations ({keys} memo keys) of {wl.name} on {dev} "
+          f"({smi('name,power.limit')}): wall {wall!r} s, {wall / n!r} s per configuration, "
+          f"{wall / keys!r} s per memo key; launches {counts}, D2 by route {d2_routes}; stages "
+          f"{json.dumps(stages)}", flush=True)
+
+    # 1. Entries against independent simulate calls on the card.
+    picks = [("lru", big, 16, False), ("srrip", small, 8, True),
+             ("fifo", big, 16, False), ("pinning", small, 8, False)]
+    sim_s = []
+    for pol, cap, w, tr in picks:
+        hw = tpuv6e().with_policy(pol, capacity_bytes=cap, ways=w).with_translation(
+            tlb if tr else None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = simulate(wl, hw, device=dev)
+        torch.cuda.synchronize()
+        sim_s.append(time.perf_counter() - t0)
+        if dataclasses.asdict(by[(pol, cap, w, tr)].result) != dataclasses.asdict(want):
+            fail(f"sweep entry {by[(pol, cap, w, tr)].config.label} differs from simulate()")
+    mean_sim = sum(sim_s) / len(sim_s)
+    print(f"[8] 4 entries bitwise equal to independent simulate() calls on {dev} "
+          f"({[by[p].config.label for p in picks]}): simulate wall {sim_s} s, mean "
+          f"{mean_sim!r} s per configuration against the sweep's {wall / n!r} "
+          f"({mean_sim * n / wall!r} x)", flush=True)
+
+    # 2. The reference's totals of phase 4 (tpuv6e() is 128 MiB, 16 ways).
+    pins = {("srrip", 128 << 20, 16, False): (REF_TOTAL["srrip"], None),
+            ("fifo", 128 << 20, 16, False): (REF_TOTAL["fifo"], None),
+            ("srrip", 128 << 20, 16, True): REF_TRANSLATION[("srrip", "fifo")][:2]}
+    pins.update({("spm", c, w, True): REF_TRANSLATION[("spm", "fifo")][:2]
+                 for c in SWEEP_CAPACITIES for w in SWEEP_WAYS})
+    for key, (cycles, walks) in pins.items():
+        r = by[key].result
+        if r.total_cycles != cycles or (walks is not None and r.tlb_walks != walks):
+            fail(f"sweep entry {by[key].config.label}: total_cycles {r.total_cycles!r}, "
+                 f"tlb_walks {r.tlb_walks}; the reference's {cycles!r}, {walks}")
+    print(f"[8] {len(pins)} entries equal the reference's totals of phase 4", flush=True)
+
+    want_sub = records([e for e in main.entries if e.config.capacity_bytes == big])
+
+    # 3. Two shards on the one card, each on a stream of its own, against the
+    # unsharded sweep of the same sub-grid, timed in the order unsharded,
+    # sharded, sharded, unsharded. (The shards' streams are read inside the
+    # workers' device context.)
+    on_device = sweep_shard._on_shard_device
+    walls = {"unsharded": [], "sharded": []}
+    for kind in ("unsharded", "sharded", "sharded", "unsharded"):
+        seen = set()
+
+        @contextlib.contextmanager
+        def recording(device, seen=seen):
+            with on_device(device):
+                seen.add((threading.get_ident(), torch.cuda.current_stream().cuda_stream))
+                yield
+
+        K.reset_launch_counts()
+        sweep_shard._on_shard_device = recording
+        try:
+            got, s_wall = timed_sweep(base_hw=tpuv6e(), devices=2 if kind == "sharded" else None,
+                                      **sub_axes)
+        finally:
+            sweep_shard._on_shard_device = on_device
+        walls[kind].append(s_wall)
+        if records(got.entries) != want_sub:
+            fail(f"{kind} sweep of the {big >> 20} MiB sub-grid differs from the grid's entries")
+        want_streams = 2 if kind == "sharded" else 0
+        if len({st for _, st in seen}) != want_streams:
+            fail(f"{kind} sweep: the shard workers ran on streams {seen}, not "
+                 f"{want_streams} of their own")
+        if kind == "sharded":
+            sharded, streams, s_counts = got, sorted(seen), K.launch_counts()
+    plan = sweep_shard.resolve_shard_plan(2, dev)
+    print(f"[8] devices=2 on {plan.devices} ({sharded.device_count} distinct device(s); "
+          f"(worker thread, stream) {streams}): {sharded.num_configs} configurations bitwise "
+          f"equal to the unsharded sweep; wall s in the order unsharded, sharded, sharded, "
+          f"unsharded: {walls['unsharded'][0]!r}, {walls['sharded'][0]!r}, "
+          f"{walls['sharded'][1]!r}, {walls['unsharded'][1]!r} (mean unsharded / sharded "
+          f"{sum(walls['unsharded']) / sum(walls['sharded'])!r} x); launches {s_counts}; shards "
+          f"{json.dumps(sharded.telemetry.to_dict()['shards'])}", flush=True)
+
+    # 4. Killed after its first cadence round (a torn journal append), then resumed.
+    ckdir = ROOT / "build" / "sweep_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    path = str(ckdir / "sweep.ckpt")
+    plan = FaultPlan(events=(FaultEvent("torn_write", round=1),))
+    ck = SweepCheckpoint(path, cadence=SWEEP_CADENCE)
+    killed = False
+    try:
+        sweep(wl, tpuv6e(), checkpoint=ck, fault_plan=plan, device=dev, **sub_axes)
+    except InjectedKill:
+        killed = True
+    ck.close()
+    if not killed:
+        fail("sweep: the injected kill did not stop the checkpointed run")
+    resumed, r_wall = timed_sweep(base_hw=tpuv6e(), checkpoint=path, **sub_axes)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if records(resumed.entries) != want_sub:
+        fail("sweep: the resumed run differs from the uninterrupted one")
+    if not 0 < resumed.resumed_keys < resumed.distinct_memo_keys:
+        fail(f"sweep: resumed {resumed.resumed_keys} of {resumed.distinct_memo_keys} memo keys")
+    print(f"[8] killed after its first round of {SWEEP_CADENCE} memo keys, then resumed: "
+          f"{resumed.resumed_keys} of {resumed.distinct_memo_keys} keys restored, the rest "
+          f"re-evaluated in {r_wall!r} s; bitwise equal to the uninterrupted sweep", flush=True)
+
+    # 5. A lru sub-grid under the K1 and K2 backends, against stack. Its
+    # capacities add 64 MiB to the grid's, whose lane geometries share shape
+    # buckets with the others' (64 MiB/8 ways with 128 MiB/8 ways, 64 MiB/16
+    # ways with 128 MiB/16 ways), so one launch per bucket across the
+    # configurations is fewer than the configurations' buckets one by one.
+    lru_axes = dict(policies=("lru",), capacities=LRU_SUB_CAPACITIES, ways=SWEEP_WAYS,
+                    zipf_s=0.8, seed=0)
+    etrace = build_embedding_traces(wl, None, 0, 0.8)[0]
+    lanes = [lane_geometry(tpuv6e().with_policy("lru", capacity_bytes=c, ways=w), etrace.spec)
+             for c in LRU_SUB_CAPACITIES for w in SWEEP_WAYS]
+    shared = len(list(bucket_rows([etrace.vec_ids] * len(lanes), lanes)))
+    alone = sum(len(list(bucket_rows([etrace.vec_ids], [g]))) for g in lanes)
+    if not shared < alone:
+        fail(f"lru sub-grid: {shared} shape buckets across the configurations, {alone} one by "
+             f"one; the launch count could not tell the two apart")
+    stack_lru, st_wall = timed_sweep(base_hw=tpuv6e(), **lru_axes)
+    want_lru = records(stack_lru.entries)
+    if [r for r in want_lru if r[0].capacity_bytes in SWEEP_CAPACITIES] != records(
+            [e for e in main.entries if e.config.policy == "lru" and e.config.translation is None]):
+        fail("sweep lru sub-grid under stack differs from the grid's lru entries")
+    backend_launches = {}
+    for backend, kname in (("pallas", "cache_scan"), ("stack_pallas", "stack_distance")):
+        K.reset_launch_counts()
+        got, b_wall = timed_sweep(base_hw=tpuv6e().with_cache_backend(backend), **lru_axes)
+        c = K.launch_counts()
+        if records(got.entries) != want_lru:
+            fail(f"sweep lru sub-grid under {backend} differs from stack")
+        if c[kname] != shared:
+            fail(f"sweep lru sub-grid under {backend}: {c[kname]} {kname} launches, expected "
+                 f"one per shape bucket across configurations, {shared} ({alone} one by one)")
+        backend_launches[kname] = c[kname]
+        print(f"[8] lru sub-grid ({len(lanes)} configurations, {len(want_lru)} entries) under "
+              f"{backend}: bitwise equal to stack (wall {st_wall!r} s); {kname} {c[kname]} "
+              f"launches, one per shape bucket across the configurations (their buckets one "
+              f"by one: {alone}); wall {b_wall!r} s; launches {c}", flush=True)
+
+    # The card's busy time in a profiled sweep of the grid.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        t0 = time.perf_counter()
+        sweep(wl, tpuv6e(), device=dev, **axes)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+    print(f"[8] profiled sweep of the grid: wall {p_wall!r} s, "
+          f"{device_busy(tprof.events(), p_wall, ('dram_scan', 'rrip_scan'))}", flush=True)
+    return {"dram_scan": counts["dram_scan"], "rrip_scan": d2_routes, **backend_launches}
 
 
 def main() -> None:
@@ -1581,6 +1824,9 @@ def main() -> None:
     # ---- 7. Zamba2-2.7B serving at full width ---------------------------
     lm_counts, k4_lm = serve_zamba2(dev, K)
 
+    # ---- 8. the DSE sweep at full width ------------------------------------
+    sweep_launches = sweep_phase(dev, K, wl)
+
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
@@ -1589,6 +1835,9 @@ def main() -> None:
     for name, e in entries.items():
         e["launches"] = (launches[main_run[name]][e["kind"]] if name in main_run
                          else dlrm_launches[e["kind"]])
+        if name in ("cache_scan[lru]", "stack_distance[lru]", "dram_scan[spm]",
+                    "rrip_scan[srrip]"):
+            e["sweep_launches"] = sweep_launches[e["kind"]]
     for name, e in lm_entries.items():
         e["launches"] = lm_counts[e["kind"]]
     entries.update(lm_entries)
@@ -1613,6 +1862,7 @@ def main() -> None:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
             "library_ms": e.get("library_ms"), "shapes": e["shapes"],
+            **({"sweep_launches": e["sweep_launches"]} if "sweep_launches" in e else {}),
         })
     print(f"[5] script wall {time.perf_counter() - t_script:.1f} s", flush=True)
     print(name_power, flush=True)

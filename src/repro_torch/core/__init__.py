@@ -35,6 +35,18 @@ from .memory import (
     register_policy,
 )
 from .results import BatchResult, SimResult
+from .faults import (
+    CheckpointLockedError,
+    FaultEvent,
+    FaultPlan,
+    FaultTelemetry,
+    FaultTolerance,
+    FaultToleranceExhausted,
+    ShardEvaluationError,
+)
+from .sweep import SweepConfig, SweepEntry, SweepResult, grid_configs, sweep
+from .sweep_ckpt import SweepCheckpoint
+from .search import SearchResult, pareto_front, search
 
 __all__ = [
     "CACHE_BACKENDS",
@@ -67,4 +79,20 @@ __all__ = [
     "get_policy",
     "memory_system_for",
     "register_policy",
+    "CheckpointLockedError",
+    "FaultEvent",
+    "FaultPlan",
+    "FaultTelemetry",
+    "FaultTolerance",
+    "FaultToleranceExhausted",
+    "ShardEvaluationError",
+    "SweepConfig",
+    "SweepEntry",
+    "SweepResult",
+    "SweepCheckpoint",
+    "SearchResult",
+    "grid_configs",
+    "pareto_front",
+    "search",
+    "sweep",
 ]

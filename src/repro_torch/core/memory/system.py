@@ -104,6 +104,21 @@ def lane_geometry(hw: HardwareConfig, spec: EmbeddingOpSpec) -> Optional[CacheGe
 # --------------------------------------------------------------------------
 
 @dataclass
+class CoreBatchStats:
+    """Per-core detail for one batch under a multi-core topology (the
+    checkpoint journal's codec names it; no multi-core path is ported yet)."""
+
+    core_id: int
+    lookups: int = 0
+    onchip_reads: int = 0
+    cache_misses: int = 0
+    onchip_cycles: float = 0.0
+    vector_cycles: float = 0.0
+    dram_finish_cycles: float = 0.0   # this core's last miss completion
+                                      # under shared-DRAM contention
+
+
+@dataclass
 class EmbeddingBatchStats:
     cycles: float = 0.0
     vector_cycles: float = 0.0
@@ -122,7 +137,7 @@ class EmbeddingBatchStats:
     tlb_misses: int = 0          # L1 TLB misses
     tlb_walks: int = 0           # full page-table walks
     translation_cycles: float = 0.0   # stall added to the DRAM path
-    per_core: Optional[list] = None   # multi-core detail (not ported yet)
+    per_core: Optional[List[CoreBatchStats]] = None   # multi-core detail
 
 
 def _vector_compute_cycles(spec: EmbeddingOpSpec, batch_size: int, hw: HardwareConfig) -> float:

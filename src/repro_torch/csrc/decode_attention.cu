@@ -49,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kDtypeF32 = 0;
@@ -271,13 +273,9 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(const float* part, T*
 template <typename T, int VB>
 int launch_split(const SplitArgs& a, int B, void* out, cudaStream_t st) {
   const int64_t bytes = split_smem(a.G, a.d, (int)sizeof(T), a.chunk, VB);
-  static int64_t allowed = 48 * 1024;
-  if (bytes > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        split_kernel<T, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
-  }
+  static SmemOptIn opt_in;
+  const cudaError_t opted = opt_in.ensure((const void*)split_kernel<T, VB>, (size_t)bytes);
+  if (opted != cudaSuccess) return (int)opted;
   split_kernel<T, VB><<<dim3(a.nchunks, B * a.Hkv), kThreads, bytes, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

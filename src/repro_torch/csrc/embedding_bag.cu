@@ -40,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kDtypeF32 = 0;
@@ -294,13 +296,13 @@ pool_kernel(const T* __restrict__ hot, const int* __restrict__ pos,
 // Blocks of K3's kernel resident on one SM of the current card.
 template <typename T, bool VEC>
 int bag_blocks_per_sm() {
-  static const int n = [] {
+  static PerDevice<int> n;
+  return n.get([] {
     int b = 0;
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &b, bag_kernel<T, VEC, kBagRows>, 32 * kBagWarps, 0);
     return e == cudaSuccess ? b : 0;
-  }();
-  return n;
+  });
 }
 
 // A bag a warp while the card holds them all at once; past that, the grid

@@ -71,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -244,13 +246,9 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
 template <typename T, int CC>
 int launch_flash(const FlashArgs& a, cudaStream_t st) {
   const size_t bytes = (size_t)smem_floats(a.d) * sizeof(float);
-  static size_t allowed = 48 * 1024;
-  if (bytes > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, CC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
-  }
+  static SmemOptIn opt_in;
+  const cudaError_t opted = opt_in.ensure((const void*)flash_kernel<T, CC>, bytes);
+  if (opted != cudaSuccess) return (int)opted;
   dim3 grid((a.S + kBQ - 1) / kBQ, a.Hq, a.B);
   flash_kernel<T, CC><<<grid, kThreads, bytes, st>>>(a);
   return (int)cudaGetLastError();
@@ -736,13 +734,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int64_t* st,
   if (err == 0) err = encode_operand<DP>(&m[4], &m[5], v, a.d, a.S, Hkv, B, st + 6, BK);
   if (err != 0) return err;
   constexpr int bytes = WgLayout<DP, BK>::kSmem;
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
+  static SmemOptIn opt_in;
+  const cudaError_t opted = opt_in.ensure((const void*)flash_wgmma_kernel<DP, BK>, bytes);
+  if (opted != cudaSuccess) return (int)opted;
   const dim3 grid((a.S + kWgBQ - 1) / kWgBQ, a.Hq, B);
   flash_wgmma_kernel<DP, BK><<<grid, kWgThreads, bytes, stream>>>(m[0], m[1], m[2], m[3], m[4],
                                                                   m[5], a);

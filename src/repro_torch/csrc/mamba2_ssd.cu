@@ -80,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16
@@ -327,13 +329,9 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(SsdArgs a) {
 template <typename T>
 int launch_ssd(const SsdArgs& a, cudaStream_t st) {
   const size_t bytes = (size_t)smem_floats(a.Q, a.P, a.N) * sizeof(float);
-  static size_t allowed = 48 * 1024;
-  if (bytes > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    allowed = bytes;
-  }
+  static SmemOptIn opt_in;
+  const cudaError_t opted = opt_in.ensure((const void*)ssd_kernel<T>, bytes);
+  if (opted != cudaSuccess) return (int)opted;
   ssd_kernel<T><<<a.B * a.H, kThreads, bytes, st>>>(a);
   return (int)cudaGetLastError();
 }
@@ -718,14 +716,8 @@ __global__ void __launch_bounds__(kMmaThreads, (N <= 64 ? 2 : 1)) ssd_mma_kernel
 template <int PS, int N>
 cudaError_t mma_prepare(int QP) {
   const size_t bytes = (size_t)mma_smem_bytes(QP, PS, N);
-  static size_t allowed = 48 * 1024;
-  if (bytes > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_mma_kernel<PS, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return e;
-    allowed = bytes;
-  }
-  return cudaSuccess;
+  static SmemOptIn opt_in;
+  return opt_in.ensure((const void*)ssd_mma_kernel<PS, N>, bytes);
 }
 
 template <int PS, int N>

@@ -78,6 +78,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "per_device.cuh"
+
 #include <type_traits>
 
 namespace {
@@ -568,9 +570,9 @@ rrip_scan_fixup_kernel(Args a) {
 template <int W, bool FULL, bool SRRIP>
 cudaError_t run(const Args& a, cudaStream_t stream, int* occ) {
   const auto walk = rrip_scan_walk_kernel<W, FULL, SRRIP>;
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shared_bytes(kMaxTile));
-  if (opt_in != cudaSuccess) return opt_in;
+  static SmemOptIn opt_in;
+  const cudaError_t opted = opt_in.ensure((const void*)walk, shared_bytes(kMaxTile));
+  if (opted != cudaSuccess) return opted;
   const size_t smem = shared_bytes(a.tile);
   if (occ != nullptr) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, walk, kThreads, smem);

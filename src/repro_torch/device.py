@@ -26,3 +26,14 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def indexed_device(device: DeviceLike = "cuda") -> torch.device:
+    """``resolve_device(device)`` with a CUDA device's index made explicit
+    (``cuda`` is the current device, ``cuda:0`` on a fresh thread), so two
+    spellings of one card compare equal: ``torch.device("cuda") !=
+    torch.device("cuda:0")``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -14,14 +14,19 @@
 | K8 Mamba2 SSD scan | ``mamba2_ssd.mamba2_ssd_kernel`` | ``kernels/mamba2_ssd.py:_ssd_kernel`` |
 
 Each wrapper counts its launches in a ``launches`` attribute, incremented
-only where it launches its CUDA kernel; K6 and K8 also count them by route
+only where it launches its CUDA kernel; K6, K8 and D2 also count them by route
 (``flash_attention_kernel.routes``: the bf16 tensor-core kernel, "wgmma",
 and the f32 scalar kernel, "scalar"; ``mamba2_ssd_kernel.routes``: the bf16
-tensor-core kernel, "mma", and the f32 scalar kernel, "scalar"). K8's bf16
-route is two CUDA kernels (a cumsum pre-pass and the scan) under one count;
-D2's chunked route counts its two launches (speculate, fix-up).
+tensor-core kernel, "mma", and the f32 scalar kernel, "scalar"; and
+``rrip_scan_flat.routes``: "short" and "chunked"). K8's bf16 route is two
+CUDA kernels (a cumsum pre-pass and the scan) under one count; D2's chunked
+route counts its two launches (speculate, fix-up). The counts change and
+are read and reset under one lock (``_build.COUNT_LOCK``), so wrappers may
+launch from several threads at once.
 """
 from typing import Dict
+
+from ._build import COUNT_LOCK
 
 from .cache_scan import cache_scan_groups
 from .decode_attention import decode_attention_kernel
@@ -51,11 +56,14 @@ KERNELS = {
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    with COUNT_LOCK:
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
-    flash_attention_kernel.routes = dict.fromkeys(flash_attention_kernel.routes, 0)
-    mamba2_ssd_kernel.routes = dict.fromkeys(mamba2_ssd_kernel.routes, 0)
+    with COUNT_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
+        flash_attention_kernel.routes = dict.fromkeys(flash_attention_kernel.routes, 0)
+        mamba2_ssd_kernel.routes = dict.fromkeys(mamba2_ssd_kernel.routes, 0)
+        rrip_scan_flat.routes = dict.fromkeys(rrip_scan_flat.routes, 0)

@@ -6,8 +6,17 @@ headers of ``csrc/`` (``#include "name.cuh"``). All libraries are built
 together (one ``nvcc`` per source, started at once) at the first launch of
 any kernel, into ``build/kernels/`` at the repository root, named by a hash
 of the source with its headers and the flags, so an unchanged source is
-never rebuilt and an edited header rebuilds every source that includes it. Nothing here runs at import time, so the package imports on
-machines without ``nvcc`` or a GPU.
+never rebuilt and an edited header rebuilds every source that includes it.
+Nothing here runs at import time, so the package imports on machines without
+``nvcc`` or a GPU.
+
+Threads may launch kernels at once (the sharded sweep runs one worker
+thread per shard): the build and the loading of the libraries happen under
+one lock, so the first launches of several threads compile each source
+once, and the wrappers count their launches through ``count_launch``, under
+a lock of its own. A kernel launches on the device of its tensors, any CUDA
+device: ``on_device`` makes it the thread's current device for the launch,
+whose stream is that device's current stream of the thread.
 """
 from __future__ import annotations
 
@@ -17,6 +26,8 @@ import os
 import re
 import shutil
 import subprocess
+import threading
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict
 
@@ -44,6 +55,10 @@ def nvcc_flags(name: str) -> tuple:
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Held while libraries are built or loaded (re-entrant: load_library builds).
+_BUILD_LOCK = threading.RLock()
+# Held while a launch count changes or is reset.
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -91,8 +106,13 @@ def build_all() -> Dict[str, Path]:
     Returns ``{name: library path}``. Raises ``RuntimeError`` with the
     compiler's output when a source fails to build. The compiler's report
     (registers, shared memory, spills) is kept beside each library as
-    ``<library>.log``.
+    ``<library>.log``. Threads that call it at once wait for one build.
     """
+    with _BUILD_LOCK:
+        return _build_all()
+
+
+def _build_all() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in SOURCES}
     todo = {name: p for name, p in paths.items() if not p.exists()}
@@ -124,9 +144,26 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, building all kernels if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = build_all()[name]
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        with _BUILD_LOCK:
+            lib = _loaded.get(name)
+            if lib is None:
+                lib = _loaded[name] = ctypes.CDLL(str(build_all()[name]))
     return lib
+
+
+def count_launch(fn, n: int = 1, route: str = None) -> None:
+    """Add ``n`` to a wrapper's ``launches`` (and to ``routes[route]``)."""
+    with COUNT_LOCK:
+        fn.launches += n
+        if route is not None:
+            fn.routes[route] += n
+
+
+def on_device(device: torch.device):
+    """Context in which a launch on ``device`` runs: that CUDA device made
+    the thread's current one (the C launchers start their kernels on the
+    current device); nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else nullcontext()
 
 
 def check_rows(name: str, sets, tags, valid) -> None:
@@ -139,10 +176,8 @@ def check_rows(name: str, sets, tags, valid) -> None:
 
 
 def check_tensors(name: str, *pairs) -> None:
-    """Each ``(tensor, dtype)`` pair: that dtype, contiguous, one device.
-
-    CUDA tensors must lie on device 0, where the kernel libraries launch.
-    """
+    """Each ``(tensor, dtype)`` pair: that dtype, contiguous, one device
+    (the CPU or any CUDA device)."""
     dev = pairs[0][0].device
     for t, dtype in pairs:
         if t.dtype != dtype:
@@ -151,8 +186,6 @@ def check_tensors(name: str, *pairs) -> None:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if dev.type == "cuda" and dev.index not in (None, 0):
-        raise ValueError(f"{name}: the kernels launch on cuda:0, got {dev}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
 

@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from ._build import check_launch, check_rows, load_library
+from ._build import check_launch, check_rows, count_launch, load_library, on_device
 
 MAX_RRPV = 3  # 2-bit SRRIP
 
@@ -237,13 +237,14 @@ def cache_scan_groups(sets, tags, valid, num_sets: int, ways: int, policy: str =
     evict = torch.empty((B, L), dtype=torch.bool, device=sets.device)
     if B == 0 or L == 0:
         return hit, evict
-    err = _launcher()(
-        sets.data_ptr(), tags.data_ptr(), valid.data_ptr(), hit.data_ptr(),
-        evict.data_ptr(), B, L, int(num_sets), int(ways), POLICY_IDS[policy],
-        torch.cuda.current_stream(sets.device).cuda_stream,
-    )
+    with on_device(sets.device):
+        err = _launcher()(
+            sets.data_ptr(), tags.data_ptr(), valid.data_ptr(), hit.data_ptr(),
+            evict.data_ptr(), B, L, int(num_sets), int(ways), POLICY_IDS[policy],
+            torch.cuda.current_stream(sets.device).cuda_stream,
+        )
     check_launch("cache_scan", err)
-    cache_scan_groups.launches += 1
+    count_launch(cache_scan_groups)
     return hit, evict
 
 

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library, on_device
 from .ref import decode_attention_ref
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -146,8 +146,8 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, valid_len)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid_len)
-    if q.device.type != "cuda" or q.device.index not in (None, 0):
-        raise ValueError(f"decode_attention: the kernels launch on cuda:0, got {q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
     launch, smem = _fns()
     G = q.shape[1] // k.shape[1]
     chunk = kernel_chunk(G, q.shape[2], q.dtype, smem)
@@ -162,10 +162,11 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_chunks = -(-k.shape[2] // chunk)
     part = torch.empty(q.shape[0] * q.shape[1] * n_chunks * (q.shape[2] + 2),
                        dtype=torch.float32, device=q.device)
-    err = _launch(launch, q, k, v, out, part, min(valid_len, k.shape[2]), chunk,
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    with on_device(q.device):
+        err = _launch(launch, q, k, v, out, part, min(valid_len, k.shape[2]), chunk,
+                      torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("decode_attention", err)
-    decode_attention_kernel.launches += 1
+    count_launch(decode_attention_kernel)
     return out
 
 

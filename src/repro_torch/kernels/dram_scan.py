@@ -24,7 +24,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import check_launch, check_tensors, load_library
+from ._build import check_launch, check_tensors, count_launch, load_library, on_device
 
 # What the kernel takes: the bank state of 32 rows in shared memory beside
 # two stages of tiles, and an access loop unrolled to 8 (``chunk_rows``
@@ -138,15 +138,16 @@ def dram_scan_chunked(bkc, rowc, kc, valid, banks: int, k_max: int,
     row_hit = torch.empty((R, Lc), dtype=torch.bool, device=dev)
     if R == 0:
         return (lat, hit, dmax), (done0, row_hit)
-    err = _launcher()(
-        bkc.data_ptr(), rowc.data_ptr(), kc.data_ptr(), valid.data_ptr(),
-        R, Lc, int(banks), int(k_max), _f32(t_row_act), _f32(t_cas),
-        _f32(bus_cycles_per_line), lat.data_ptr(), hit.data_ptr(),
-        dmax.data_ptr(), done0.data_ptr(), row_hit.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with on_device(dev):
+        err = _launcher()(
+            bkc.data_ptr(), rowc.data_ptr(), kc.data_ptr(), valid.data_ptr(),
+            R, Lc, int(banks), int(k_max), _f32(t_row_act), _f32(t_cas),
+            _f32(bus_cycles_per_line), lat.data_ptr(), hit.data_ptr(),
+            dmax.data_ptr(), done0.data_ptr(), row_hit.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     check_launch("dram_scan", err)
-    dram_scan_chunked.launches += 1
+    count_launch(dram_scan_chunked)
     return (lat, hit, dmax), (done0, row_hit)
 
 

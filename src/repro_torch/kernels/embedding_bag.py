@@ -30,7 +30,8 @@ import functools
 
 import torch
 
-from ._build import check_launch, check_tensors, load_library
+from ..device import indexed_device
+from ._build import check_launch, check_tensors, count_launch, load_library, on_device
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,8 +65,6 @@ _ARGTYPES = {
 }
 
 
-# The kernels launch on cuda:0 (``check_tensors``), so what the functions
-# below look up once holds for every launch of the process.
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
     fn = getattr(load_library("embedding_bag"), name)
@@ -74,9 +73,14 @@ def _fn(name: str):
     return fn
 
 
+def _sm_count(device=None) -> int:
+    """SMs of ``device`` (the current CUDA device when ``None``)."""
+    return _sms(indexed_device("cuda" if device is None else device))
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count() -> int:
-    return torch.cuda.get_device_properties(0).multi_processor_count
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -112,11 +116,12 @@ def embedding_bag_kernel(table: torch.Tensor, indices: torch.Tensor) -> torch.Te
     out = torch.empty((B, T, D), dtype=table.dtype, device=table.device)
     if B * T == 0:
         return out
-    err = _fn("embedding_bag_launch")(table.data_ptr(), indices.data_ptr(), R, B * T, L, D,
-                                      DTYPE_IDS[table.dtype], _sm_count(), out.data_ptr(),
-                                      _stream(table))
+    with on_device(table.device):
+        err = _fn("embedding_bag_launch")(table.data_ptr(), indices.data_ptr(), R, B * T, L, D,
+                                          DTYPE_IDS[table.dtype], _sm_count(table.device),
+                                          out.data_ptr(), _stream(table))
     check_launch("embedding_bag", err)
-    embedding_bag_kernel.launches += 1
+    count_launch(embedding_bag_kernel)
     return out
 
 
@@ -149,11 +154,12 @@ def embedding_gather_kernel(table: torch.Tensor, indices: torch.Tensor) -> torch
     out = torch.empty((N, D), dtype=table.dtype, device=table.device)
     if N == 0:
         return out
-    err = _fn("embedding_gather_launch")(table.data_ptr(), indices.data_ptr(), R, N,
-                                         D * table.element_size(), _sm_count(),
-                                         out.data_ptr(), _stream(table))
+    with on_device(table.device):
+        err = _fn("embedding_gather_launch")(table.data_ptr(), indices.data_ptr(), R, N,
+                                             D * table.element_size(), _sm_count(table.device),
+                                             out.data_ptr(), _stream(table))
     check_launch("embedding_gather", err)
-    embedding_gather_kernel.launches += 1
+    count_launch(embedding_gather_kernel)
     return out
 
 
@@ -176,24 +182,31 @@ def vmem_gather_pool_plain(hot_table: torch.Tensor, positions: torch.Tensor,
     return acc.to(hot_table.dtype)
 
 
+def vmem_tile_rows(row_bytes: int, device=None) -> int:
+    """Rows of ``row_bytes`` that one block's shared memory holds on
+    ``device`` (the current CUDA device when ``None``): K5 stages a larger
+    hot table in tiles of this many rows."""
+    return _tile_rows(int(row_bytes), indexed_device("cuda" if device is None else device))
+
+
 @functools.lru_cache(maxsize=None)
-def vmem_tile_rows(row_bytes: int) -> int:
-    """Rows of ``row_bytes`` that one block's shared memory holds on the
-    current CUDA device: K5 stages a larger hot table in tiles of this many
-    rows."""
+def _tile_rows(row_bytes: int, device: torch.device) -> int:
     rows = ctypes.c_int(0)
-    check_launch("vmem_gather_pool (device query)",
-                 _fn("vmem_pool_tile_rows")(int(row_bytes), ctypes.byref(rows)))
+    with on_device(device):
+        check_launch("vmem_gather_pool (device query)",
+                     _fn("vmem_pool_tile_rows")(row_bytes, ctypes.byref(rows)))
     return rows.value
 
 
 @functools.lru_cache(maxsize=None)
-def _pool_blocks(dtype_id: int, D: int, tile_rows: int) -> int:
-    """K5's shared-memory opt-in, set once, and the blocks of a tile of
-    ``tile_rows x D`` that stay resident on the card (the grid's cap)."""
+def _pool_blocks(dtype_id: int, D: int, tile_rows: int, device: torch.device) -> int:
+    """K5's shared-memory opt-in on ``device``, set once there, and the
+    blocks of a tile of ``tile_rows x D`` that stay resident on it (the
+    grid's cap)."""
     blocks = ctypes.c_int(0)
-    check_launch("vmem_gather_pool (set-up)",
-                 _fn("vmem_pool_prepare")(dtype_id, D, tile_rows, ctypes.byref(blocks)))
+    with on_device(device):
+        check_launch("vmem_gather_pool (set-up)",
+                     _fn("vmem_pool_prepare")(dtype_id, D, tile_rows, ctypes.byref(blocks)))
     return blocks.value
 
 
@@ -220,19 +233,21 @@ def vmem_gather_pool_kernel(hot_table: torch.Tensor, positions: torch.Tensor,
     out = torch.empty((B, T, D), dtype=hot_table.dtype, device=dev)
     if B * T == 0:
         return out
-    tile_rows = min(H, vmem_tile_rows(D * hot_table.element_size()))
+    tile_rows = min(H, vmem_tile_rows(D * hot_table.element_size(), dev))
     if tile_rows < 1:
         raise ValueError(f"{name}: one row of {D} x {hot_table.element_size()} bytes exceeds "
                          "a block's shared memory")
     scratch = (torch.empty((B * T, D), dtype=torch.float32, device=dev)
                if tile_rows < H else None)
     dtype_id = DTYPE_IDS[hot_table.dtype]
-    err = _fn("vmem_gather_pool_launch")(
-        hot_table.data_ptr(), positions.data_ptr(), mask.data_ptr(), H, B * T, L, D, tile_rows,
-        _pool_blocks(dtype_id, D, tile_rows), dtype_id,
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(), _stream(hot_table))
+    blocks = _pool_blocks(dtype_id, D, tile_rows, dev)
+    with on_device(dev):
+        err = _fn("vmem_gather_pool_launch")(
+            hot_table.data_ptr(), positions.data_ptr(), mask.data_ptr(), H, B * T, L, D,
+            tile_rows, blocks, dtype_id, None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), _stream(hot_table))
     check_launch(name, err)
-    vmem_gather_pool_kernel.launches += 1
+    count_launch(vmem_gather_pool_kernel)
     return out
 
 

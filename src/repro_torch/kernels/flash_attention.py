@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library, on_device
 from .ref import flash_attention_ref
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -135,8 +135,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
-    if q.device.type != "cuda" or q.device.index not in (None, 0):
-        raise ValueError(f"flash_attention: the kernels launch on cuda:0, got {q.device}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.numel() == 0:
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
     route = "wgmma" if q.dtype == torch.bfloat16 else "scalar"
@@ -146,11 +146,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     prep = _tma_ready if route == "wgmma" else _inner_contiguous
     q, k, v = (prep(t) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    err = _launch(_fn(route), q, k, v, out, causal, float(sm_scale),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    with on_device(q.device):
+        err = _launch(_fn(route), q, k, v, out, causal, float(sm_scale),
+                      torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
-    flash_attention_kernel.launches += 1
-    flash_attention_kernel.routes[route] += 1
+    count_launch(flash_attention_kernel, route=route)
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 

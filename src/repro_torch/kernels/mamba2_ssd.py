@@ -34,7 +34,7 @@ import functools
 
 import torch
 
-from ._build import check_launch, load_library
+from ._build import check_launch, count_launch, load_library, on_device
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128
@@ -253,24 +253,24 @@ def mamba2_ssd_kernel(x, adt, dt, Bm, C, *, chunk: int = 128) -> torch.Tensor:
     _check(x, adt, dt, Bm, C, chunk)
     if x.device.type == "cpu":
         return mamba2_ssd_plain(x, adt, dt, Bm, C, chunk)
-    if x.device.type != "cuda" or x.device.index not in (None, 0):
-        raise ValueError(f"mamba2_ssd: the kernels launch on cuda:0, got {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"mamba2_ssd: unsupported device {x.device}")
     Bsz, H, S, P = x.shape
     if x.numel() == 0:
         return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     Q = kernel_chunk(chunk, S, P, Bm.shape[-1], x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if x.dtype == torch.bfloat16:
-        route = "mma"
-        y, err = _launch_mma(x, adt, dt, Bm, C, Q, stream)
-    else:
-        route = "scalar"
-        x, Bm, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, C))
-        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        err = _launch_f32(x, adt, dt, Bm, C, y, Q, stream)
+    with on_device(x.device):
+        if x.dtype == torch.bfloat16:
+            route = "mma"
+            y, err = _launch_mma(x, adt, dt, Bm, C, Q, stream)
+        else:
+            route = "scalar"
+            x, Bm, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, C))
+            y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            err = _launch_f32(x, adt, dt, Bm, C, y, Q, stream)
     check_launch("mamba2_ssd", err)
-    mamba2_ssd_kernel.launches += 1
-    mamba2_ssd_kernel.routes[route] += 1
+    count_launch(mamba2_ssd_kernel, route=route)
     return y
 
 

@@ -49,7 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import check_launch, check_tensors, load_library
+from ._build import check_launch, check_tensors, count_launch, load_library, on_device
 
 POLICY_IDS = {"fifo": 0, "srrip": 1}
 # The kernel holds a row's ways in registers, as many as the power of two
@@ -424,19 +424,24 @@ def rrip_scan_flat(tags, valid, table: RowTable, policy: str, *, out=None, rerun
             1, dtype=torch.int32, device=tags.device)
     elif reruns is not None:
         reruns.zero_()
-    err = _launcher()(
-        tags.data_ptr(), valid.data_ptr(), out.data_ptr(), table.on(tags.device).data_ptr(),
-        table.rows, table.virtual_rows, table.max_steps, table.ways, POLICY_IDS[policy],
-        table.chunk if table.chunked else 0, table.warmup,
-        0 if states is None else states.data_ptr(), 0 if count is None else count.data_ptr(),
-        torch.cuda.current_stream(tags.device).cuda_stream,
-    )
+    rows = table.on(tags.device)
+    with on_device(tags.device):
+        err = _launcher()(
+            tags.data_ptr(), valid.data_ptr(), out.data_ptr(), rows.data_ptr(),
+            table.rows, table.virtual_rows, table.max_steps, table.ways, POLICY_IDS[policy],
+            table.chunk if table.chunked else 0, table.warmup,
+            0 if states is None else states.data_ptr(),
+            0 if count is None else count.data_ptr(),
+            torch.cuda.current_stream(tags.device).cuda_stream,
+        )
     check_launch("rrip_scan", err)
-    rrip_scan_flat.launches += 2 if table.chunked else 1
+    count_launch(rrip_scan_flat, 2 if table.chunked else 1,
+                 route="chunked" if table.chunked else "short")
     return out
 
 
 rrip_scan_flat.launches = 0
+rrip_scan_flat.routes = {"short": 0, "chunked": 0}
 
 
 def rrip_scan_rows(tags, valid, ways: int, policy: str, *, reruns=None, chunk: int = CHUNK,

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from ._build import check_launch, check_rows, load_library
+from ._build import check_launch, check_rows, count_launch, load_library, on_device
 from .cache_scan import MAX_THREADS, MAX_WAYS, set_sequences, team_lanes
 
 
@@ -148,13 +148,14 @@ def stack_distance_groups(sets, tags, valid, num_sets: int, ways: int):
     evict = torch.empty((B, L), dtype=torch.bool, device=sets.device)
     if B == 0 or L == 0:
         return dist, evict
-    err = _launcher()(
-        sets.data_ptr(), tags.data_ptr(), valid.data_ptr(), dist.data_ptr(),
-        evict.data_ptr(), B, L, int(num_sets), int(ways),
-        torch.cuda.current_stream(sets.device).cuda_stream,
-    )
+    with on_device(sets.device):
+        err = _launcher()(
+            sets.data_ptr(), tags.data_ptr(), valid.data_ptr(), dist.data_ptr(),
+            evict.data_ptr(), B, L, int(num_sets), int(ways),
+            torch.cuda.current_stream(sets.device).cuda_stream,
+        )
     check_launch("stack_distance", err)
-    stack_distance_groups.launches += 1
+    count_launch(stack_distance_groups)
     return dist, evict
 
 

@@ -55,7 +55,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "kernels.embedding_bag", "kernels.ops", "kernels.ref", "kernels.flash_attention",
                 "kernels.decode_attention", "kernels.mamba2_ssd", "models.config",
                 "models.registry", "models.transformer", "models.mamba", "models.hybrid",
-                "configs.zamba2_2p7b", "data.lm", "serving.engine", "launch.serve"):
+                "configs.zamba2_2p7b", "data.lm", "serving.engine", "launch.serve",
+                "core.sweep", "core.sweep_ckpt", "core.search", "core.faults",
+                "distributed", "distributed.sweep_shard"):
         assert f"repro_torch.{sub}" in names, sub
 
 

@@ -896,3 +896,63 @@ def test_multi_token_cached_attention_refuses_the_card(cuda):
     with pytest.raises(NotImplementedError, match="cached step of 3 new tokens"):
         TL.attention(p, torch.zeros(2, 3, D, device=cuda), cfg, kv_cache=cache, cache_index=4)
     assert not any(launch_counts().values())
+
+
+def test_scan_kernels_launch_from_threads_on_their_own_streams(cuda):
+    """Shard threads launch at once, each on a stream of its own: every
+    launch equals the plain version and every launch is counted."""
+    import threading
+
+    rows = [_rows(cuda, 16, 16, seed=s) for s in range(4)]
+    want = [cache_scan_plain(*r, 16, 16, "lru") for r in rows]
+    got, errors = [None] * 4, []
+    start = threading.Barrier(4)
+    reset_launch_counts()
+
+    def worker(i):
+        try:
+            start.wait()
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                for _ in range(10):
+                    got[i] = cache_scan_groups(*rows[i], 16, 16, "lru")
+            stream.synchronize()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+    assert launch_counts()["cache_scan"] == 40
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+
+
+def test_sweep_on_the_card_equals_cpu_sharded_and_not(cuda):
+    """The DSE sweep on the card (unsharded, and two shard threads on the
+    one card) equals the same sweep on the CPU, bitwise."""
+    import dataclasses
+
+    from repro_torch.core import TranslationConfig, dlrm_rmc2_small, sweep, tpuv6e
+
+    wl = dlrm_rmc2_small(num_tables=2, rows_per_table=2000, dim=128, lookups=4, batch_size=8,
+                         num_batches=2)
+    axes = dict(policies=("spm", "lru", "srrip", "fifo", "pinning"),
+                capacities=(1 << 16, 1 << 17), ways=(4, 8), zipf_s=0.9, seed=0,
+                translations=(None, TranslationConfig(entries=16, ways=4, l2_entries=64,
+                                                      replacement="fifo")))
+
+    def records(sr):
+        return [(e.config, dataclasses.asdict(e.result)) for e in sr.entries]
+
+    want = records(sweep(wl, tpuv6e(), device="cpu", **axes))
+    reset_launch_counts()
+    assert records(sweep(wl, tpuv6e(), **axes)) == want
+    counts = launch_counts()
+    assert counts["dram_scan"] >= 1 and counts["rrip_scan"] >= 1
+    sharded = sweep(wl, tpuv6e(), devices=2, **axes)
+    assert sharded.sharded and sharded.device_count == 1
+    assert records(sharded) == want
