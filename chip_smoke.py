@@ -21,7 +21,10 @@ passed over):
      full-size calls of the on-chip cache (srrip, fifo: the short route,
      one launch) and of a FIFO TLB with an L2 behind spm (the chunked
      route, speculate + fix-up, with its re-run count against the chunked
-     plain version's) and on edge rows (ways 1 to 64, both routes),
+     plain version's) and on edge rows (ways 1 to 64, both routes), D1
+     also on phase 9's C stream (4 sources, per_core/table_rank) with its
+     aggregates on the card against the host's, finish matrix included,
+     timed beside the one-source row,
      bitwise; kernel times warm (mean of 20 back-to-back launches) and with
      the L2 cache flushed before each, K1's and K2's per bucket, D2's per
      call with its route, virtual rows, blocks and re-runs, with ns per
@@ -100,6 +103,30 @@ passed over):
      shape bucket across its configurations (fewer than their buckets one
      by one); one sweep of the grid under ``torch.profiler`` for the card's
      busy share;
+  9. the multi-core cluster at full width over the phase-4 workload, with
+     launch counts reset just before and read just after each run and held
+     to the counts the host computes from the shards (K1/K2: the shape
+     buckets of each core's lane stream; D2: each core's srrip row tables,
+     the central MMU's two FIFO levels; D1: 1 per ``simulate``, and in
+     the sweep one per ``dram_timing_many`` dispatch group of its
+     requests), with D2 first held bitwise against its plain versions on
+     those shards' srrip row tables and the MMU's two FIFO levels: A, 4
+     private cores of 32 MiB (``tpuv6e()``'s 128 MiB split four ways),
+     batch sharding, lru under ``stack``, ``pallas`` (K1) and
+     ``stack_pallas`` (K2), bitwise equal, and srrip/``stack`` (D2); B, 4
+     cores behind one shared 128 MiB LLC, lru/``stack``, its hits, misses
+     and off-chip reads equal to phase 4's single-core run; C, spm over 4
+     table-hash shards placed ``per_core``/``table_rank`` and
+     ``per_table``/``hot_replicate``, with C's per-core DRAM finish; D, A's
+     lru with phase 4's FIFO TLB (the central MMU over the merged miss
+     stream, D2 chunked); A, B, C and D against the reference's totals
+     (``REF_CLUSTER``); wall s and ``profiling.collect()`` stages (``place``,
+     ``source_finish`` among them) per run; E, the sweep over private/shared
+     x symmetric/per_core x interleave/table_rank at A's shape (8
+     configurations, 2 classification keys), its private/symmetric/
+     interleave entry bitwise equal to A's lru/stack; three small clusters
+     on the card equal to the CPU; A under ``torch.profiler`` for the
+     card's busy share;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
@@ -107,8 +134,12 @@ passed over):
 
 Then it prints the ``nvidia-smi`` name/power line, one ``{"kernels": ...}``
 JSON line (K1, K2 and D1 also with their launches in phase 8's sweeps,
-``sweep_launches``, on their first entry; D2's, by route, on ``rrip_scan[srrip]``) and, last, ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX or of the JAX package.
+``sweep_launches``, on their first entry; D2's, by route, on
+``rrip_scan[srrip]``; K1's, K2's, D2's and D1's entries with their
+launches in the phase-9 runs of ``CLUSTER_RUNS``, D1's in every run on
+``dram_scan[spm 4 cores]`` only, ``cluster_launches``) and, last,
+``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -186,6 +217,33 @@ SWEEP_CAPACITIES = (32 << 20, 128 << 20)
 SWEEP_WAYS = (8, 16)
 LRU_SUB_CAPACITIES = (32 << 20, 64 << 20, 128 << 20)
 SWEEP_CADENCE = 4
+# Phase 9, the multi-core cluster over the phase-4 workload: A is tpuv6e()'s
+# 128 MiB split four ways (the equal-silicon comparison of the JAX package's
+# examples/multicore_scaling.py), B one shared 128 MiB LLC, C spm over
+# table-hash shards under two NUMA placements, D A's lru behind phase 4's
+# FIFO TLB (the central MMU), E the sweep over topology x affinity x
+# placement. REF_CLUSTER holds the reference's full-width (total_cycles,
+# offchip_reads) of six of those runs (the JAX package on the CPU,
+# cache_backend "stack").
+CLUSTER_CORES = 4
+CLUSTER_CAPACITY = 32 << 20
+REF_CLUSTER = {"A lru/stack": (198927.5291375, 3545276),
+               "B lru/stack": (188579.2791375, 3353596),
+               "C per_core/table_rank": (793598.8807, 3785420),
+               "C per_table/hot_replicate": (696120.2557, 3785420),
+               "A srrip/stack": (198927.5291375, 3545316),
+               "D lru/stack + FIFO TLB": (46703539.5291375, 3545276)}
+# The phase-9 runs whose launches each scan kernel's JSON entry reports; an
+# entry with no phase-4 run takes its "launches" from the first. D1's are
+# reported once, on its 4-source entry, for every run.
+CLUSTER_RUNS = {"cache_scan[lru]": ("A lru/pallas",),
+                "stack_distance[lru]": ("A lru/stack_pallas",),
+                "rrip_scan[srrip]": ("A srrip/stack",),
+                "rrip_scan[tlb fifo]": ("D lru/stack + FIFO TLB",),
+                "dram_scan[spm 4 cores]": (
+                    "C per_core/table_rank", "C per_table/hot_replicate", "A lru/stack",
+                    "A lru/pallas", "A lru/stack_pallas", "A srrip/stack", "B lru/stack",
+                    "D lru/stack + FIFO TLB", "E sweep")}
 EDGE_GEOMETRIES = [(1, 1), (1, 4), (3, 2), (7, 5), (16, 7), (16, 16), (4, 32), (2, 33), (2, 64)]
 KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
@@ -342,6 +400,39 @@ def bitwise_equal(a, b) -> bool:
     if a.dtype == torch.bfloat16:
         return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
+
+
+def d2_against_plain(name: str, policy: str, tags_h, valid_h, table, dev):
+    """Run D2 on one row table of a call ``simulate`` makes and hold it
+    bitwise against its plain versions on the rows gathered into a matrix:
+    the serial one (timed), and on the chunked route the chunked one (hits
+    and re-run count). Returns the tags and mask on the card, the kernel's hits,
+    the largest difference, the plain version's ms and the kernel's re-run count."""
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_chunked_plain, rrip_scan_flat
+
+    w = table.ways
+    t_d, v_d = torch.from_numpy(tags_h).to(dev), torch.from_numpy(valid_h).to(dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    h = rrip_scan_flat(t_d, v_d, table, policy, reruns=count)
+    at = torch.from_numpy(table.off).to(dev)[:, None] + torch.arange(
+        table.max_len, device=dev)[None, :]
+    inr = at < torch.from_numpy(table.off + table.length).to(dev)[:, None]
+    at = at.clamp(max=table.total - 1)
+    t_m, v_m = t_d[at], v_d[at] & inr
+    t1 = time.perf_counter()
+    hp = PLAIN[policy](t_m, v_m, w)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t1) * 1e3
+    if not torch.equal(h[at[inr]], hp[inr]):
+        fail(f"{name} differs from its plain version on {table.rows} rows, {w} ways")
+    reruns = int(count)
+    if table.chunked:
+        hc, rc = rrip_scan_chunked_plain(t_m, v_m, w, policy, lengths=table.length,
+                                         chunk=table.chunk, warmup=table.warmup)
+        if not torch.equal(h[at[inr]], hc[inr]) or rc != reruns:
+            fail(f"{name} differs from its chunked plain version: re-runs {reruns}, "
+                 f"plain {rc}")
+    return t_d, v_d, h, max_abs_err(h[at[inr]], hp[inr]), p_ms, reruns
 
 
 def hot_ids_of(sparse: np.ndarray, rows_per_table: int, n_hot: int) -> np.ndarray:
@@ -1018,6 +1109,214 @@ def sweep_phase(dev, K, wl):
     return {"dram_scan": counts["dram_scan"], "rrip_scan": d2_routes, **backend_launches}
 
 
+def cluster_phase(dev, K, wl, single_lru):
+    """Phase 9: the multi-core cluster on the card at full width (the
+    phase-4 workload; runs A-E of ``REF_CLUSTER``'s note), with its checks.
+    ``single_lru`` is phase 4's lru/stack result as a dict. Returns the
+    launches of each run, by run name."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import (TranslationConfig, dlrm_rmc2_small, profiling, simulate, sweep,
+                                  tpuv6e)
+    from repro_torch.core.engine import build_embedding_traces
+    from repro_torch.core.memory.cache import bucket_rows
+    from repro_torch.core.memory.dram import dispatch_groups
+    from repro_torch.core.memory.rrip import row_plan
+    from repro_torch.core.memory.system import EmbeddingTrace, lane_geometry, memory_system_for
+    from repro_torch.core.memory.tlb import classify_tlb, tlb_pages
+    from repro_torch.core.trace import shard_trace
+
+    n = CLUSTER_CORES
+    hw_a = tpuv6e().with_onchip(capacity_bytes=CLUSTER_CAPACITY).with_cluster(n, "private", "batch")
+    hw_c = tpuv6e().with_cluster(n, "private", "table_hash")
+    tlb = TranslationConfig(replacement="fifo", **TRANSLATION)
+    runs = {
+        "A lru/stack": hw_a.with_policy("lru"),
+        "A lru/pallas": hw_a.with_policy("lru").with_cache_backend("pallas"),
+        "A lru/stack_pallas": hw_a.with_policy("lru").with_cache_backend("stack_pallas"),
+        "A srrip/stack": hw_a.with_policy("srrip"),
+        "B lru/stack": tpuv6e().with_policy("lru").with_cluster(n, "shared", "batch"),
+        "C per_core/table_rank": hw_c.with_placement("per_core", "table_rank"),
+        "C per_table/hot_replicate": hw_c.with_placement("per_table", "hot_replicate"),
+        "D lru/stack + FIFO TLB": hw_a.with_policy("lru").with_translation(tlb),
+    }
+
+    # The launches each run must make, computed on the host from the shards:
+    # K1/K2 one per shape bucket of each core's lane stream, D2 one per
+    # short-route row table (two per chunked one) of each core's srrip rows
+    # and of the central MMU's two FIFO levels, D1 one per simulate and, in
+    # the sweep E, one per dispatch group of its requests (built here as the
+    # sweep builds them: a classification per topology, a placement each).
+    etrace = build_embedding_traces(wl)[0]
+    lane = lane_geometry(hw_a, etrace.spec)
+    shard_vecs = [EmbeddingTrace.from_concat(etrace.spec, sh.concat).vec_ids
+                  for sh in shard_trace(etrace.concat, n, "batch") if len(sh)]
+    buckets = sum(len(list(bucket_rows([v], [lane]))) for v in shard_vecs)
+
+    def d2_launches(plans):
+        return sum(2 if table.chunked else 1 for _, _, groups in plans for _, table in groups)
+
+    srrip_plans = [row_plan(v, lane.num_sets, lane.ways, "srrip") for v in shard_vecs]
+    clas = memory_system_for(runs["D lru/stack + FIFO TLB"], dev).classify_for_pending(etrace)
+    tr = runs["D lru/stack + FIFO TLB"].translation
+    pages = tlb_pages(clas.merged.miss_lines, hw_a.onchip.line_bytes, tr.page_bytes)
+    l1 = classify_tlb(pages, tr.num_sets, tr.ways, "fifo", device=dev)
+    tlb_plans = [row_plan(pages, tr.num_sets, tr.ways, "fifo"),
+                 row_plan(pages[~l1], tr.l2_num_sets, tr.l2_ways, "fifo")]
+    srrip_d2, tlb_d2 = d2_launches(srrip_plans), d2_launches(tlb_plans)
+    e_cells = [(topo, aff, plc) for topo in ("private", "shared")
+               for aff in ("symmetric", "per_core") for plc in ("interleave", "table_rank")]
+    e_class, e_requests = {}, []
+    for topo, aff, plc in e_cells:
+        ms = memory_system_for(tpuv6e().with_policy(
+            "lru", capacity_bytes=CLUSTER_CAPACITY, ways=16).with_cluster(n, topo).with_placement(
+            aff, plc), dev)
+        if topo not in e_class:
+            e_class[topo] = ms.classify_for_pending(etrace)
+        e_requests.append(ms.pending_from(etrace, e_class[topo]).request)
+    sweep_d1 = len(dispatch_groups(e_requests))
+    expect = {"A lru/pallas": {"cache_scan": buckets},
+              "A lru/stack_pallas": {"stack_distance": buckets},
+              "A srrip/stack": {"rrip_scan": srrip_d2},
+              "D lru/stack + FIFO TLB": {"rrip_scan": tlb_d2}}
+    print(f"[9] expected launches from the host ({len(shard_vecs)} non-empty shards, lane "
+          f"geometry {lane.num_sets} sets x {lane.ways} ways): K1/K2 {buckets} (shape buckets "
+          f"summed over the shards), D2 srrip {srrip_d2}, D2 for the MMU's FIFO L1 + L2 over "
+          f"the merged miss stream ({pages.size} translations) {tlb_d2}, D1 1 per run and "
+          f"{sweep_d1} in the sweep E (dispatch groups of its {len(e_requests)} requests)",
+          flush=True)
+
+    # D2 at the shapes this path gives it, against its plain versions: each
+    # core's srrip row table (A) and the MMU's FIFO L1 and L2 (D). These
+    # launches are made before any run's counts are reset.
+    for label, policy, plans in (("A's srrip shard", "srrip", srrip_plans),
+                                 ("D's FIFO TLB level", "fifo", tlb_plans)):
+        checked = []
+        for i, (tags_h, valid_h, groups) in enumerate(plans):
+            (_, table), = groups
+            *_, err, p_ms, reruns = d2_against_plain(f"rrip_scan on {label} {i}", policy,
+                                                     tags_h, valid_h, table, dev)
+            checked.append(f"{table.rows} rows x {table.ways} ways, "
+                           f"{'chunked' if table.chunked else 'short'}, re-runs {reruns}, "
+                           f"plain {p_ms:.2f} ms")
+        print(f"[9] rrip_scan bitwise equal to its plain version on {label}s "
+              f"({'; '.join(checked)})", flush=True)
+
+    results, launches = {}, {}
+    for name, hw_run in runs.items():
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with profiling.collect() as prof:
+            res = simulate(wl, hw_run, device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        want = {"dram_scan": 1, **expect.get(name, {})}
+        if counts != {k: want.get(k, 0) for k in counts}:
+            fail(f"cluster {name}: launches {counts}; expected {want} and no other kernel")
+        summ = res.summary()
+        if (res.num_cores, len(res.batches)) != (n, wl.num_batches) or not res.total_cycles > 0 \
+                or not all(math.isfinite(v) for v in summ.values() if isinstance(v, float)):
+            fail(f"cluster {name}: malformed result {summ}")
+        if name in REF_CLUSTER and (res.total_cycles, res.offchip_reads) != REF_CLUSTER[name]:
+            fail(f"cluster {name}: total_cycles {res.total_cycles!r}, offchip_reads "
+                 f"{res.offchip_reads}; the reference's {REF_CLUSTER[name]}")
+        results[name], launches[name] = dataclasses.asdict(res), counts
+        stages = {k: round(v, 4) for k, v in prof.breakdown(wall).items()}
+        acc = res.cache_hits + res.cache_misses
+        print(f"[9] {name} ({n} cores, {hw_run.topology.value}, {hw_run.lookup_sharding.value}, "
+              f"{hw_run.onchip.capacity_bytes >> 20} MiB "
+              f"{'shared' if hw_run.topology.value == 'shared' else 'a core'}, "
+              f"{hw_run.channel_affinity}/"
+              f"{hw_run.placement}) on {dev} ({smi('name,power.limit')}): wall {wall!r} s, "
+              f"total_cycles {res.total_cycles!r}, offchip_reads {res.offchip_reads}, hit rate "
+              f"{res.cache_hits / max(acc, 1)!r}, launches {counts}, stages "
+              f"{json.dumps(stages)}", flush=True)
+    lru = [results[k] for k in ("A lru/stack", "A lru/pallas", "A lru/stack_pallas")]
+    if any(r != lru[0] for r in lru[1:]):
+        fail("cluster A: lru under stack, pallas (K1) and stack_pallas (K2) differ")
+    single = {k: sum(b[k] for b in single_lru["batches"])
+              for k in ("cache_hits", "cache_misses", "offchip_reads")}
+    shared = {k: sum(b[k] for b in results["B lru/stack"]["batches"]) for k in single}
+    if shared != single:
+        fail(f"cluster B: a shared LLC's counts {shared} differ from one core's {single}")
+    print(f"[9] A's three lru backends bitwise equal; B's counts equal phase 4's single-core "
+          f"lru/stack ({single}); A, B, C and D equal the reference's totals {REF_CLUSTER}",
+          flush=True)
+
+    # The per-core detail of C: each core's DRAM finish under contention,
+    # the slowest bounding the batch.
+    stats = memory_system_for(runs["C per_core/table_rank"], dev).simulate_embedding(etrace)
+    for b, st in enumerate(stats):
+        fins = [pc.dram_finish_cycles for pc in st.per_core]
+        if len(fins) != n or not all(f > 0 for f in fins) or st.dram_cycles != max(fins):
+            fail(f"cluster C batch {b}: per-core DRAM finish {fins}, batch {st.dram_cycles!r}")
+    print(f"[9] C per_core/table_rank per-core DRAM finish by batch: "
+          f"{[[pc.dram_finish_cycles for pc in st.per_core] for st in stats]}; lookups "
+          f"{[[pc.lookups for pc in st.per_core] for st in stats]}", flush=True)
+
+    # E: the sweep over topology x affinity x placement at A's shape.
+    axes = dict(policies=("lru",), capacities=(CLUSTER_CAPACITY,), ways=(16,), num_cores=(n,),
+                topologies=("private", "shared"), channel_affinities=("symmetric", "per_core"),
+                placements=("interleave", "table_rank"), zipf_s=0.8, seed=0)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.collect() as prof:
+        sw = sweep(wl, tpuv6e(), device=dev, **axes)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    class_keys = {e.memo_key[:-3] for e in sw.entries}
+    if (sw.num_configs, len(class_keys)) != (8, 2):
+        fail(f"cluster sweep: {sw.num_configs} configurations, {len(class_keys)} class keys")
+    if counts != {k: sweep_d1 if k == "dram_scan" else 0 for k in counts}:
+        fail(f"cluster sweep: launches {counts}; expected {sweep_d1} of dram_scan and no other")
+    base = next(e for e in sw.entries if (e.config.topology, e.config.channel_affinity,
+                                          e.config.placement) == ("private", "symmetric",
+                                                                  "interleave"))
+    if dataclasses.asdict(base.result) != results["A lru/stack"]:
+        fail(f"cluster sweep: entry {base.config.label} differs from A's lru/stack run")
+    launches["E sweep"] = counts
+    stages = {k: round(v, 4) for k, v in prof.breakdown(wall).items()}
+    print(f"[9] E: sweep of {sw.num_configs} cluster configurations ({sw.distinct_memo_keys} memo "
+          f"keys, {len(class_keys)} classification keys) on {dev} ({smi('name,power.limit')}): "
+          f"wall {wall!r} s, {wall / sw.num_configs!r} s per configuration; launches {counts}; "
+          f"entry {base.config.label} bitwise equal to A's lru/stack; embedding cycles by "
+          f"(topology, affinity, placement) "
+          f"{ {(e.config.topology, e.config.channel_affinity, e.config.placement): e.result.embedding_cycles for e in sw.entries} }; "
+          f"stages {json.dumps(stages)}", flush=True)
+
+    # Small clusters on the card against the same runs on the CPU.
+    small_wl = dlrm_rmc2_small(num_tables=2, rows_per_table=300, batch_size=2, num_batches=2)
+    for hw_small in (
+            tpuv6e().with_policy("lru", capacity_bytes=1 << 14).with_cache_backend("pallas")
+            .with_cluster(2, "private", "table_hash").with_placement("per_core", "table_rank"),
+            tpuv6e().with_policy("srrip", capacity_bytes=1 << 14).with_cluster(2, "shared"),
+            tpuv6e().with_policy("fifo", capacity_bytes=1 << 14).with_cache_backend(
+                "stack_pallas").with_cluster(2, "private", "batch").with_placement(
+                "per_table", "hot_replicate").with_translation(
+                replacement="fifo", entries=16, ways=4, l2_entries=64)):
+        on_card = dataclasses.asdict(simulate(small_wl, hw_small, device=dev))
+        if on_card != dataclasses.asdict(simulate(small_wl, hw_small, device="cpu")):
+            fail(f"small cluster {hw_small.onchip.policy.value}/{hw_small.topology.value}: the "
+                 f"card differs from the CPU")
+    print("[9] small clusters on the card equal the same runs on the CPU (lru/pallas per_core/"
+          "table_rank, srrip shared, fifo/stack_pallas per_table/hot_replicate + FIFO TLB)",
+          flush=True)
+
+    # The card's busy share in a profiled run of A.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        t0 = time.perf_counter()
+        simulate(wl, runs["A lru/stack"], device=dev)
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+    print(f"[9] profiled A lru/stack: wall {p_wall!r} s, "
+          f"{device_busy(tprof.events(), p_wall, ('dram_scan',))}", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs an NVIDIA GPU")
@@ -1027,8 +1326,8 @@ def main() -> None:
     from repro_torch.core import profiling
     from repro_torch.core.engine import build_embedding_traces
     from repro_torch.core.memory.cache import bucket_rows
-    from repro_torch.core.memory.dram import chunk_rows
-    from repro_torch.core.memory.system import MemorySystem, lane_geometry
+    from repro_torch.core.memory.dram import chunk_rows, simulate_dram_contended
+    from repro_torch.core.memory.system import MemorySystem, lane_geometry, memory_system_for
     from repro_torch.kernels import _build
     from repro_torch.kernels.cache_scan import (
         blocks_per_sm as k1_blocks_per_sm, cache_scan_groups, cache_scan_plain, team_lanes)
@@ -1268,6 +1567,58 @@ def main() -> None:
         fail("dram_scan differs bitwise from its plain version on the ragged input")
     print("[3] dram_scan: bitwise equal to plain on a ragged (5, 96) input", flush=True)
 
+    # D1 on config C's merged miss stream: spm over 4 table-hash shards,
+    # placed per_core/table_rank, one source a core. Run boundaries fold the
+    # source, so the stream has more, shorter runs; the per-source finish is
+    # built on the host from the scan's chunk results (aggregate "device")
+    # and held against the per-access expansion (aggregate "host").
+    hw_c = hw.with_cluster(CLUSTER_CORES, "private", "table_hash").with_placement(
+        "per_core", "table_rank")
+    req4 = memory_system_for(hw_c, "cuda").prepare_embedding(etrace).request
+    st4 = chunk_rows(req4.lines, req4.seg, req4.src, req4.num_segments, req4.num_sources,
+                     req4.model)
+    if req4.num_sources != CLUSTER_CORES or st4["k_max"] > 8:
+        fail(f"dram_scan on C: {req4.num_sources} sources, k_max {st4['k_max']}")
+    args4 = [torch.from_numpy(st4[k]).to(dev) for k in ("bk_m", "row_m", "k_m", "va_m")]
+    scal4 = scal[:1] + (st4["k_max"],) + scal[2:4] + (st4["bus_cyc"],)
+    got4 = dram_scan_chunked(*args4, *scal4)
+    t1 = time.perf_counter()
+    want4 = dram_scan_plain(*args4, *scal4)
+    torch.cuda.synchronize()
+    d1c_plain_ms = (time.perf_counter() - t1) * 1e3
+    pairs4 = list(zip(got4[0] + got4[1], want4[0] + want4[1]))
+    if not all(bitwise_equal(a, b) for a, b in pairs4):
+        fail("dram_scan differs bitwise from its plain version on C's 4-source stream")
+    dram_args = (req4.lines, req4.seg, req4.src, req4.num_segments, req4.num_sources, req4.model)
+    with profiling.collect() as d1prof:
+        res_dev, fin_dev = simulate_dram_contended(*dram_args, aggregate="device", device=dev)
+    res_host, fin_host = simulate_dram_contended(*dram_args, aggregate="host", device=dev)
+    if ([dataclasses.asdict(r) for r in res_dev] != [dataclasses.asdict(r) for r in res_host]
+            or not np.array_equal(fin_dev, fin_host)):
+        fail("dram_scan on C: aggregate 'device' differs from 'host' (results or finish)")
+    if not (np.all(fin_dev > 0) and np.array_equal(fin_dev.max(axis=1),
+                                                   [r.finish_cycle for r in res_dev])):
+        fail(f"dram_scan on C: per-source finish {fin_dev.tolist()} against the segments' "
+             f"{[r.finish_cycle for r in res_dev]}")
+    d1c_ms = time_ms(lambda: dram_scan_chunked(*args4, *scal4), 20)
+    d1c_cold = time_cold_ms(lambda: dram_scan_chunked(*args4, *scal4), 20, flush)
+    R4, Lc4 = args4[0].shape
+    kv4 = st4["k_m"][st4["va_m"]].astype(np.int64)
+    d1c_chain = int(((st4["k_m"].astype(np.int64) + 1) * st4["va_m"]).sum(axis=1).max())
+    entries["dram_scan[spm 4 cores]"] = dict(
+        kind="dram_scan", err=max(max_abs_err(a, b) for a, b in pairs4), ms=d1c_ms,
+        plain_ms=d1c_plain_ms, nbytes=R4 * Lc4 * (4 * 3 + 1) + R4 * Lc4 * (4 + 1) + R4 * 12,
+        ops=int((2 * (kv4 - 1) + 6).sum()), lat_ms=d1c_chain * f32_op_ms, shapes=[(R4, Lc4)])
+    d1c_stages = {k: round(v, 4) for k, v in d1prof.breakdown().items()}
+    print(f"[3] dram_scan on C's merged stream ({req4.num_sources} sources, per_core/table_rank): "
+          f"bitwise equal to plain at (R, Lc)={(R4, Lc4)}; {st4['nr']} runs, "
+          f"{st4['n_chunks']} chunks, k_max {st4['k_max']} (one source: {st['nr']} runs, "
+          f"{st['n_chunks']} chunks); aggregate 'device' equals 'host', finish matrix "
+          f"included ({fin_dev.tolist()}); kernel {d1c_ms!r} ms ({d1c_cold!r} L2 flushed) "
+          f"beside one source's {d1_ms!r} ms ({d1_cold!r}); longest bus chain {d1c_chain}, "
+          f"{d1c_chain * f32_op_ms / d1c_ms!r} of its chain bound; plain {d1c_plain_ms:.2f} ms; "
+          f"the call's host stages {json.dumps(d1c_stages)}", flush=True)
+
     # D2 on the calls simulate makes: the lane stream of the on-chip cache
     # under srrip and fifo (one call each, the short route), and the page
     # streams of a FIFO TLB (L1, then an L2 that sees the L1 misses; the
@@ -1294,31 +1645,9 @@ def main() -> None:
         for tags_h, valid_h, groups in plans:
             (_, table), = groups
             w = table.ways
-            t_d, v_d = torch.from_numpy(tags_h).to(dev), torch.from_numpy(valid_h).to(dev)
-            count = torch.zeros(1, dtype=torch.int32, device=dev)
-            h = rrip_scan_flat(t_d, v_d, table, policy, reruns=count)
-            # The plain versions on the rows gathered into a matrix: the
-            # serial one (timed), and on the chunked route the chunked one
-            # (hits and re-run count).
-            at = torch.from_numpy(table.off).to(dev)[:, None] + torch.arange(
-                table.max_len, device=dev)[None, :]
-            inr = at < torch.from_numpy(table.off + table.length).to(dev)[:, None]
-            at = at.clamp(max=table.total - 1)
-            t_m, v_m = t_d[at], v_d[at] & inr
-            t1 = time.perf_counter()
-            hp = RRIP_PLAIN[policy](t_m, v_m, w)
-            torch.cuda.synchronize()
-            p_ms += (time.perf_counter() - t1) * 1e3
-            if not torch.equal(h[at[inr]], hp[inr]):
-                fail(f"{name} differs from its plain version on {table.rows} rows, {w} ways")
-            reruns = int(count)
-            if table.chunked:
-                hc, rc = rrip_scan_chunked_plain(t_m, v_m, w, policy, lengths=table.length,
-                                                 chunk=table.chunk, warmup=table.warmup)
-                if not torch.equal(h[at[inr]], hc[inr]) or rc != reruns:
-                    fail(f"{name} differs from its chunked plain version: re-runs {reruns}, "
-                         f"plain {rc}")
-            err = max(err, max_abs_err(h[at[inr]], hp[inr]))
+            t_d, v_d, h, t_err, t_p_ms, reruns = d2_against_plain(name, policy, tags_h,
+                                                                  valid_h, table, dev)
+            err, p_ms = max(err, t_err), p_ms + t_p_ms
             out = torch.empty_like(h)
 
             def run(t_d=t_d, v_d=v_d, table=table, out=out):
@@ -1827,17 +2156,27 @@ def main() -> None:
     # ---- 8. the DSE sweep at full width ------------------------------------
     sweep_launches = sweep_phase(dev, K, wl)
 
+    # ---- 9. the multi-core cluster at full width ---------------------------
+    cluster_launches = cluster_phase(dev, K, wl, results[("lru", "stack")])
+
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
                 "dram_scan[spm]": ("spm", "stack"), "rrip_scan[srrip]": ("srrip", "stack"),
                 "rrip_scan[fifo]": ("fifo", "stack"), "rrip_scan[tlb fifo]": ("spm", "tlb fifo")}
     for name, e in entries.items():
-        e["launches"] = (launches[main_run[name]][e["kind"]] if name in main_run
-                         else dlrm_launches[e["kind"]])
+        runs = CLUSTER_RUNS.get(name, ())
+        if name in main_run:
+            e["launches"] = launches[main_run[name]][e["kind"]]
+        elif runs:
+            e["launches"] = cluster_launches[runs[0]][e["kind"]]
+        else:
+            e["launches"] = dlrm_launches[e["kind"]]
         if name in ("cache_scan[lru]", "stack_distance[lru]", "dram_scan[spm]",
                     "rrip_scan[srrip]"):
             e["sweep_launches"] = sweep_launches[e["kind"]]
+        if runs:
+            e["cluster_launches"] = {run: cluster_launches[run][e["kind"]] for run in runs}
     for name, e in lm_entries.items():
         e["launches"] = lm_counts[e["kind"]]
     entries.update(lm_entries)
@@ -1863,6 +2202,7 @@ def main() -> None:
             "bound_by": "bytes" if bytes_ms >= bound_ms else "operations",
             "library_ms": e.get("library_ms"), "shapes": e["shapes"],
             **({"sweep_launches": e["sweep_launches"]} if "sweep_launches" in e else {}),
+            **({"cluster_launches": e["cluster_launches"]} if "cluster_launches" in e else {}),
         })
     print(f"[5] script wall {time.perf_counter() - t_script:.1f} s", flush=True)
     print(name_power, flush=True)

@@ -583,18 +583,19 @@ def _contended_finish(st: dict, aggregate: str = "device"):
             # LAST line. Its value is the chunk-first completion plus the
             # same sequential f32 bus adds the scan applied — bitwise equal
             # to the per-access expansion the host mode keeps as reference.
-            m_of_run = np.cumsum(new_merged) - 1
-            pos_in_m = pre_o - pre_o[mstart_r][m_of_run]
-            p_last = pos_in_m + rlen_o - 1
-            c_last = chunk_ofs[m_of_run] + p_last // k_max
-            j_last = p_last % k_max
-            val = done0_chunk[c_last]
-            for step in range(1, k_max):
-                val = np.where(j_last >= step, val + bus32, val)
-            key_run = rseg_o * num_sources + src_run
-            np.maximum.at(
-                finish.reshape(-1), key_run, (val + cas32).astype(np.float64)
-            )
+            with stage("source_finish"):
+                m_of_run = np.cumsum(new_merged) - 1
+                pos_in_m = pre_o - pre_o[mstart_r][m_of_run]
+                p_last = pos_in_m + rlen_o - 1
+                c_last = chunk_ofs[m_of_run] + p_last // k_max
+                j_last = p_last % k_max
+                val = done0_chunk[c_last]
+                for step in range(1, k_max):
+                    val = np.where(j_last >= step, val + bus32, val)
+                key_run = rseg_o * num_sources + src_run
+                np.maximum.at(
+                    finish.reshape(-1), key_run, (val + cas32).astype(np.float64)
+                )
         else:
             # Expand per-access completions: chunk's first completion + j
             # sequential f32 adds of the bus occupancy + t_cas — the exact
@@ -807,6 +808,22 @@ def _timing_contended_finish(started):
     return _contended_finish(value)
 
 
+def dispatch_groups(requests: "list[DramRequest]") -> "dict[tuple, list[int]]":
+    """The indices of ``requests`` that ``dram_timing_many`` times in one
+    dispatch (one event scan), keyed by ``(model, chunk bucket)``."""
+    groups: "dict[tuple, list[int]]" = {}
+    for i, r in enumerate(requests):
+        # Group by model AND estimated padded row length: co-dispatching a
+        # tiny miss trace with a huge one would pad the tiny one's
+        # (segment, channel) rows to the huge one's chunk count. The estimate
+        # only shapes the grouping — results are exact for any grouping.
+        n_req = np.asarray(r.lines).size
+        est_row = max(1, n_req // max(1, r.num_segments * r.model.channels
+                                      * max(1, min(r.model.lines_per_block, 8))))
+        groups.setdefault((r.model, _chunk_bucket_len(est_row)), []).append(i)
+    return groups
+
+
 def dram_timing_many(
     requests: "list[DramRequest]", batch: bool = True, *, device: DeviceLike = "cuda"
 ):
@@ -828,16 +845,7 @@ def dram_timing_many(
     out = [None] * len(requests)
     if not batch:
         return [dram_timing_single(r, dev) for r in requests]
-    groups: "dict[tuple, list[int]]" = {}
-    for i, r in enumerate(requests):
-        # Group by model AND estimated padded row length: co-dispatching a
-        # tiny miss trace with a huge one would pad the tiny one's
-        # (segment, channel) rows to the huge one's chunk count. The estimate
-        # only shapes the grouping — results are exact for any grouping.
-        n_req = np.asarray(r.lines).size
-        est_row = max(1, n_req // max(1, r.num_segments * r.model.channels
-                                      * max(1, min(r.model.lines_per_block, 8))))
-        groups.setdefault((r.model, _chunk_bucket_len(est_row)), []).append(i)
+    groups = dispatch_groups(requests)
     # Start every group (host prep + a launch that is not waited on) before
     # finishing any, then drain singles, then extract, so each group's host
     # bookkeeping overlaps the earlier groups' scans on the card. Grouping

@@ -44,14 +44,28 @@ Many configurations of one policy (``classify_embedding_many``,
 one ``MemoryPolicy.run_many`` and time DRAM through one
 ``dram_timing_many``; results are bitwise those of per-system calls.
 
-This package runs the single-core pipeline on ``device``. Multi-core
-clusters and non-identity NUMA placements raise ``NotImplementedError``
-until their slices are ported.
+Multi-core CoreCluster topology (``MultiCoreMemorySystem``): the same
+classify pipeline runs once per deterministic per-core trace shard (PRIVATE
+topology — each core owns an on-chip memory) or once over the interleaved
+stream (SHARED last-level topology), and all cores' miss bursts are then
+timed against ONE shared DRAM with cross-core channel contention (one
+``dram_timing_contended`` call with a source per core). The degenerate
+``num_cores=1, private`` configuration delegates to the single-core path.
+
+NUMA placement (``hw.channel_affinity`` / ``hw.placement``): before a miss
+trace becomes a ``DramRequest``, ``PlacementMap.place`` (trace.py) maps each
+line to its (channel-group, rank) home — per-core channel groups under
+``per_core``, per-table groups under ``per_table``, TensorDIMM-style
+per-rank table homes under ``table_rank``/``hot_replicate``. The transform
+is a host address remapping, so the DRAM engines run untouched; the
+degenerate ``symmetric``/``interleave`` pair skips the map entirely.
+
+Every path runs its cache engines and the DRAM scan on ``device``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -64,6 +78,9 @@ from ..trace import (
     ConcatTrace,
     FullTrace,
     PlacementMap,
+    profile_hot_vectors,
+    shard_lookup_cores,
+    shard_trace,
     translate,
     validate_indices,
 )
@@ -105,8 +122,7 @@ def lane_geometry(hw: HardwareConfig, spec: EmbeddingOpSpec) -> Optional[CacheGe
 
 @dataclass
 class CoreBatchStats:
-    """Per-core detail for one batch under a multi-core topology (the
-    checkpoint journal's codec names it; no multi-core path is ported yet)."""
+    """Per-core detail for one batch under a multi-core topology."""
 
     core_id: int
     lookups: int = 0
@@ -168,8 +184,27 @@ class EmbeddingTrace:
         self._vec_ids: Optional[np.ndarray] = None
         self._lookup_batch: Optional[np.ndarray] = None
         self._atraces: Dict[int, AddressTrace] = {}
+        self._hot_vecs: Optional[np.ndarray] = None
         self._unique_lines: Dict[int, int] = {}
         self._unique_pages: Dict[Tuple[int, int], np.ndarray] = {}
+
+    @classmethod
+    def from_concat(cls, spec: EmbeddingOpSpec, concat: ConcatTrace) -> "EmbeddingTrace":
+        """Wrap an existing ConcatTrace (e.g. one core's shard) directly."""
+        et = cls.__new__(cls)
+        et.spec = spec
+        et.concat = concat
+        validate_indices(concat.row_ids, spec.rows_per_table,
+                         what="row index")
+        validate_indices(concat.table_ids, spec.num_tables,
+                         what="table id")
+        et._vec_ids = None
+        et._lookup_batch = None
+        et._atraces = {}
+        et._hot_vecs = None
+        et._unique_lines = {}
+        et._unique_pages = {}
+        return et
 
     @property
     def num_batches(self) -> int:
@@ -226,9 +261,19 @@ class EmbeddingTrace:
             self._unique_pages[key] = up
         return up
 
+    @property
+    def hot_vec_ids(self) -> np.ndarray:
+        """Profiled hot vector set (sorted ids) for ``hot_replicate``
+        placement — deterministic in the trace, hardware-independent, so it
+        is computed once and shared across every sweep configuration."""
+        if self._hot_vecs is None:
+            with stage("trace_gen"):
+                self._hot_vecs = profile_hot_vectors(self.vec_ids)
+        return self._hot_vecs
+
 
 # --------------------------------------------------------------------------
-# Classification result (decoupled from DRAM timing)
+# Classification result (decoupled from DRAM timing for multi-core reuse)
 # --------------------------------------------------------------------------
 
 @dataclass
@@ -237,8 +282,9 @@ class ClassifiedStream:
 
     ``miss_pos`` (optional) is the global line-slot of each miss —
     ``global_lookup * lines_per_vector + line_offset`` — unique per line
-    access, so independently classified sub-streams (policy groups) merge
-    back into ONE deterministic stream for DRAM timing by sorting on it.
+    access, so independently classified sub-streams (per-core shards, policy
+    groups) merge back into ONE deterministic interleaved stream for
+    shared-DRAM timing by sorting on it.
     """
 
     num_batches: int
@@ -299,19 +345,23 @@ def _expand_lane_misses(
     return miss_lines, miss_pos
 
 
-def _merge_miss_streams(m_lines, m_batch, m_pos):
+def _merge_miss_streams(m_lines, m_batch, m_pos, m_src=None):
     """Merge independently classified miss streams into global trace order.
 
     Positions are unique line slots (``global_lookup * lpv + offset``), so a
     stable argsort reconstructs the exact order the merged bursts reach the
-    memory controller. Returns ``(lines, batch, pos)``.
+    shared memory controller. Returns ``(lines, batch, pos, src)``; ``src``
+    is ``None`` unless per-stream source tags were given.
     """
     empty = np.zeros(0, dtype=np.int64)
     lines = np.concatenate(m_lines) if m_lines else empty
     batch = np.concatenate(m_batch) if m_batch else empty
     pos = np.concatenate(m_pos) if m_pos else empty
     order = np.argsort(pos, kind="stable")
-    return lines[order], batch[order], pos[order]
+    src = None
+    if m_src is not None:
+        src = (np.concatenate(m_src) if m_src else empty)[order]
+    return lines[order], batch[order], pos[order], src
 
 
 @dataclass
@@ -324,6 +374,29 @@ class _PreparedStream:
     acc_batch: np.ndarray            # batch of each stream access
     use_lane: bool
     at: Optional[AddressTrace]       # line trace (line-granular path only)
+
+
+@dataclass
+class _ClusterClassified:
+    """Placement-invariant classification of a multi-core cluster.
+
+    Everything ``MultiCoreMemorySystem.pending_from`` needs to fan out into
+    placement-specific DRAM requests: the merged miss stream, the per-miss
+    source-core tags, and the stats-assembly closure (which reads only
+    placement-invariant hardware fields, so it is shared verbatim across
+    placement siblings)."""
+
+    merged: "ClassifiedStream"
+    miss_src: np.ndarray
+    finalize: Callable
+    # Shared memo for the group-independent half of the placement transform
+    # (PlacementMap.place) — scoped to this classification's miss stream, so
+    # placement siblings reuse the per-line base instead of recomputing it.
+    place_cache: dict = field(default_factory=dict)
+    # Memoized translation charges (see ClassifiedStream.tlb_cache): the
+    # central MMU observes the merged virtual miss stream, so the charge is
+    # shared across placement siblings of this classification.
+    tlb_cache: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -342,7 +415,7 @@ class PendingEmbedding:
 
 
 # --------------------------------------------------------------------------
-# MemorySystem (single core)
+# MemorySystem (single core / shared-LLC pipeline)
 # --------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -566,7 +639,7 @@ class MemorySystem:
                 m_batch.append(acc_batch[misses])
                 m_pos.append(lookup_index[at.vector_of_line[midx]] * lpv + midx % lpv)
 
-        all_lines, all_batch, all_pos = _merge_miss_streams(m_lines, m_batch, m_pos)
+        all_lines, all_batch, all_pos, _ = _merge_miss_streams(m_lines, m_batch, m_pos)
         return ClassifiedStream(
             num_batches=num_batches,
             hit_lines=hit_lines,
@@ -672,11 +745,8 @@ class MemorySystem:
         hw = self.hw
         if hw.channel_affinity == "symmetric" and hw.placement == "interleave":
             return None
-        if hw.placement == "hot_replicate":
-            raise NotImplementedError(
-                "placement 'hot_replicate' is not ported yet (see ROADMAP.md)"
-            )
-        return PlacementMap.from_model(self.dram, hw, etrace.spec)
+        hot = etrace.hot_vec_ids if hw.placement == "hot_replicate" else None
+        return PlacementMap.from_model(self.dram, hw, etrace.spec, hot_vecs=hot)
 
     def _place_misses(
         self,
@@ -688,7 +758,8 @@ class MemorySystem:
         pm = self.placement_map(etrace)
         if pm is None:
             return miss_lines
-        return pm.place(miss_lines, miss_src, cache=place_cache)
+        with stage("place"):
+            return pm.place(miss_lines, miss_src, cache=place_cache)
 
     def _pending(self, etrace: EmbeddingTrace, cs: ClassifiedStream) -> PendingEmbedding:
         # Translation observes the VIRTUAL miss stream, before PlacementMap
@@ -794,13 +865,251 @@ def simulate_embedding_many(
     ]
 
 
-def memory_system_for(hw: HardwareConfig, device: DeviceLike = "cuda") -> MemorySystem:
-    """The memory pipeline for a hardware config: the single-core
-    ``MemorySystem``. Multi-core clusters are not ported yet."""
+# --------------------------------------------------------------------------
+# MultiCoreMemorySystem (CoreCluster topology)
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MultiCoreMemorySystem:
+    """N-core memory pipeline over one shared DRAM.
+
+    PRIVATE topology: the embedding trace is sharded deterministically across
+    cores (``hw.lookup_sharding``); each core's shard runs the standard
+    classify pipeline against that core's own on-chip memory (``hw.onchip``
+    describes ONE core's memory). SHARED topology: one last-level on-chip
+    memory observes the interleaved stream of every core, so classification
+    equals the single-core path while vector compute still shards per core.
+
+    Either way, all cores' miss bursts are merged in global trace order and
+    timed against ONE shared DRAM with cross-core channel contention
+    (``dram_timing_contended``) — per batch, DRAM state is fresh (double-
+    buffered streaming) but cores contend within the batch. Every core's
+    cache engines and the contended DRAM scan run on ``device``.
+    """
+
+    hw: HardwareConfig
+    core: MemorySystem
+
+    @staticmethod
+    def from_hardware(
+        hw: HardwareConfig, device: DeviceLike = "cuda"
+    ) -> "MultiCoreMemorySystem":
+        return MultiCoreMemorySystem(
+            hw=hw, core=MemorySystem.from_hardware(hw, device)
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.core.device
+
+    @property
+    def policy(self) -> MemoryPolicy:
+        return self.core.policy
+
+    @property
+    def dram(self) -> DramModel:
+        return self.core.dram
+
+    def classify_for_pending(
+        self,
+        etrace: EmbeddingTrace,
+        pinned_lines: Optional[np.ndarray] = None,
+        allow_lane: bool = True,
+    ) -> Union[ClassifiedStream, "_ClusterClassified"]:
+        """Classify every core's shard (or the shared stream) WITHOUT the
+        placement transform or DRAM request — the placement-invariant half of
+        ``prepare_embedding``, shareable across placement siblings (the
+        cluster stats assembly reads only placement-invariant hardware
+        fields). Returns a plain ``ClassifiedStream`` for the degenerate
+        single-core cluster."""
+        hw = self.hw
+        n = hw.num_cores
+        if n == 1 and hw.topology == Topology.PRIVATE:
+            # Degenerate cluster == the single-core path, bit-exact.
+            return self.core.classify_for_pending(etrace, pinned_lines, allow_lane)
+
+        spec = etrace.spec
+        concat = etrace.concat
+        B = etrace.num_batches
+        line = hw.onchip.line_bytes
+        lpv = max(1, -(-spec.vector_bytes // line))
+        core_of = shard_lookup_cores(concat, n, hw.lookup_sharding.value)
+        lb = etrace.lookup_batch
+        core_lookups = np.bincount(
+            core_of.astype(np.int64) * B + lb, minlength=n * B
+        ).reshape(n, B)
+        total_lookups = np.maximum(core_lookups.sum(axis=0), 1)
+
+        if hw.topology == Topology.SHARED:
+            cs = self.core.classify_embedding(
+                etrace, pinned_lines, allow_lane,
+                lookup_index=np.arange(len(concat), dtype=np.int64),
+            )
+            miss_core = core_of[cs.miss_pos // lpv].astype(np.int64)
+            merged = cs
+            core_reads = core_lookups * lpv
+            core_miss = np.bincount(
+                miss_core * B + cs.miss_batch, minlength=n * B
+            ).reshape(n, B)
+        else:
+            shards = shard_trace(concat, n, hw.lookup_sharding.value, core_of=core_of)
+            core_reads = np.zeros((n, B), dtype=np.int64)
+            core_miss = np.zeros((n, B), dtype=np.int64)
+            hit_lines = np.zeros(B, dtype=np.int64)
+            miss_count = np.zeros(B, dtype=np.int64)
+            reads = np.zeros(B, dtype=np.int64)
+            setup = 0
+            m_lines, m_batch, m_pos, m_src = [], [], [], []
+            for shard in shards:
+                if len(shard) == 0:
+                    continue
+                et_c = EmbeddingTrace.from_concat(spec, shard.concat)
+                c_cs = self.core.classify_embedding(
+                    et_c, pinned_lines, allow_lane, lookup_index=shard.lookup_index
+                )
+                core_reads[shard.core_id] = c_cs.reads
+                core_miss[shard.core_id] = c_cs.miss_count
+                hit_lines += c_cs.hit_lines
+                miss_count += c_cs.miss_count
+                reads += c_cs.reads
+                setup += c_cs.setup_writes
+                m_lines.append(c_cs.miss_lines)
+                m_batch.append(c_cs.miss_batch)
+                m_pos.append(c_cs.miss_pos)
+                m_src.append(
+                    np.full(c_cs.miss_lines.size, shard.core_id, dtype=np.int64)
+                )
+            all_lines, all_batch, all_pos, miss_core = _merge_miss_streams(
+                m_lines, m_batch, m_pos, m_src
+            )
+            merged = ClassifiedStream(
+                num_batches=B,
+                hit_lines=hit_lines,
+                miss_count=miss_count,
+                reads=reads,
+                setup_writes=setup,
+                miss_lines=all_lines,
+                miss_batch=all_batch,
+                miss_pos=all_pos,
+            )
+
+        def finalize(drams, core_finish, tlb=None) -> List[EmbeddingBatchStats]:
+            # Counts/DRAM fields follow the single-core accounting contract
+            # verbatim; only the cycle model (slowest core bounds the batch)
+            # and the per-core detail are cluster-specific overrides below.
+            # ``tlb`` is injected per-config by ``pending_from`` (translation
+            # is a per-config axis; this closure is shared across siblings).
+            stats = self.core._assemble_stats(etrace, merged, drams, tlb)
+            onchip_bw = max(hw.onchip.read_bw_bytes_per_cycle, 1)
+            lat = hw.onchip.latency_cycles
+            for b, s in enumerate(stats):
+                full_vector = s.vector_cycles
+                per_core: List[CoreBatchStats] = []
+                for c in range(n):
+                    if hw.topology == Topology.SHARED:
+                        # One LLC port streams every core's lines.
+                        oc = int(merged.reads[b]) * line / onchip_bw + lat
+                    else:
+                        oc = int(core_reads[c, b]) * line / onchip_bw + lat
+                    vc = full_vector * core_lookups[c, b] / total_lookups[b]
+                    per_core.append(CoreBatchStats(
+                        core_id=c,
+                        lookups=int(core_lookups[c, b]),
+                        onchip_reads=int(core_reads[c, b]),
+                        cache_misses=int(core_miss[c, b]),
+                        onchip_cycles=oc,
+                        vector_cycles=vc,
+                        dram_finish_cycles=float(core_finish[b, c]),
+                    ))
+                s.onchip_cycles = max(pc.onchip_cycles for pc in per_core)
+                s.vector_cycles = max(pc.vector_cycles for pc in per_core)
+                s.per_core = per_core
+                s.cycles = max(s.onchip_cycles, s.dram_cycles, s.vector_cycles)
+                if tlb is not None:
+                    # Central MMU: walks serialize with the shared DRAM path.
+                    s.cycles = max(
+                        s.onchip_cycles,
+                        s.dram_cycles + s.translation_cycles,
+                        s.vector_cycles,
+                    )
+            return stats
+
+        return _ClusterClassified(
+            merged=merged,
+            miss_src=np.asarray(miss_core, dtype=np.int64),
+            finalize=finalize,
+        )
+
+    def pending_from(
+        self,
+        etrace: EmbeddingTrace,
+        clas: Union[ClassifiedStream, "_ClusterClassified"],
+    ) -> PendingEmbedding:
+        """Apply THIS config's placement transform to an already classified
+        cluster and package the deferred contended-DRAM dispatch (see
+        ``MemorySystem.pending_from``)."""
+        if isinstance(clas, ClassifiedStream):
+            # Degenerate single-core cluster.
+            return self.core.pending_from(etrace, clas)
+        # The central MMU translates the merged VIRTUAL miss stream (global
+        # interleaved order, pre-placement) — per-config, since siblings
+        # sharing the classification can carry different TLBs; memoized on
+        # the classification so equal TLB configs translate once.
+        tcfg = self.hw.translation
+        tlb = None if tcfg is None else charge_cache_lookup(
+            clas.tlb_cache, clas.merged.miss_lines, clas.merged.miss_batch,
+            etrace.num_batches, self.hw.onchip.line_bytes, tcfg,
+            device=self.device,
+        )
+        return PendingEmbedding(
+            request=DramRequest(
+                # Placement routes each core's misses to its affine channel
+                # group (per_core) or each table's home group (per_table);
+                # the contended scan then only sees cross-core contention
+                # where channel groups actually overlap.
+                lines=self.core._place_misses(
+                    etrace, clas.merged.miss_lines, clas.miss_src,
+                    place_cache=clas.place_cache,
+                ),
+                seg=clas.merged.miss_batch,
+                src=clas.miss_src,
+                num_segments=etrace.num_batches,
+                num_sources=self.hw.num_cores,
+                model=self.dram,
+            ),
+            _finalize=lambda drams, finish: clas.finalize(drams, finish, tlb),
+        )
+
+    def prepare_embedding(
+        self,
+        etrace: EmbeddingTrace,
+        pinned_lines: Optional[np.ndarray] = None,
+        allow_lane: bool = True,
+    ) -> PendingEmbedding:
+        """Classify every core's shard (or the shared stream) and package the
+        deferred contended-DRAM dispatch; ``finalize`` assembles the cluster
+        stats including the per-core detail."""
+        return self.pending_from(
+            etrace, self.classify_for_pending(etrace, pinned_lines, allow_lane)
+        )
+
+    def simulate_embedding(
+        self,
+        etrace: EmbeddingTrace,
+        pinned_lines: Optional[np.ndarray] = None,
+        allow_lane: bool = True,
+    ) -> List[EmbeddingBatchStats]:
+        p = self.prepare_embedding(etrace, pinned_lines, allow_lane)
+        return p.finalize(*dram_timing_single(p.request, self.device))
+
+
+def memory_system_for(
+    hw: HardwareConfig, device: DeviceLike = "cuda"
+) -> Union[MemorySystem, MultiCoreMemorySystem]:
+    """The memory pipeline for a hardware config on ``device``: plain
+    single-core ``MemorySystem`` for the degenerate cluster,
+    ``MultiCoreMemorySystem`` otherwise. Both expose the same
+    ``simulate_embedding`` surface."""
     if hw.num_cores == 1 and hw.topology == Topology.PRIVATE:
         return MemorySystem.from_hardware(hw, device)
-    raise NotImplementedError(
-        "MultiCoreMemorySystem (num_cores > 1 or a shared topology) is not "
-        "ported yet (multi-core slice of the port; see ROADMAP.md)"
-    )
-
+    return MultiCoreMemorySystem.from_hardware(hw, device)

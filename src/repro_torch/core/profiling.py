@@ -21,6 +21,9 @@ Canonical stage names used by the memory pipeline:
   * ``classify``    — policy classification (stream prep, accounting)
   * ``cache_scan``  — set-associative cache engine dispatch (scan or kernel)
   * ``dram``        — DRAM timing (FR-FCFS ordering + event scan)
+  * ``source_finish`` — a multi-source DRAM call's per-source finish
+                      (host, run-granular, from the scan's chunk results)
+  * ``place``       — the NUMA placement transform of a miss stream (host)
   * ``host_sync``   — blocking device->host result extraction (``.cpu()``
                       of device tensors; the cost the device-resident
                       pipeline is designed to keep out of the inner loop)

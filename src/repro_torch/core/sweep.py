@@ -97,12 +97,10 @@ package's ``examples/fig4_sweep.py`` makes it)::
     )                                   # on the card; device="cpu" to ask
     best = result.best("total_cycles")
 
-What this package does not run yet raises ``NotImplementedError``, as
-``simulate`` does: grid points with ``num_cores > 1`` or a shared topology
-(``memory_system_for``), non-identity placements (``PlacementMap``), and
-serving-scenario sweeps (``scenarios=``, which need the request-level
-serving simulator). Points that collapse to the identity (with one core
-every channel affinity keys as ``symmetric``) run.
+Every hardware axis runs, cluster shapes (``num_cores``, ``topologies``)
+and NUMA placements (``channel_affinities``, ``placements``) included.
+Serving-scenario sweeps (``scenarios=``, which need the request-level
+serving simulator) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -577,7 +575,7 @@ def _on(items: Dict[tuple, tuple], device: torch.device) -> Dict[tuple, tuple]:
     on its own device, and ``classify_embedding_many`` takes the systems of
     one device only. Systems already there are kept; one rebuilt system
     serves every key that shared the original."""
-    moved: Dict[int, MemorySystem] = {}
+    moved: Dict[int, object] = {}
     out = {}
     for key, (ms, ck) in items.items():
         if ms.device != device:
@@ -672,18 +670,19 @@ def _chunks(items: Dict[tuple, tuple], cadence: Optional[int]):
         yield {k: items[k] for k in keys[i:i + cadence]}
 
 
-def _prewarm_traces(etraces, base_hw: HardwareConfig) -> None:
+def _prewarm_traces(etraces, base_hw: HardwareConfig, combos) -> None:
     """Materialize the lazily cached derived streams BEFORE shard threads
     start, so concurrent workers never duplicate the (deterministic but
     expensive) trace work. Line geometry is grid-invariant (``with_policy``
-    never touches ``line_bytes``). (The JAX package also builds the hot
-    vector ids of ``hot_replicate`` here; that placement raises in this
-    package.)"""
+    never touches ``line_bytes``)."""
     line = base_hw.onchip.line_bytes
+    any_hot = any(c[6] == "hot_replicate" for c in combos)
     for et in etraces:
         et.lookup_batch
         et.vec_ids
         et.address_trace(line)
+        if any_hot:
+            et.hot_vec_ids
 
 
 def sweep(
@@ -849,7 +848,7 @@ def sweep(
             todo = {k: v for k, v in pending.items() if k not in stats_memo}
 
             if shard_plan is not None and todo:
-                _prewarm_traces(etraces, base_hw)
+                _prewarm_traces(etraces, base_hw, sl.combos)
             cadence = ckpt.cadence if ckpt is not None else None
             for round_items in _chunks(todo, cadence):
                 if injector is not None:

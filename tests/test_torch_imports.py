@@ -57,7 +57,7 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "models.registry", "models.transformer", "models.mamba", "models.hybrid",
                 "configs.zamba2_2p7b", "data.lm", "serving.engine", "launch.serve",
                 "core.sweep", "core.sweep_ckpt", "core.search", "core.faults",
-                "distributed", "distributed.sweep_shard"):
+                "distributed", "distributed.sweep_shard", "core.lm_mapper"):
         assert f"repro_torch.{sub}" in names, sub
 
 

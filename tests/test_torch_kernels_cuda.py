@@ -956,3 +956,98 @@ def test_sweep_on_the_card_equals_cpu_sharded_and_not(cuda):
     sharded = sweep(wl, tpuv6e(), devices=2, **axes)
     assert sharded.sharded and sharded.device_count == 1
     assert records(sharded) == want
+
+
+# ---------------------------------------------------------------------------
+# The multi-core cluster and NUMA placements
+# ---------------------------------------------------------------------------
+
+def _cluster(topo, sharding, aff, plc):
+    return lambda hw: hw.with_cluster(4, topo, sharding).with_placement(aff, plc)
+
+
+@pytest.mark.parametrize("policy,backend,kernel,change", [
+    ("lru", "pallas", "cache_scan", _cluster("private", "batch", "symmetric", "interleave")),
+    ("lru", "stack_pallas", "stack_distance",
+     _cluster("private", "table_hash", "per_core", "table_rank")),
+    ("srrip", "stack", "rrip_scan", _cluster("private", "batch", "per_table", "hot_replicate")),
+    ("fifo", "pallas", "cache_scan", _cluster("shared", "batch", "per_core", "interleave")),
+    ("spm", "stack", None, _cluster("private", "table_hash", "per_core", "table_rank")),
+], ids=["lru-K1-private", "lru-K2-table_rank", "srrip-D2-hot_replicate", "fifo-K1-shared",
+        "spm-table_rank"])
+def test_cluster_simulate_on_the_card_equals_cpu(cuda, policy, backend, kernel, change):
+    """A 4-core cluster on the card equals the CPU; D1 once per simulate, the
+    on-chip kernel once per shard bucket (private) or on the whole stream
+    (shared), as the host computes them."""
+    import dataclasses
+
+    from repro_torch.core import dlrm_rmc2_small, simulate, tpuv6e
+    from repro_torch.core.engine import build_embedding_traces
+    from repro_torch.core.memory.cache import bucket_rows
+    from repro_torch.core.memory.rrip import row_plan
+    from repro_torch.core.memory.system import EmbeddingTrace, lane_geometry
+    from repro_torch.core.trace import shard_trace
+
+    wl = dlrm_rmc2_small(num_tables=6, rows_per_table=2000, batch_size=8, num_batches=2)
+    hw = change(tpuv6e().with_policy(policy, capacity_bytes=1 << 16).with_cache_backend(backend))
+    et = build_embedding_traces(wl)[0]
+    lane = lane_geometry(hw, et.spec)
+    streams = ([et.vec_ids] if hw.topology.value == "shared" else
+               [EmbeddingTrace.from_concat(et.spec, s.concat).vec_ids
+                for s in shard_trace(et.concat, 4, hw.lookup_sharding.value) if len(s)])
+    if kernel == "rrip_scan":
+        want = sum(2 if t.chunked else 1 for v in streams
+                   for _, t in row_plan(v, lane.num_sets, lane.ways, policy)[2])
+    else:
+        want = sum(len(list(bucket_rows([v], [lane]))) for v in streams)
+    reset_launch_counts()
+    on_card = simulate(wl, hw)
+    counts = launch_counts()
+    assert counts["dram_scan"] == 1, counts
+    for name in ("cache_scan", "stack_distance", "rrip_scan"):
+        assert counts[name] == (want if name == kernel else 0), counts
+    assert dataclasses.asdict(on_card) == dataclasses.asdict(simulate(wl, hw, device="cpu"))
+
+
+@pytest.mark.parametrize("num_sources", [2, 4])
+def test_contended_dram_sources_on_the_card_equal_cpu(cuda, num_sources):
+    """D1 with several sources: results and the per-source finish matrix on
+    the card (device and host aggregates) equal the CPU's, bitwise."""
+    import dataclasses
+
+    from repro_torch.core import tpuv6e
+    from repro_torch.core.memory.dram import DramModel, simulate_dram_contended
+
+    rng = np.random.default_rng(num_sources)
+    base = rng.integers(0, 300_000, size=4000).astype(np.int64) * 8
+    lines = (base[:, None] + np.arange(8)[None, :]).reshape(-1)
+    seg = np.sort(rng.integers(0, 3, size=lines.size))
+    src = np.repeat(rng.integers(0, num_sources, size=base.size), 8)
+    dm = DramModel.from_hardware(tpuv6e())
+    want = simulate_dram_contended(lines, seg, src, 3, num_sources, dm, device="cpu")
+    for aggregate in ("device", "host"):
+        reset_launch_counts()
+        got = simulate_dram_contended(lines, seg, src, 3, num_sources, dm, aggregate=aggregate)
+        assert launch_counts()["dram_scan"] == 1
+        assert [dataclasses.asdict(r) for r in got[0]] == [dataclasses.asdict(r) for r in want[0]]
+        assert np.array_equal(got[1], want[1])
+
+
+def test_cluster_sweep_on_the_card_equals_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.core import dlrm_rmc2_small, sweep, tpuv6e
+
+    wl = dlrm_rmc2_small(num_tables=6, rows_per_table=1500, dim=128, lookups=3, batch_size=6,
+                         num_batches=2)
+    axes = dict(policies=("spm", "lru"), capacities=(1 << 16,), ways=(4,), zipf_s=1.0, seed=0,
+                num_cores=(1, 2), topologies=("private", "shared"),
+                channel_affinities=("symmetric", "per_core", "per_table"),
+                placements=("interleave", "table_rank", "hot_replicate"))
+
+    def records(sr):
+        return [(e.config, dataclasses.asdict(e.result)) for e in sr.entries]
+
+    want = records(sweep(wl, tpuv6e(), device="cpu", **axes))
+    assert records(sweep(wl, tpuv6e(), **axes)) == want
+    assert records(sweep(wl, tpuv6e(), devices=2, **axes)) == want

@@ -130,18 +130,27 @@ def test_convert_round_trip():
     (lambda hw: hw.with_cluster(1, "shared"), "MultiCoreMemorySystem"),
 ])
 def test_outside_the_slice_raises_not_implemented(change, match):
-    _, wl = _workloads()
-    with pytest.raises(NotImplementedError, match=match):
-        T.simulate(wl, change(T.tpuv6e().with_policy("lru", capacity_bytes=CAP)), device="cpu")
+    """Once outside the single-core slice, now ported: a cluster (two cores,
+    or one core behind a shared LLC) runs on ``match`` and equals the JAX
+    package's ``simulate``."""
+    wl_r, wl_t = _workloads()
+    hw_t = change(T.tpuv6e().with_policy("lru", capacity_bytes=CAP).with_cache_backend("pallas"))
+    hw_r = change(R.tpuv6e().with_policy("lru", capacity_bytes=CAP).with_cache_backend("scan"))
+    assert type(T.memory_system_for(hw_t, "cpu")).__name__ == match
+    _assert_same(T.simulate(wl_t, hw_t, device="cpu"), R.simulate(wl_r, hw_r))
 
 
 def test_non_identity_placement_raises_and_identity_runs():
-    _, wl = _workloads()
+    """Once raising, now ported: a non-identity placement equals the JAX
+    package's; the identity placement equals the default run."""
+    wl_r, wl_t = _workloads()
     hw = T.tpuv6e().with_policy("spm", capacity_bytes=CAP)
-    with pytest.raises(NotImplementedError, match="placement"):
-        T.simulate(wl, hw.with_placement("per_table", "table_rank"), device="cpu")
+    ref_hw = R.tpuv6e().with_policy("spm", capacity_bytes=CAP)
+    for aff, plc in (("per_table", "table_rank"), ("symmetric", "hot_replicate")):
+        _assert_same(T.simulate(wl_t, hw.with_placement(aff, plc), device="cpu"),
+                     R.simulate(wl_r, ref_hw.with_placement(aff, plc)))
     # per_table on one core is one channel group: the identity placement.
-    ours = T.simulate(wl, hw.with_placement("per_table", "interleave"), device="cpu")
+    ours = T.simulate(wl_t, hw.with_placement("per_table", "interleave"), device="cpu")
     _assert_same(ours, _reference("spm", "stack"))
 
 

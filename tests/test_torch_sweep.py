@@ -185,9 +185,12 @@ def test_one_core_affinities_run_as_in_the_jax_package(wls):
                                   dict(placements=("interleave", "table_rank"))],
                          ids=["num_cores", "shared_topology", "table_rank"])
 def test_unported_axes_raise(wls, axes):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.sweep(wls[1], T.tpuv6e(), policies=("spm",), capacities=(1 << 16,), ways=(4,),
-                device="cpu", **axes)
+    """Once raising, now ported: cluster and placement axes equal the JAX
+    package's sweep, memo keys included."""
+    kw = dict(policies=("spm", "lru"), capacities=(1 << 16,), ways=(4,), zipf_s=0.9, seed=0,
+              **axes)
+    same_sweep(T.sweep(wls[1], T.tpuv6e(), device="cpu", **kw),
+               R.sweep(wls[0], R.tpuv6e(), **kw), str(axes))
 
 
 def test_scenarios_raise_not_implemented(wls):
