@@ -127,6 +127,30 @@ passed over):
      interleave entry bitwise equal to A's lru/stack; three small clusters
      on the card equal to the CPU; A under ``torch.profiler`` for the
      card's busy share;
+ 10. the request-level serving simulator at full width over the phase-4
+     workload's embedding op on ``tpuv6e()`` (``SERVING``): steady_off
+     (Poisson, 128 requests, popularity drift, 32 slots, every policy off)
+     under lru ``stack``, ``pallas`` (K1) and ``stack_pallas`` (K2), bitwise
+     equal, and srrip/``stack`` (D2); overload_storm (bursty, 96 requests,
+     16 slots, admission, deadline, retries, ``hot_rows_only``) under
+     lru/``pallas`` and srrip/``stack``; deadline_retry (48 requests, 8
+     slots, a deadline under one batch's service, 3 retries), its event
+     clock never going backwards; launch counts reset just before and read
+     just after each run, D1 held to one launch per ``simulate_embedding``
+     call the oracle makes (1 on the all-off path, one a served batch in a
+     closed loop), K1/K2/D2 printed; every run equal to the JAX package's
+     results (``REF_SERVING``), its replay through ``ReplayOracle`` equal,
+     and its ``batch_stats`` equal to one plain ``simulate_embedding`` over
+     the batches the replay composed (the all-off path also over the
+     arrival-order chunks); wall s and ``profiling.collect()`` stages per
+     run, p50/p95/p99 in simulated TPUv6e µs; the closed loop rerun from a
+     fresh memory system, equal, under ``torch.profiler``; a serving sweep
+     (spm, lru x steady_off, overload_storm cut to 32 requests) equal to
+     direct ``simulate_serving`` calls, ``devices=2`` and a killed and
+     resumed checkpointed run equal to it; the JAX tests' small spec on the
+     card equal to the CPU for every scenario (batches of no lookup and one
+     among them); ``shard_lookup_cores_device``, ``classify_device`` and
+     ``translate_device`` on phase 4's trace equal to the host versions;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
@@ -137,7 +161,10 @@ JSON line (K1, K2 and D1 also with their launches in phase 8's sweeps,
 ``sweep_launches``, on their first entry; D2's, by route, on
 ``rrip_scan[srrip]``; K1's, K2's, D2's and D1's entries with their
 launches in the phase-9 runs of ``CLUSTER_RUNS``, D1's in every run on
-``dram_scan[spm 4 cores]`` only, ``cluster_launches``) and, last,
+``dram_scan[spm 4 cores]`` only, ``cluster_launches``; K1, K2, D1 and D2
+with their launches in each phase-10 run, ``serving_launches``, on
+``cache_scan[lru]``, ``stack_distance[lru]``, ``dram_scan[spm]`` and
+``rrip_scan[srrip]``) and, last,
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -244,6 +271,78 @@ CLUSTER_RUNS = {"cache_scan[lru]": ("A lru/pallas",),
                     "C per_core/table_rank", "C per_table/hot_replicate", "A lru/stack",
                     "A lru/pallas", "A lru/stack_pallas", "A srrip/stack", "B lru/stack",
                     "D lru/stack + FIFO TLB", "E sweep")}
+# Phase 10, the request-level serving simulator over the phase-4 workload's
+# embedding op (60 tables x 1M rows x dim 128, 120 lookups a table, every
+# table in every request) on tpuv6e(). The all-off stream's service is
+# 1,025.95 cycles a request (the JAX package on the CPU, lru and srrip under
+# "stack": batches of 32 served in 41,599, 32,603, 28,560 and 28,560
+# cycles), so steady_off arrives every ~2x that and the overload streams
+# every ~0.1x. Shapes follow the JAX package's examples/dlrm_serve.py and
+# scripts/serving_smoke.py; request counts are the cut (depth).
+SERVICE_PER_REQUEST = 1_025.95
+STEADY_GAP = 2_000.0
+OVERLOAD_GAP = 100.0
+_OVERLOAD = dict(pattern="bursty", mean_gap_cycles=OVERLOAD_GAP, num_requests=96, seed=23,
+                 burst_len=16, zipf_s=1.10)
+SERVING = {
+    "steady_off": dict(
+        traffic=dict(pattern="poisson", mean_gap_cycles=STEADY_GAP, num_requests=128, seed=42,
+                     zipf_s=1.10, zipf_drift=0.3, drift_period=32),
+        policy={}, batch_slots=32),
+    # A deadline of ~2 batch services of 16, a backoff of ~one. Degradation
+    # arms at a queue of 4 left behind a launch: admission caps the queue
+    # at 24, so a batch of 16 leaves at most 8 (dlrm_serve.py's 12 is for
+    # batches of 8).
+    "overload_storm": dict(
+        traffic=_OVERLOAD,
+        policy=dict(admission_watermark=24, deadline_cycles=36_000, max_retries=2,
+                    retry_backoff_cycles=16_000.0, degrade_mode="hot_rows_only",
+                    degrade_watermark=4, hot_fraction=0.1),
+        batch_slots=16),
+    # A deadline under one batch's service (~8,200 cycles for 8), a short
+    # backoff: expired attempts reschedule from instants the clock passed.
+    "deadline_retry": dict(
+        traffic={**_OVERLOAD, "num_requests": 48},
+        policy=dict(deadline_cycles=6_000, max_retries=3, retry_backoff_cycles=1_000.0),
+        batch_slots=8),
+}
+# The JAX package's results of these scenarios at full width (on the CPU,
+# cache_backend "stack"; the fields of ``serving_pins``), by (scenario,
+# on-chip policy).
+REF_SERVING = {
+    ("steady_off", "lru"): dict(
+        offered=128, completed=128, shed=0, timed_out=0, retries=0, abandoned=0,
+        degraded_batches=0, num_batches=4, makespan_cycles=276903, p50_cycles=65729.5,
+        p99_cycles=106182.15, batch_cycles='131320.578125', dram_cycles='114803.03515625',
+        cache_hits=5232104),
+    ("steady_off", "srrip"): dict(
+        offered=128, completed=128, shed=0, timed_out=0, retries=0, abandoned=0,
+        degraded_batches=0, num_batches=4, makespan_cycles=276903, p50_cycles=65729.5,
+        p99_cycles=106182.15, batch_cycles='131320.578125', dram_cycles='114803.03515625',
+        cache_hits=5232112),
+    ("deadline_retry", "lru"): dict(
+        offered=48, completed=32, shed=0, timed_out=112, retries=96, abandoned=16,
+        degraded_batches=0, num_batches=4, makespan_cycles=45682, p50_cycles=30296.0,
+        p99_cycles=45360.14, batch_cycles='45557.3505859375', dram_cycles='45557.3505859375',
+        cache_hits=1047432),
+    ("overload_storm", "lru"): dict(
+        offered=96, completed=88, shed=104, timed_out=8, retries=104, abandoned=8,
+        degraded_batches=2, num_batches=6, makespan_cycles=101752, p50_cycles=53386.0,
+        p99_cycles=97629.02, batch_cycles='97066.5498046875', dram_cycles='95634.24609375',
+        cache_hits=3212392),
+    ("overload_storm", "srrip"): dict(
+        offered=96, completed=88, shed=104, timed_out=8, retries=104, abandoned=8,
+        degraded_batches=2, num_batches=6, makespan_cycles=101752, p50_cycles=53386.0,
+        p99_cycles=97629.02, batch_cycles='97066.5498046875', dram_cycles='95634.24609375',
+        cache_hits=3212680),
+}
+# The serving sweep of phase 10: these policies x steady_off and
+# overload_storm with their request counts cut to SWEEP_SERVING_REQUESTS.
+SWEEP_SERVING_POLICIES = ("spm", "lru")
+SWEEP_SERVING_REQUESTS = 32
+# The JAX tests' small spec (tests/test_serving_sim.py): card against CPU.
+SMALL_SERVING_SPEC = dict(num_tables=4, rows_per_table=1000, dim=32, lookups_per_sample=4,
+                          dtype_bytes=4)
 EDGE_GEOMETRIES = [(1, 1), (1, 4), (3, 2), (7, 5), (16, 7), (16, 16), (4, 32), (2, 33), (2, 64)]
 KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
@@ -280,6 +379,21 @@ LM_TOL = {
     ("mamba2_ssd", torch.float32): dict(atol=2e-4, rtol=2e-3),
     ("mamba2_ssd", torch.bfloat16): dict(atol=2e-4, rtol=2.0 ** -7),
 }
+
+
+def serving_pins(res) -> dict:
+    """The fields of a ``ServingResult`` that ``REF_SERVING`` pins: counters,
+    batches, makespan, p50/p99 cycles, the repr of the summed per-batch
+    cycles and DRAM cycles, and the summed cache hits (these two tell the
+    on-chip policies apart where the service is vector-bound)."""
+    keys = ("offered", "completed", "shed", "timed_out", "retries", "abandoned",
+            "degraded_batches", "num_batches", "makespan_cycles")
+    pins = {k: getattr(res, k) for k in keys}
+    pins.update(p50_cycles=res.p50_cycles, p99_cycles=res.p99_cycles,
+                batch_cycles=repr(sum(st.cycles for st in res.batch_stats)),
+                dram_cycles=repr(sum(st.dram_cycles for st in res.batch_stats)),
+                cache_hits=sum(st.cache_hits for st in res.batch_stats))
+    return pins
 
 
 def fail(msg: str) -> None:
@@ -1317,6 +1431,299 @@ def cluster_phase(dev, K, wl, single_lru):
     return launches
 
 
+def serving_phase(dev, K, wl, etrace):
+    """Phase 10: the request-level serving simulator on the card at full
+    width (the phase-4 workload's embedding op, ``SERVING``'s scenarios),
+    with its checks; then the device-side helpers on phase 4's trace
+    ``etrace``. Returns the launches of each run, by run name."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import (EmbeddingOpSpec, SweepCheckpoint, TrafficConfig, Workload,
+                                  profiling, sweep, tpuv6e)
+    from repro_torch.core.memory.policies import PolicyContext, get_policy
+    from repro_torch.core.memory.system import EmbeddingTrace, memory_system_for
+    from repro_torch.core.requests import generate_requests, lower_batch
+    from repro_torch.core.trace import (ConcatTrace, FullTrace, shard_lookup_cores,
+                                        shard_lookup_cores_device, translate, translate_device)
+    from repro_torch.serving import (ReplayOracle, RobustnessPolicy, ServingScenario,
+                                     simulate_serving)
+
+    spec = wl.embedding_ops[0]
+    name_power = smi("name,power.limit")
+
+    def scenario(name, num_requests=None):
+        d = SERVING[name]
+        traffic = dict(d["traffic"], **({"num_requests": num_requests} if num_requests else {}))
+        return ServingScenario(name=name, traffic=TrafficConfig(**traffic),
+                               policy=RobustnessPolicy(**d["policy"]),
+                               batch_slots=d["batch_slots"])
+
+    class Counting:
+        """A memory system that counts its ``simulate_embedding`` calls."""
+
+        def __init__(self, ms):
+            self.ms, self.hw, self.calls = ms, ms.hw, 0
+
+        def simulate_embedding(self, etrace):
+            self.calls += 1
+            return self.ms.simulate_embedding(etrace)
+
+    class Recording(ReplayOracle):
+        """A replay that keeps each served batch's lowered trace."""
+
+        def __init__(self, stats):
+            super().__init__(stats)
+            self.traces = []
+
+        def service(self, full):
+            self.traces.append(full)
+            return super().service(full)
+
+    def plain_stats(hw, traces):
+        """One plain fixed-trace ``simulate_embedding`` over the batches."""
+        return memory_system_for(hw, dev).simulate_embedding(
+            EmbeddingTrace.from_concat(spec, ConcatTrace.from_traces(traces)))
+
+    def stats_dicts(stats):
+        return [dataclasses.asdict(st) for st in stats]
+
+    streams, results, launches, walls = {}, {}, {}, {}
+    hws = {"lru/stack": tpuv6e().with_policy("lru"),
+           "lru/pallas": tpuv6e().with_policy("lru").with_cache_backend("pallas"),
+           "lru/stack_pallas": tpuv6e().with_policy("lru").with_cache_backend("stack_pallas"),
+           "srrip/stack": tpuv6e().with_policy("srrip")}
+    runs = [("steady_off", b) for b in ("lru/stack", "lru/pallas", "lru/stack_pallas",
+                                        "srrip/stack")]
+    runs += [("overload_storm", "lru/pallas"), ("overload_storm", "srrip/stack"),
+             ("deadline_retry", "lru/pallas")]
+    run_kernel = {"lru/pallas": "cache_scan", "lru/stack_pallas": "stack_distance",
+                  "srrip/stack": "rrip_scan"}
+    # Each scenario's stream, generated once (host numpy) and timed apart, so
+    # each run's wall is its scheduling and pricing alone.
+    for sname in SERVING:
+        t0 = time.perf_counter()
+        streams[sname] = generate_requests(spec, scenario(sname).traffic)
+        print(f"[10] {sname}: {len(streams[sname])} requests of "
+              f"{streams[sname][0].num_lookups} lookups generated in "
+              f"{time.perf_counter() - t0!r} s", flush=True)
+    for sname, backend in runs:
+        sc, hw = scenario(sname), hws[backend]
+        ms = Counting(memory_system_for(hw, dev))
+        log = []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with profiling.collect() as prof:
+            res = simulate_serving(ms, spec, sc, requests=streams[sname], event_log=log)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        run = f"{sname} {backend}"
+        want_calls = 1 if sc.policy.all_off else res.num_batches
+        if ms.calls != want_calls or counts["dram_scan"] != ms.calls:
+            fail(f"serving {run}: {ms.calls} simulate_embedding calls (expected {want_calls}), "
+                 f"D1 launched {counts['dram_scan']} times (expected one a call)")
+        scan = run_kernel.get(backend)
+        if scan and counts[scan] == 0:
+            fail(f"serving {run}: {scan} was not launched ({counts})")
+        others = {k: c for k, c in counts.items() if c and k not in ("dram_scan", scan)}
+        if others:
+            fail(f"serving {run}: kernels off its path launched: {others}")
+        pins = serving_pins(res)
+        ref = REF_SERVING[(sname, backend.split("/")[0])]
+        if pins != ref:
+            fail(f"serving {run}: {pins} differs from the reference's {ref}")
+        if any(b < a for a, b in zip(log, log[1:])):
+            fail(f"serving {run}: the event clock went backwards")
+        if not (res.latency_cycles.size == res.completed and np.all(res.latency_cycles > 0)
+                and math.isfinite(res.p99_cycles) and res.makespan_cycles > 0):
+            fail(f"serving {run}: malformed result {res.summary()}")
+        # Replay through the recorded stats composes the same batches, and
+        # one plain simulate_embedding over the batches gives the same stats:
+        # the arrival-order chunks when every policy is off (the identity),
+        # else the batches the replay composed (the prefix re-pricing).
+        rec = Recording(res.batch_stats)
+        replayed = simulate_serving(ms, spec, sc, requests=streams[sname], oracle=rec)
+        if replayed.diff(res) != {}:
+            fail(f"serving {run}: the replay differs: {replayed.diff(res)}")
+        batches = rec.traces
+        if sc.policy.all_off:
+            reqs, B = streams[sname], sc.batch_slots
+            batches = [lower_batch(reqs[i:i + B], spec).full for i in range(0, len(reqs), B)]
+        if stats_dicts(plain_stats(hw, batches)) != stats_dicts(res.batch_stats):
+            fail(f"serving {run}: batch_stats differ from the plain simulate_embedding over "
+                 f"the same lowered batches")
+        results[run], launches[run], walls[run] = res, counts, wall
+        us = res.cycles_to_us
+        stages = {k: round(v, 4) for k, v in prof.breakdown(wall).items()}
+        print(f"[10] {run} on {dev} ({name_power}): wall {wall!r} s, {ms.calls} "
+              f"simulate_embedding call(s); launches D1 {counts['dram_scan']}, K1 "
+              f"{counts['cache_scan']}, K2 {counts['stack_distance']}, D2 {counts['rrip_scan']}; "
+              f"{res.offered} offered, {res.completed} completed, {res.shed} shed, "
+              f"{res.timed_out} timed out, {res.retries} retries, {res.abandoned} abandoned, "
+              f"{res.degraded_batches} degraded batches ({res.dropped_cold_rows} cold rows "
+              f"dropped), {res.num_batches} batches; simulated TPUv6e latency p50/p95/p99 "
+              f"{us(res.p50_cycles)!r} / {us(res.p95_cycles)!r} / {us(res.p99_cycles)!r} us, "
+              f"goodput {res.goodput!r}, sustained {res.sustained_qps!r} req/s (simulated); "
+              f"{len(log)} clock events, never backwards; equal to the reference's pins, the "
+              f"replay and the plain simulate_embedding; stages {json.dumps(stages)}",
+              flush=True)
+    steady = [results[f"steady_off {b}"] for b in ("lru/stack", "lru/pallas", "lru/stack_pallas")]
+    if any(r.diff(steady[0]) != {} for r in steady[1:]):
+        fail("serving steady_off: lru under stack, pallas (K1) and stack_pallas (K2) differ")
+    # A rerun of the closed loop from a fresh memory system, under
+    # torch.profiler for the card's busy share.
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        t0 = time.perf_counter()
+        again = simulate_serving(memory_system_for(hws["lru/pallas"], dev), spec,
+                                 scenario("overload_storm"), requests=streams["overload_storm"])
+        torch.cuda.synchronize()
+        p_wall = time.perf_counter() - t0
+    if again.diff(results["overload_storm lru/pallas"]) != {}:
+        fail("serving overload_storm: a rerun from a fresh memory system differs")
+    print(f"[10] steady_off lru bitwise equal under stack, pallas (K1) and stack_pallas (K2); "
+          f"overload_storm lru/pallas rerun from a fresh memory system bitwise equal, profiled: "
+          f"wall {p_wall!r} s, {device_busy(tprof.events(), p_wall, ('dram_scan', 'cache_scan'))}"
+          f"; wall of the closed loop (overload_storm lru/pallas, "
+          f"{results['overload_storm lru/pallas'].num_batches} prefixes re-priced) "
+          f"{walls['overload_storm lru/pallas']!r} s against the all-off path's (steady_off "
+          f"lru/pallas, the stream priced once) {walls['steady_off lru/pallas']!r} s", flush=True)
+
+    # A serving sweep: its entries against direct simulate_serving calls,
+    # two shards on the one card, and a checkpointed run killed after its
+    # first round and resumed.
+    swl = Workload(name=wl.name, embedding_ops=(spec,))
+    scs = [scenario(n, SWEEP_SERVING_REQUESTS) for n in ("steady_off", "overload_storm")]
+    axes = dict(policies=SWEEP_SERVING_POLICIES, capacities=(128 << 20,), ways=(16,),
+                scenarios=scs)
+
+    def recs(sr):
+        return [(e.config, e.result.summary(), stats_dicts(e.result.batch_stats),
+                 e.result.latency_cycles.tolist()) for e in sr.entries]
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    sw = sweep(swl, tpuv6e(), device=dev, **axes)
+    torch.cuda.synchronize()
+    sw_wall = time.perf_counter() - t0
+    sw_counts = K.launch_counts()
+    want = recs(sw)
+    for e in sw.entries:
+        sc_e = next(x for x in scs if x.name == e.config.scenario)
+        direct = simulate_serving(memory_system_for(tpuv6e().with_policy(e.config.policy), dev),
+                                  spec, sc_e)
+        if direct.diff(e.result) != {}:
+            fail(f"serving sweep entry {e.config.label} differs from simulate_serving")
+    t0 = time.perf_counter()
+    sharded = sweep(swl, tpuv6e(), device=dev, devices=2, **axes)
+    torch.cuda.synchronize()
+    sh_wall = time.perf_counter() - t0
+    if not sharded.sharded or recs(sharded) != want:
+        fail("serving sweep: devices=2 differs from the unsharded sweep")
+    ckdir = ROOT / "build" / "serving_smoke"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    path = str(ckdir / "serving.ckpt")
+
+    class KillAfterFirstRound(SweepCheckpoint):
+        def record(self, slice_id, res):
+            super().record(slice_id, res)
+            raise KeyboardInterrupt("killed after the first round")
+
+    ck = KillAfterFirstRound(path, cadence=2)
+    try:
+        sweep(swl, tpuv6e(), device=dev, checkpoint=ck, **axes)
+        fail("serving sweep: the checkpointed run was not killed")
+    except KeyboardInterrupt:
+        pass
+    ck.close()
+    resumed = sweep(swl, tpuv6e(), device=dev, checkpoint=path, **axes)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if recs(resumed) != want or resumed.resumed_keys != 2 or resumed.distinct_memo_keys != 4:
+        fail(f"serving sweep: the resumed run differs ({resumed.resumed_keys} keys restored)")
+    print(f"[10] serving sweep {SWEEP_SERVING_POLICIES} x steady_off/overload_storm cut to "
+          f"{SWEEP_SERVING_REQUESTS} requests ({sw.num_configs} entries, {sw.distinct_memo_keys} "
+          f"memo keys) on {dev}: wall {sw_wall!r} s, launches {sw_counts}; each entry bitwise "
+          f"equal to simulate_serving; devices=2 bitwise equal ({sh_wall!r} s); killed after its "
+          f"first round of 2 keys and resumed, 2 restored, bitwise equal", flush=True)
+    launches["sweep"] = sw_counts
+
+    # A small case: every scenario of the JAX tests' spec on the card against
+    # the CPU, degraded batches with no lookup or one among them.
+    sspec = EmbeddingOpSpec(**SMALL_SERVING_SPEC)
+    small = [ServingScenario(name="steady", traffic=TrafficConfig(
+                 pattern="poisson", mean_gap_cycles=700.0, num_requests=48, seed=11)),
+             ServingScenario(name="storm", traffic=TrafficConfig(
+                 pattern="bursty", mean_gap_cycles=40.0, num_requests=80, seed=23, burst_len=10),
+                 policy=RobustnessPolicy(admission_watermark=12, deadline_cycles=25_000,
+                                         max_retries=2, retry_backoff_cycles=2_000.0))]
+    for mode, seed in (("hot_rows_only", 0), ("cache_bypass", 1)):
+        small.append(ServingScenario(name=f"edge_{mode}", traffic=TrafficConfig(
+            pattern="poisson", mean_gap_cycles=700.0, num_requests=12, seed=seed,
+            tables_per_request=1, lookups_per_table=1), policy=RobustnessPolicy(
+            degrade_mode=mode, degrade_watermark=0, hot_fraction=0.001, bypass_keep_tables=0.25),
+            batch_slots=1))
+    n_small = 0
+    for policy, backend in (("lru", "pallas"), ("lru", "stack_pallas"), ("srrip", "stack"),
+                            ("fifo", "stack"), ("spm", "stack"), ("pinning", "stack")):
+        hw_s = tpuv6e().with_policy(policy).with_cache_backend(backend)
+        for sc_s in small:
+            on_card = simulate_serving(memory_system_for(hw_s, dev), sspec, sc_s)
+            on_cpu = simulate_serving(memory_system_for(hw_s, "cpu"), sspec, sc_s)
+            if on_card.diff(on_cpu) != {}:
+                fail(f"small serving {sc_s.name} {policy}/{backend}: the card differs from the "
+                     f"CPU: {on_card.diff(on_cpu)}")
+            n_small += 1
+    print(f"[10] small serving runs ({SMALL_SERVING_SPEC}): {n_small} scenario x backend pairs "
+          f"on the card bitwise equal to the CPU, batches with no lookup and with one among "
+          f"them", flush=True)
+
+    # The device-side helpers on phase 4's concatenated trace.
+    concat = etrace.concat
+    for mode in ("batch", "table_hash"):
+        for cores in (2, 4, 8):
+            got = shard_lookup_cores_device(concat, cores, mode, device=dev)
+            if got.device.type != "cuda" or not np.array_equal(
+                    got.cpu().numpy(), shard_lookup_cores(concat, cores, mode)):
+                fail(f"shard_lookup_cores_device {mode} x {cores} differs from the host's")
+    lines = etrace.address_trace(tpuv6e().onchip.line_bytes).lines
+    lines_d = torch.from_numpy(lines).to(dev)
+    for pname in ("spm", "pinning"):
+        pol = get_policy(pname)
+        ctx = pol.prepare(lines, PolicyContext.from_hardware(tpuv6e(), device=dev))
+        got = pol.classify_device(lines_d, ctx)
+        if got.device.type != "cuda" or not np.array_equal(got.cpu().numpy(),
+                                                           pol.classify(lines, ctx)):
+            fail(f"classify_device {pname} differs from the host's classify")
+    try:
+        translate_device(torch.from_numpy(concat.table_ids).to(dev),
+                         torch.from_numpy(concat.row_ids).to(dev), spec, 64)
+        fail(f"translate_device took the {spec.num_tables * spec.table_bytes}-byte spec")
+    except ValueError:
+        pass
+    # The widest spec under 2**31 bytes at these widths: 60 tables of 69,904
+    # rows of 512 bytes.
+    wide = EmbeddingOpSpec(num_tables=spec.num_tables,
+                           rows_per_table=(2**31 - 1) // (spec.num_tables * spec.vector_bytes),
+                           dim=spec.dim, lookups_per_sample=spec.lookups_per_sample,
+                           dtype_bytes=spec.dtype_bytes)
+    rows = concat.row_ids % wide.rows_per_table
+    full = FullTrace(concat.table_ids, rows, sum(concat.batch_sizes), wide.num_tables,
+                     wide.lookups_per_sample)
+    got = translate_device(torch.from_numpy(concat.table_ids).to(dev),
+                           torch.from_numpy(rows).to(dev), wide, 64)
+    if not np.array_equal(got.cpu().numpy(), translate(full, wide, 64).lines):
+        fail("translate_device differs from translate on the widest spec under 2**31 bytes")
+    print(f"[10] device helpers on phase 4's trace ({len(concat)} lookups, {lines.size} lines): "
+          f"shard_lookup_cores_device (batch, table_hash x 2/4/8 cores) and classify_device "
+          f"(spm, pinning) equal the host versions; translate_device raises for the "
+          f"{spec.num_tables * spec.table_bytes}-byte spec and equals translate on "
+          f"{wide.num_tables} x {wide.rows_per_table} rows "
+          f"({wide.num_tables * wide.table_bytes} bytes)", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs an NVIDIA GPU")
@@ -2159,6 +2566,11 @@ def main() -> None:
     # ---- 9. the multi-core cluster at full width ---------------------------
     cluster_launches = cluster_phase(dev, K, wl, results[("lru", "stack")])
 
+    # ---- 10. the request-level serving simulator at full width -------------
+    t0 = time.perf_counter()
+    serving_launches = serving_phase(dev, K, wl, etrace)
+    print(f"[10] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
@@ -2177,6 +2589,9 @@ def main() -> None:
             e["sweep_launches"] = sweep_launches[e["kind"]]
         if runs:
             e["cluster_launches"] = {run: cluster_launches[run][e["kind"]] for run in runs}
+        if name in ("cache_scan[lru]", "stack_distance[lru]", "dram_scan[spm]",
+                    "rrip_scan[srrip]"):
+            e["serving_launches"] = {run: c[e["kind"]] for run, c in serving_launches.items()}
     for name, e in lm_entries.items():
         e["launches"] = lm_counts[e["kind"]]
     entries.update(lm_entries)
@@ -2203,6 +2618,7 @@ def main() -> None:
             "library_ms": e.get("library_ms"), "shapes": e["shapes"],
             **({"sweep_launches": e["sweep_launches"]} if "sweep_launches" in e else {}),
             **({"cluster_launches": e["cluster_launches"]} if "cluster_launches" in e else {}),
+            **({"serving_launches": e["serving_launches"]} if "serving_launches" in e else {}),
         })
     print(f"[5] script wall {time.perf_counter() - t_script:.1f} s", flush=True)
     print(name_power, flush=True)

@@ -170,6 +170,17 @@ class MemoryPolicy(abc.ABC):
         """One-time on-chip fills at load time (before the first batch)."""
         return 0
 
+    def classify_device(self, lines: torch.Tensor, ctx: PolicyContext) -> torch.Tensor:
+        """Device-resident ``classify`` (the JAX package's ``classify_jnp``):
+        takes a line tensor, returns a bool tensor on the same device.
+
+        Policies with a native torch version (SPM, PINNING) override this;
+        the numpy ``classify`` stays the golden reference (equality is
+        test-enforced). The default round-trips through the host.
+        """
+        hits = self.classify(lines.cpu().numpy(), ctx)
+        return torch.as_tensor(hits, dtype=torch.bool, device=lines.device)
+
     def _outcome(
         self, lines: np.ndarray, ctx: PolicyContext, hits: np.ndarray
     ) -> PolicyOutcome:
@@ -255,6 +266,11 @@ class SpmPolicy(MemoryPolicy):
 
     def classify(self, lines: np.ndarray, ctx: PolicyContext) -> np.ndarray:
         return np.zeros(lines.size, dtype=bool)
+
+    def classify_device(self, lines: torch.Tensor, ctx: PolicyContext) -> torch.Tensor:
+        """Device-resident ``classify`` (the JAX package's ``classify_jnp``):
+        all-miss, on ``lines``' device."""
+        return torch.zeros(lines.shape[0], dtype=torch.bool, device=lines.device)
 
 
 class _CacheModePolicy(MemoryPolicy):
@@ -360,6 +376,19 @@ class PinningPolicy(MemoryPolicy):
         idx = np.searchsorted(pinned, lines)
         idx = np.clip(idx, 0, len(pinned) - 1)
         return pinned[idx] == lines
+
+    def classify_device(self, lines: torch.Tensor, ctx: PolicyContext) -> torch.Tensor:
+        """Device-resident ``classify`` (the JAX package's ``classify_jnp``):
+        the same sorted-membership test as the numpy golden, with
+        ``torch.searchsorted`` on ``lines``' device, so a device-resident
+        caller keeps the lookup stream there."""
+        pinned = ctx.pinned_lines
+        if pinned is None or not len(pinned):
+            return torch.zeros(lines.shape[0], dtype=torch.bool, device=lines.device)
+        pinned_d = torch.as_tensor(np.asarray(pinned, dtype=np.int64), device=lines.device)
+        lines = lines.to(torch.int64)
+        idx = torch.searchsorted(pinned_d, lines).clamp_(0, len(pinned) - 1)
+        return pinned_d[idx] == lines
 
     def setup_writes(self, ctx: PolicyContext) -> int:
         return 0 if ctx.pinned_lines is None else int(len(ctx.pinned_lines))

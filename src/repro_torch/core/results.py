@@ -11,6 +11,8 @@ import json
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import numpy as np
+
 
 @dataclass
 class BatchResult:
@@ -187,3 +189,172 @@ class SimResult:
             f'{s["total_seconds"]:.6e},{self.onchip_accesses},{s["offchip_reads"]},'
             f'{s["onchip_ratio"]:.4f},{s["cache_hits"]},{s["cache_misses"]},{s["energy_pj"]:.3e}'
         )
+
+
+@dataclass
+class ServingResult:
+    """One serving scenario's outcome on one hardware config.
+
+    Produced by ``serving.scheduler.simulate_serving``. Deterministic: the
+    same scenario + hardware + seed reproduces every field bitwise, latency
+    arrays included — ``diff()`` returning ``{}`` is the reproducibility
+    assertion used by tests and the serving-smoke CI job.
+
+    ``batch_stats`` is the identity surface: with all robustness policies
+    off it is exactly the ``List[EmbeddingBatchStats]`` the plain
+    fixed-trace ``simulate_embedding`` path yields for the same lowered
+    ``ConcatTrace`` (differential-enforced). Latency/queue/service arrays
+    are in completion order, one entry per completed request, in cycles.
+    """
+
+    scenario: str
+    hardware: str
+    policy: str
+    clock_ghz: float
+    offered: int                  # requests submitted (first attempts)
+    completed: int                # requests served to completion
+    shed: int                     # admission-control rejections (all attempts)
+    timed_out: int                # deadline abandonments while queued
+    retries: int                  # client re-submissions scheduled
+    abandoned: int                # attempts failed with no retry budget left
+    degraded_batches: int
+    dropped_cold_rows: int        # lookups truncated by hot_rows_only
+    bypassed_lookups: int         # lookups routed around the cache
+    num_batches: int
+    makespan_cycles: int          # first arrival -> last batch completion
+    goodput: float                # in-deadline completions / offered
+    latency_cycles: np.ndarray    # int64, completion order
+    queue_cycles: np.ndarray      # int64, served attempt's queueing delay
+    service_cycles: np.ndarray    # int64, served batch's service time
+    batch_stats: List = field(default_factory=list)
+    batch_service_cycles: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, dtype=np.int64))
+    batch_start_cycles: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, dtype=np.int64))
+
+    # ---- latency distribution --------------------------------------------
+    def latency_percentile(self, q: float) -> float:
+        if self.latency_cycles.size == 0:
+            return float("nan")
+        return float(np.percentile(self.latency_cycles, q))
+
+    @property
+    def p50_cycles(self) -> float:
+        return self.latency_percentile(50.0)
+
+    @property
+    def p95_cycles(self) -> float:
+        return self.latency_percentile(95.0)
+
+    @property
+    def p99_cycles(self) -> float:
+        return self.latency_percentile(99.0)
+
+    @property
+    def mean_queue_cycles(self) -> float:
+        if self.queue_cycles.size == 0:
+            return float("nan")
+        return float(self.queue_cycles.mean())
+
+    @property
+    def mean_service_cycles(self) -> float:
+        if self.service_cycles.size == 0:
+            return float("nan")
+        return float(self.service_cycles.mean())
+
+    # ---- throughput -------------------------------------------------------
+    # The scheduler never emits makespan_cycles == 0 (it clamps to >= 1),
+    # but externally-constructed / journal-replayed results can carry it —
+    # nan, like the other empty-distribution properties, not a raise.
+    @property
+    def sustained_qps_per_mcycle(self) -> float:
+        """Completed requests per million cycles — clock-independent."""
+        if self.makespan_cycles == 0:
+            return float("nan")
+        return self.completed / (self.makespan_cycles / 1e6)
+
+    @property
+    def sustained_qps(self) -> float:
+        """Completed requests per wall second at ``clock_ghz``."""
+        if self.makespan_cycles == 0:
+            return float("nan")
+        return self.completed / (self.makespan_cycles / (self.clock_ghz * 1e9))
+
+    @property
+    def total_cycles(self) -> float:
+        """Makespan, under the name ``SweepResult.best``/``speedup_over``
+        read off every entry result."""
+        return float(self.makespan_cycles)
+
+    def cycles_to_us(self, cycles: float) -> float:
+        return cycles / (self.clock_ghz * 1e3)
+
+    # ---- emit -------------------------------------------------------------
+    def summary(self) -> Dict:
+        return {
+            "scenario": self.scenario,
+            "hardware": self.hardware,
+            "policy": self.policy,
+            "offered": self.offered,
+            "completed": self.completed,
+            "shed": self.shed,
+            "timed_out": self.timed_out,
+            "retries": self.retries,
+            "abandoned": self.abandoned,
+            "degraded_batches": self.degraded_batches,
+            "dropped_cold_rows": self.dropped_cold_rows,
+            "bypassed_lookups": self.bypassed_lookups,
+            "num_batches": self.num_batches,
+            "makespan_cycles": self.makespan_cycles,
+            "total_cycles": self.total_cycles,
+            "goodput": self.goodput,
+            "p50_cycles": self.p50_cycles,
+            "p95_cycles": self.p95_cycles,
+            "p99_cycles": self.p99_cycles,
+            "mean_queue_cycles": self.mean_queue_cycles,
+            "mean_service_cycles": self.mean_service_cycles,
+            "sustained_qps_per_mcycle": self.sustained_qps_per_mcycle,
+            "sustained_qps": self.sustained_qps,
+        }
+
+    def to_json(self, path: Optional[str] = None) -> str:
+        payload = {
+            "summary": self.summary(),
+            "latency_cycles": self.latency_cycles.tolist(),
+            "queue_cycles": self.queue_cycles.tolist(),
+            "service_cycles": self.service_cycles.tolist(),
+            "batch_service_cycles": self.batch_service_cycles.tolist(),
+            "batch_start_cycles": self.batch_start_cycles.tolist(),
+        }
+        text = json.dumps(payload, indent=2)
+        if path:
+            with open(path, "w") as f:
+                f.write(text)
+        return text
+
+    def diff(self, other: "ServingResult") -> Dict[str, tuple]:
+        """Bitwise comparison: summary fields, per-request arrays, and the
+        per-batch memory-system stats. Empty dict == identical results."""
+        mismatches: Dict[str, tuple] = {}
+        a, b = self.summary(), other.summary()
+        for k in a:
+            av, bv = a[k], b[k]
+            same = (av == bv) or (
+                isinstance(av, float) and isinstance(bv, float)
+                and np.isnan(av) and np.isnan(bv))
+            if not same:
+                mismatches[k] = (av, bv)
+        for name in ("latency_cycles", "queue_cycles", "service_cycles",
+                     "batch_service_cycles", "batch_start_cycles"):
+            xa, xb = getattr(self, name), getattr(other, name)
+            if xa.shape != xb.shape or not np.array_equal(xa, xb):
+                mismatches[name] = (xa.tolist(), xb.tolist())
+        if len(self.batch_stats) != len(other.batch_stats):
+            mismatches["num_batch_stats"] = (
+                len(self.batch_stats), len(other.batch_stats))
+            return mismatches
+        for i, (sa, sb) in enumerate(zip(self.batch_stats, other.batch_stats)):
+            da, db = dataclasses.asdict(sa), dataclasses.asdict(sb)
+            if da != db:
+                mismatches[f"batch_stats{i}"] = (da, db)
+        return mismatches

@@ -98,9 +98,9 @@ package's ``examples/fig4_sweep.py`` makes it)::
     best = result.best("total_cycles")
 
 Every hardware axis runs, cluster shapes (``num_cores``, ``topologies``)
-and NUMA placements (``channel_affinities``, ``placements``) included.
-Serving-scenario sweeps (``scenarios=``, which need the request-level
-serving simulator) raise ``NotImplementedError``.
+and NUMA placements (``channel_affinities``, ``placements``) included, and
+so do serving-scenario sweeps (``scenarios=``: each grid point a hardware
+combo x ``ServingScenario``, priced by the request-level serving simulator).
 """
 from __future__ import annotations
 
@@ -570,20 +570,24 @@ def _build_grid(base_hw: HardwareConfig, combos: Sequence[_Combo], etraces,
 # Memo-key evaluation (classification + batched DRAM timing)
 # --------------------------------------------------------------------------
 
+def _system_on(ms, device: torch.device, moved: Dict[int, object]):
+    """``ms``, or its rebuild on ``device`` when it lives elsewhere; one
+    rebuilt system (kept in ``moved``) serves every key that shared the
+    original."""
+    if ms.device == device:
+        return ms
+    if id(ms) not in moved:
+        moved[id(ms)] = memory_system_for(ms.hw, device)
+    return moved[id(ms)]
+
+
 def _on(items: Dict[tuple, tuple], device: torch.device) -> Dict[tuple, tuple]:
     """``items`` with every memory system on ``device``: a shard evaluates
     on its own device, and ``classify_embedding_many`` takes the systems of
-    one device only. Systems already there are kept; one rebuilt system
-    serves every key that shared the original."""
+    one device only."""
     moved: Dict[int, object] = {}
-    out = {}
-    for key, (ms, ck) in items.items():
-        if ms.device != device:
-            if id(ms) not in moved:
-                moved[id(ms)] = memory_system_for(ms.hw, device)
-            ms = moved[id(ms)]
-        out[key] = (ms, ck)
-    return out
+    return {key: (_system_on(ms, device, moved), ck)
+            for key, (ms, ck) in items.items()}
 
 
 def _evaluate_keys(
@@ -759,9 +763,16 @@ def sweep(
     even when the sweep raises), otherwise a fresh ``FaultTelemetry`` is
     created. Either way the counters land on ``SweepResult.telemetry``.
 
-    ``scenarios`` (serving-scenario sweeps: traffic pattern x robustness
-    policy over the request-level serving simulator) raises
-    ``NotImplementedError``: that simulator is not ported yet.
+    ``scenarios`` (a ``serving.scheduler.ServingScenario`` list) switches
+    the sweep to *serving* mode: each grid point is (hardware axes x
+    scenario), every entry's result a ``ServingResult`` from the
+    closed-loop request-level simulator (traffic pattern x robustness
+    policy as first-class DSE axes). Serving sweeps ride the same
+    sharding/checkpointing/fault-tolerance machinery — memo keys are
+    (hardware combo, scenario key); journaled per-batch stats reconstruct
+    the ``ServingResult`` bitwise through a replay of the deterministic
+    scheduler. ``zipf_s``/``seed``/``index_trace`` do not apply (each
+    scenario's ``TrafficConfig`` carries its own popularity model + seed).
     """
     dev = indexed_device(device)
     base_hw = base_hw or tpuv6e()
@@ -770,10 +781,21 @@ def sweep(
         raise ValueError("need at least one workload")
 
     if scenarios is not None:
-        raise NotImplementedError(
-            "serving-scenario sweeps (scenarios=) need the request-level "
-            "serving simulator (core/requests.py, serving/scheduler.py), which "
-            "is not ported yet (serving slice of the port; see ROADMAP.md)")
+        if configs is not None:
+            raise ValueError("scenarios= and configs= cannot be combined")
+        if index_trace is not None:
+            raise ValueError(
+                "scenarios= generates request-driven traces; index_trace= "
+                "does not apply to serving sweeps")
+        axes = _resolve_axes(base_hw, policies, capacities, ways, num_cores,
+                             topologies, channel_affinities, placements,
+                             translations)
+        return _sweep_serving(
+            wls, base_hw, axes, tuple(scenarios), dev,
+            devices=devices, checkpoint=checkpoint,
+            fault_tolerance=fault_tolerance, fault_plan=fault_plan,
+            fault_telemetry=fault_telemetry,
+        )
 
     if configs is not None:
         slices = _slices_from_configs(wls, list(configs))
@@ -940,3 +962,194 @@ def _fingerprint(wls, base_hw, seed, slices, index_trace, energy_table) -> Dict:
         "index_trace": it_digest,
         "energy_table": repr(energy_table),
     }
+
+
+# --------------------------------------------------------------------------
+# Serving-scenario sweeps (traffic pattern x robustness policy axes)
+# --------------------------------------------------------------------------
+
+def _serving_fingerprint(wls, base_hw, combos, scenarios) -> Dict:
+    """Everything that determines serving-sweep RESULTS: workloads, base
+    hardware, the hardware-combo grid, and each scenario's full key (traffic
+    + robustness policy + batch geometry). Sharding/cadence excluded — the
+    scheduler is deterministic and replay is bitwise."""
+    return {
+        "mode": "serving",
+        "workloads": sorted(repr(wl) for wl in wls),
+        "base_hw": repr(base_hw),
+        "combos": sorted(map(list, set(combos))),
+        "scenarios": [list(s.key) for s in scenarios],
+    }
+
+
+def _sweep_serving(
+    wls,
+    base_hw: HardwareConfig,
+    axes,
+    scenarios,
+    dev: torch.device,
+    devices=None,
+    checkpoint: Union[SweepCheckpoint, str, None] = None,
+    fault_tolerance: Optional[FaultTolerance] = None,
+    fault_plan: Optional[FaultPlan] = None,
+    fault_telemetry: Optional[FaultTelemetry] = None,
+) -> SweepResult:
+    """The serving-mode sweep: (hardware combo x scenario) grid over the
+    closed-loop request-level simulator.
+
+    Memo keys are (combo..., scenario.key) — no canonicalization: serving
+    traces are schedule-dependent, so the fixed-trace collapses
+    (capacity saturation, placement identity) are not provably safe here.
+    The shard group key is the hardware combo, co-locating one config's
+    scenarios on a shard, and a shard prices its keys with memory systems
+    on its own device. The journal stores each key's per-batch
+    ``EmbeddingBatchStats`` (the existing checkpoint schema, outer list of
+    length 1); restored keys reconstruct their ``ServingResult`` bitwise by
+    replaying the deterministic scheduler against the recorded stats."""
+    from ..serving.scheduler import ReplayOracle, simulate_serving
+    from .requests import generate_requests
+
+    names = [s.name for s in scenarios]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate scenario names: {sorted(names)}")
+    combos = list(itertools.product(*axes))
+
+    shard_plan = None
+    if devices is not None:
+        from ..distributed.sweep_shard import resolve_shard_plan
+        shard_plan = resolve_shard_plan(devices, dev)
+
+    tol = fault_tolerance if fault_tolerance is not None else FaultTolerance()
+    telemetry = (fault_telemetry if fault_telemetry is not None
+                 else FaultTelemetry())
+    injector: Optional[FaultInjector] = None
+    if fault_plan is not None:
+        if shard_plan is None and fault_plan.has_shard_events():
+            raise ValueError(
+                "fault_plan schedules shard events but the sweep is not "
+                "sharded — pass devices= so the plan's shard coordinates "
+                "mean something")
+        if fault_plan.has_kind("hang") and tol.shard_timeout_s is None:
+            raise ValueError(
+                "fault_plan injects hangs but no watchdog is armed — set "
+                "FaultTolerance.shard_timeout_s or the sweep deadlocks")
+        injector = FaultInjector(fault_plan, telemetry)
+
+    ckpt: Optional[SweepCheckpoint] = None
+    if checkpoint is not None:
+        ckpt = (checkpoint if isinstance(checkpoint, SweepCheckpoint)
+                else SweepCheckpoint(checkpoint))
+        ckpt.open(_serving_fingerprint(wls, base_hw, combos, scenarios))
+        ckpt.fault_injector = injector
+
+    t0 = time.perf_counter()
+    out = SweepResult()
+    out.telemetry = telemetry
+    if shard_plan is not None:
+        out.sharded = True
+        out.device_count = shard_plan.distinct_devices
+
+    def _eval_serving(sub: Dict[tuple, tuple],
+                      device: torch.device) -> Dict[tuple, list]:
+        moved: Dict[int, object] = {}
+        res = {}
+        for key, (payload, _gk) in sub.items():
+            ms, spec, sc, reqs = payload
+            res[key] = [simulate_serving(_system_on(ms, device, moved), spec,
+                                         sc, requests=reqs).batch_stats]
+        return res
+
+    try:
+        for wl in wls:
+            if not wl.embedding_ops:
+                raise ValueError(
+                    f"workload {wl.name!r} has no embedding op to serve")
+            spec = wl.embedding_ops[0]
+            slice_id = (wl.name, "__serving__")
+            # One request stream per distinct traffic config, shared by
+            # every hardware combo (and every policy over that traffic) —
+            # generated up front so shard threads never duplicate it.
+            streams = {}
+            for sc in scenarios:
+                if sc.traffic.key not in streams:
+                    streams[sc.traffic.key] = generate_requests(spec,
+                                                                sc.traffic)
+
+            grid = []                         # (combo, hw, ms, scenario, key)
+            pending: Dict[tuple, tuple] = {}  # key -> (payload, group_key)
+            for combo in combos:
+                pol, cap, w, nc, topo, aff, plc, trk = combo
+                hw = base_hw.with_policy(
+                    OnChipPolicy(pol), capacity_bytes=cap, ways=w
+                ).with_cluster(nc, topo).with_placement(aff, plc) \
+                 .with_translation(_tr_from_key(trk))
+                ms = memory_system_for(hw, dev)
+                for sc in scenarios:
+                    key = combo + (sc.key,)
+                    grid.append((combo, hw, ms, sc, key))
+                    if key not in pending:
+                        pending[key] = (
+                            (ms, spec, sc, streams[sc.traffic.key]), combo)
+            out.distinct_memo_keys += len(pending)
+
+            stats_memo: Dict[tuple, list] = {}
+            if ckpt is not None:
+                for key in pending:
+                    restored = ckpt.lookup(slice_id, key)
+                    if restored is not None:
+                        stats_memo[key] = restored
+                out.resumed_keys += len(stats_memo)
+            todo = {k: v for k, v in pending.items() if k not in stats_memo}
+
+            cadence = ckpt.cadence if ckpt is not None else None
+            for round_items in _chunks(todo, cadence):
+                if injector is not None:
+                    injector.begin_round()
+                if shard_plan is not None and (
+                    len(round_items) > 1 or injector is not None
+                ):
+                    from ..distributed.sweep_shard import evaluate_sharded
+                    try:
+                        results = evaluate_sharded(
+                            round_items, shard_plan, _eval_serving,
+                            tolerance=tol,
+                            injector=injector,
+                            telemetry=telemetry,
+                        )
+                    except ShardEvaluationError as exc:
+                        if ckpt is not None and exc.completed:
+                            ckpt.record(slice_id, exc.completed)
+                        raise
+                else:
+                    results = _eval_serving(round_items, dev)
+                stats_memo.update(results)
+                if ckpt is not None:
+                    ckpt.record(slice_id, results)
+
+            # Entry assembly: replay the deterministic scheduler against
+            # each key's recorded stats — identical whether the stats were
+            # just evaluated or restored from the journal.
+            for combo, hw, ms, sc, key in grid:
+                pol, cap, w, nc, topo, aff, plc, trk = combo
+                res = simulate_serving(
+                    ms, spec, sc, requests=streams[sc.traffic.key],
+                    oracle=ReplayOracle(stats_memo[key][0]),
+                )
+                out.entries.append(SweepEntry(
+                    config=SweepConfig(
+                        policy=pol, capacity_bytes=cap, ways=w,
+                        workload=wl.name, zipf_s=float(sc.traffic.zipf_s),
+                        num_cores=nc, topology=topo, channel_affinity=aff,
+                        placement=plc, translation=_tr_from_key(trk),
+                        scenario=sc.name,
+                    ),
+                    result=res,
+                    memo_key=slice_id + key,
+                ))
+        if ckpt is not None:
+            ckpt.mark_complete(len(out.entries))
+    finally:
+        if ckpt is not None and not isinstance(checkpoint, SweepCheckpoint):
+            ckpt.close()
+    out.wall_seconds = time.perf_counter() - t0
+    return out

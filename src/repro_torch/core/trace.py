@@ -16,7 +16,9 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from ..device import DeviceLike, resolve_device
 from .workload import EmbeddingOpSpec
 
 
@@ -287,6 +289,42 @@ def shard_lookup_cores(
         return (sample % num_cores).astype(np.int32)
     if mode == "table_hash":
         return table_core_of(concat.table_ids, num_cores)
+    raise ValueError(f"unknown sharding mode {mode!r}; options: batch, table_hash")
+
+
+def shard_lookup_cores_device(
+    concat: ConcatTrace, num_cores: int, mode: str = "batch",
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """Device-resident ``shard_lookup_cores`` (the JAX package's
+    ``shard_lookup_cores_jnp``): the same int32 (N,) lookup->core map, built
+    on ``device`` (the card unless the caller asks for the CPU); the numpy
+    version stays golden (equality test-enforced).
+
+    ``table_hash`` is the 64-bit hash of ``table_core_of`` in int64:
+    ``_TABLE_HASH_MULT`` < 2**32 and a table id is an int32, so
+    ``t * _TABLE_HASH_MULT`` < 2**63 is exact for every id (no 32-bit split
+    and no host fallback, which the JAX version needs past 2**15).
+    """
+    if num_cores < 1:
+        raise ValueError(f"num_cores must be >= 1, got {num_cores}")
+    dev = resolve_device(device)
+    n = len(concat)
+    if num_cores == 1:
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+    if mode == "batch":
+        per_sample = concat.num_tables * concat.lookups_per_sample
+        starts = torch.repeat_interleave(
+            torch.as_tensor(concat.boundaries[:-1], dtype=torch.int64, device=dev),
+            torch.as_tensor(concat.lookups_per_batch, dtype=torch.int64, device=dev),
+            output_size=n,
+        )
+        pos_in_batch = torch.arange(n, dtype=torch.int64, device=dev) - starts
+        sample = pos_in_batch // max(per_sample, 1)
+        return (sample % num_cores).to(torch.int32)
+    if mode == "table_hash":
+        t = torch.as_tensor(concat.table_ids, device=dev).to(torch.int64)
+        return (((t * _TABLE_HASH_MULT) >> 16) % num_cores).to(torch.int32)
     raise ValueError(f"unknown sharding mode {mode!r}; options: batch, table_hash")
 
 
@@ -712,6 +750,41 @@ def translate(
         lines_per_vector=lines_per_vec,
         vector_of_line=vector_of_line,
     )
+
+
+def translate_device(
+    table_ids: torch.Tensor,
+    row_ids: torch.Tensor,
+    spec: EmbeddingOpSpec,
+    line_bytes: int,
+    base_address: int = 0,
+) -> torch.Tensor:
+    """Device-resident ``translate`` address arithmetic (the JAX package's
+    ``translate_jnp``), on the lookups' device.
+
+    Returns the flattened ``(N * lines_per_vector,)`` int32 line-number
+    stream (the ``AddressTrace.lines`` layout); the numpy ``translate``
+    stays golden (equality test-enforced). Its contract is the JAX
+    version's: int32 line numbers over byte addresses below 2**31 - 1, and
+    a ``ValueError`` for a spec that spans more (those keep the int64 host
+    ``translate``).
+    """
+    vb = spec.vector_bytes
+    lines_per_vec = -(-vb // line_bytes)
+    max_addr = base_address + spec.num_tables * spec.table_bytes
+    if max_addr >= np.iinfo(np.int32).max:
+        raise ValueError(
+            f"translate_device covers int32 byte addresses only; this spec "
+            f"spans {max_addr} bytes — use the int64 host `translate` instead"
+        )
+    start = (
+        base_address
+        + table_ids.to(torch.int64) * spec.table_bytes
+        + row_ids.to(torch.int64) * vb
+    )
+    start_line = start // line_bytes
+    offsets = torch.arange(lines_per_vec, dtype=torch.int64, device=start.device)
+    return (start_line[:, None] + offsets[None, :]).reshape(-1).to(torch.int32)
 
 
 def load_index_trace(path: str) -> np.ndarray:

@@ -412,7 +412,7 @@ def rrip_scan_flat(tags, valid, table: RowTable, policy: str, *, out=None, rerun
         return out
     if table.ways > MAX_WAYS:
         raise ValueError(f"rrip_scan takes 1 <= ways <= {MAX_WAYS}; got ways={table.ways}")
-    if table.virtual_rows == 0:
+    if table.total == 0:      # no step to scan (rows of length 0 or none): no launch
         if reruns is not None:
             reruns.zero_()
         return out

@@ -1051,3 +1051,128 @@ def test_cluster_sweep_on_the_card_equals_cpu(cuda):
     want = records(sweep(wl, tpuv6e(), device="cpu", **axes))
     assert records(sweep(wl, tpuv6e(), **axes)) == want
     assert records(sweep(wl, tpuv6e(), devices=2, **axes)) == want
+
+
+# ---------------------------------------------------------------------------
+# The serving simulator: the smallest inputs it gives the scans, and its runs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,L", [(1, 0), (0, 7), (1, 1), (3, 1), (2, 2)])
+def test_scan_kernels_zero_length_and_one_lookup(cuda, B, L):
+    """K1, K2, D1 and D2 on the smallest inputs (a degraded serving batch can
+    leave no lookup, or one): equal to their plain versions, bitwise; an
+    input with no step launches nothing (a zero-size grid is a launch
+    error), an input with one step launches once."""
+    from repro_torch.kernels.rrip_scan import PLAIN, rrip_scan_rows
+
+    rng = np.random.default_rng(B * 10 + L)
+    sets = torch.from_numpy(rng.integers(0, 3, size=(B, L)).astype(np.int32)).to(cuda)
+    tags = torch.from_numpy(rng.integers(-1, 9, size=(B, L)).astype(np.int32)).to(cuda)
+    valid = torch.ones((B, L), dtype=torch.bool, device=cuda)
+    steps = B * L
+    for policy in ("lru", "srrip", "fifo"):
+        reset_launch_counts()
+        got = cache_scan_groups(sets, tags, valid, 3, 2, policy)
+        assert launch_counts()["cache_scan"] == (1 if steps else 0)
+        assert all(torch.equal(a, b) for a, b in zip(
+            got, cache_scan_plain(sets, tags, valid, 3, 2, policy)))
+    reset_launch_counts()
+    got = stack_distance_groups(sets, tags, valid, 3, 2)
+    assert launch_counts()["stack_distance"] == (1 if steps else 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, stack_distance_plain(sets, tags, valid, 3, 2)))
+    for policy in ("fifo", "srrip"):
+        reset_launch_counts()
+        got = rrip_scan_rows(tags, valid, 2, policy)
+        assert launch_counts()["rrip_scan"] == (1 if steps else 0)
+        assert torch.equal(got, PLAIN[policy](tags, valid, 2))
+    # D1: R rows of Lc chunks (R = B segments x channels, Lc = L chunks).
+    arrays = (rng.integers(0, 8, size=(B, L)).astype(np.int32),
+              rng.integers(0, 3, size=(B, L)).astype(np.int32),
+              rng.integers(1, 9, size=(B, L)).astype(np.int32), np.ones((B, L), bool))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    reset_launch_counts()
+    got = dram_scan_chunked(*args, 8, 8, 44.0, 22.0, 0.6016)
+    assert launch_counts()["dram_scan"] == (1 if B else 0)
+    want = dram_scan_plain(*args, 8, 8, 44.0, 22.0, 0.6016)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+SERVING_SPEC = dict(num_tables=4, rows_per_table=1000, dim=32, lookups_per_sample=4,
+                    dtype_bytes=4)
+
+
+def _serving_scenarios():
+    from repro_torch.core import TrafficConfig
+    from repro_torch.serving import RobustnessPolicy, ServingScenario
+
+    out = [ServingScenario(name="steady", traffic=TrafficConfig(
+               pattern="poisson", mean_gap_cycles=700.0, num_requests=48, seed=11)),
+           ServingScenario(name="storm", traffic=TrafficConfig(
+               pattern="bursty", mean_gap_cycles=40.0, num_requests=80, seed=23, burst_len=10),
+               policy=RobustnessPolicy(admission_watermark=12, deadline_cycles=25_000,
+                                       max_retries=2, retry_backoff_cycles=2_000.0,
+                                       degrade_mode="hot_rows_only", degrade_watermark=2,
+                                       hot_fraction=0.2))]
+    # One table and one lookup a request, a request a batch, every batch
+    # degraded: batches of no lookup (the first ones) and of one.
+    for mode, seed in (("hot_rows_only", 0), ("cache_bypass", 1)):
+        out.append(ServingScenario(name=f"edge_{mode}", traffic=TrafficConfig(
+            pattern="poisson", mean_gap_cycles=700.0, num_requests=12, seed=seed,
+            tables_per_request=1, lookups_per_table=1), policy=RobustnessPolicy(
+            degrade_mode=mode, degrade_watermark=0, hot_fraction=0.001,
+            bypass_keep_tables=0.25), batch_slots=1))
+    return out
+
+
+@pytest.mark.parametrize("policy,backend,kernel", [
+    ("lru", "pallas", "cache_scan"), ("lru", "stack_pallas", "stack_distance"),
+    ("srrip", "stack", "rrip_scan"), ("fifo", "stack", "rrip_scan"), ("spm", "stack", None)])
+def test_serving_on_the_card_equals_cpu(cuda, policy, backend, kernel):
+    """A small serving run on the card equals the same run on the CPU,
+    bitwise, for every scenario (all-off, a closed loop with every policy,
+    batches with no lookup and with one); D1 launches once per priced
+    stream that holds a miss, the on-chip kernel only where the path runs
+    it."""
+    from repro_torch.core import EmbeddingOpSpec, tpuv6e
+    from repro_torch.core.memory.system import memory_system_for
+    from repro_torch.serving import simulate_serving
+
+    spec = EmbeddingOpSpec(**SERVING_SPEC)
+    hw = tpuv6e().with_policy(policy).with_cache_backend(backend)
+    for sc in _serving_scenarios():
+        reset_launch_counts()
+        on_card = simulate_serving(memory_system_for(hw, cuda), spec, sc)
+        counts = launch_counts()
+        priced = 1 if sc.policy.all_off else on_card.num_batches
+        assert 0 < counts["dram_scan"] <= priced, (sc.name, counts)
+        for name in ("cache_scan", "stack_distance", "rrip_scan"):
+            assert (counts[name] > 0) <= (name == kernel), (sc.name, counts)
+        if kernel and sc.name in ("steady", "storm"):
+            assert counts[kernel] > 0, (sc.name, counts)
+        on_cpu = simulate_serving(memory_system_for(hw, "cpu"), spec, sc)
+        assert on_card.diff(on_cpu) == {}, sc.name
+
+
+def test_serving_sweep_on_the_card_sharded_equals_cpu(cuda):
+    """A serving-scenario sweep on the card, unsharded and as two shard
+    threads on the one card, equals the CPU's, bitwise."""
+    import dataclasses
+
+    from repro_torch.core import EmbeddingOpSpec, Workload, sweep, tpuv6e
+
+    wl = Workload(name="serve_wl", embedding_ops=(EmbeddingOpSpec(**SERVING_SPEC),))
+    axes = dict(policies=("spm", "lru", "srrip"), capacities=(1 << 20,), ways=(8,),
+                scenarios=_serving_scenarios()[:2])
+
+    def records(sr):
+        return [(e.config, e.result.summary(), e.result.latency_cycles.tolist(),
+                 [dataclasses.asdict(s) for s in e.result.batch_stats]) for e in sr.entries]
+
+    want = records(sweep(wl, tpuv6e(), device="cpu", **axes))
+    assert records(sweep(wl, tpuv6e(), **axes)) == want
+    sharded = sweep(wl, tpuv6e(), devices=2, **axes)
+    assert sharded.sharded and sharded.device_count == 1
+    assert records(sharded) == want

@@ -16,7 +16,9 @@ import torch
 from differential import assert_bitwise_equal_results
 
 import repro.core as R
+import repro.serving as RS
 import repro_torch.core as T
+import repro_torch.serving as TS
 
 WORKLOAD = dict(num_tables=2, rows_per_table=2000, dim=128, lookups=4, batch_size=8,
                 num_batches=2)
@@ -193,9 +195,25 @@ def test_unported_axes_raise(wls, axes):
                R.sweep(wls[0], R.tpuv6e(), **kw), str(axes))
 
 
-def test_scenarios_raise_not_implemented(wls):
-    with pytest.raises(NotImplementedError, match="serving"):
-        T.sweep(wls[1], T.tpuv6e(), scenarios=[object()], device="cpu")
+def test_scenarios_equal_jax_package(wls):
+    """Once raising, now ported: a serving-scenario sweep (closed loop with
+    shedding, deadlines and retries beside the all-off fast path) over this
+    file's workload equals the JAX package's, every ``ServingResult`` and
+    memo key; ``tests/test_torch_serving_sim.py`` has the rest."""
+    out = []
+    for pkg, S, wl in ((T, TS, wls[1]), (R, RS, wls[0])):
+        traffic = dict(mean_gap_cycles=300.0, num_requests=24, seed=4, lookups_per_table=2)
+        scs = [S.ServingScenario(name="steady", traffic=pkg.TrafficConfig(**traffic),
+                                 batch_slots=4),
+               S.ServingScenario(name="storm", traffic=pkg.TrafficConfig(
+                   **{**traffic, "pattern": "bursty", "mean_gap_cycles": 20.0}),
+                   policy=S.RobustnessPolicy(admission_watermark=6, deadline_cycles=20_000,
+                                             max_retries=1), batch_slots=4)]
+        kw = dict(policies=("spm", "srrip"), capacities=(1 << 16,), ways=(4,), scenarios=scs)
+        out.append(pkg.sweep(wl, pkg.tpuv6e(), **kw, **({"device": "cpu"} if pkg is T else {})))
+    same_sweep(*out, "scenarios=")
+    assert out[0].num_configs == 4
+    assert all(type(e.result).__name__ == "ServingResult" for e in out[0].entries)
 
 
 def test_rejects_unknown_policy_and_workload(wls):
