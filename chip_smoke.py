@@ -49,7 +49,13 @@ passed over):
      scalar) are checked on every call, K6's TFLOP/s and K7's and K8's TB/s
      printed beside their bounds (K8 with its P-slice and resident blocks
      per SM, K5 with its share of the bound and F.embedding_bag's time), K7
-     held bitwise equal across two calls with NaN past valid_len;
+     held bitwise equal across two calls with NaN past valid_len; then K6
+     and K7 at phase 11's shapes: MLA's q/k width 192 with v 128 (padded by
+     ``ops.flash_attention``), Whisper-base's encoder (S 1,500, not causal)
+     and cross-attention (64 queries over 1,500 keys; one token over 1,500
+     positions on K7), Sk one past a tile, one query row, arctic's group of
+     7 and granite's MQA group of 48 (K7 at the chunk ``kernel_chunk``
+     finds);
   4. ``simulate`` on the full DLRM-RMC2 workload (60 tables x 1M rows x dim
      128, 120 lookups, batch 32, 2 batches) x ``tpuv6e()`` for every
      policy/backend pair, with launch counts reset just before and read
@@ -151,6 +157,21 @@ passed over):
      card equal to the CPU for every scenario (batches of no lookup and one
      among them); ``shard_lookup_cores_device``, ``classify_device`` and
      ``translate_device`` on phase 4's trace equal to the host versions;
+ 11. the remaining LM architectures on the card (bf16, random weights drawn
+     on the card, each model freed before the next loads):
+     DeepSeek-V2-Lite-16B at full width and depth (27 layers of MLA + 64
+     routed experts top-6 + 2 shared) and Whisper-base at full width (its
+     encoder over 8 x 1,500 random frames, then a 64-token prompt), arctic
+     (1 layer), chameleon (2) and granite-34b (2) at full width:
+     ``ServingEngine.generate`` of 32 new tokens for 8 prompts (1024 tokens
+     but Whisper's), its launches held to the prefill's and steps' counts
+     (K6 once a layer per prefill, twice for Whisper; K7 once a layer per
+     step, twice for Whisper, never for MLA's absorbed decode), a second
+     generate giving the same greedy tokens, the prefill and each step apart,
+     timed; DeepSeek's decode step and prefill under ``torch.profiler`` and
+     beside their device bounds; the six at their smoke size on the card
+     against the CPU, teacher-forced, and each step after a prefill against
+     the forward;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
@@ -368,6 +389,25 @@ DLRM_STEPS = 4
 # (launch/serve.py's max_seq = prompt + new + 8).
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 1024, 32
 LM_MAX_SEQ = LM_PROMPT + LM_NEW + 8
+# Whisper-base serving (phase 11): the encoder's 1,500 frames, a prompt of
+# 64 tokens, LM_NEW new ones, batch LM_BATCH.
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 64
+# Phase 11's full-width models with their depth cut (layers kept), so that
+# each fits one card beside nothing else.
+CUT_DEPTH = {"arctic_480b": 1, "chameleon_34b": 2, "granite_34b": 2}
+# The phase-11 run whose launches each of its report entries gives.
+PHASE11_RUN = {"flash_attention[mla d192]": "deepseek",
+               "flash_attention[whisper encoder]": "whisper",
+               "flash_attention[whisper cross]": "whisper",
+               "flash_attention[whisper self]": "whisper",
+               "flash_attention[arctic g7]": "arctic_480b",
+               "flash_attention[chameleon g8]": "chameleon_34b",
+               "flash_attention[granite mqa g48]": "granite_34b",
+               "decode_attention[whisper cross]": "whisper",
+               "decode_attention[whisper self]": "whisper",
+               "decode_attention[granite mqa g48]": "granite_34b",
+               "decode_attention[arctic g7]": "arctic_480b",
+               "decode_attention[chameleon g8]": "chameleon_34b"}
 # The reference's tolerances (tests/test_kernels.py, tests/test_decode_kernel.py).
 # K8's bf16 output is rounded once from f32 on both routes, so there the two
 # may differ by one bf16 step, 2^-7 relative, besides the reference's 2e-4.
@@ -441,10 +481,11 @@ def time_cold_ms(fn, reps: int, flush) -> float:
     return total / reps
 
 
-def device_busy(events, wall: float, kernels=()) -> str:
+def device_busy(events, wall: float, kernels=(), top: int = 6) -> str:
     """Busy share of the card from a profiler's events: device events
-    (kernels, copies, fills) merged into busy intervals; plus the summed
-    device time of the events whose names hold each of ``kernels``."""
+    (kernels, copies, fills) merged into busy intervals, the ``top`` names
+    by device time; plus the summed device time of the events whose names
+    hold each of ``kernels``."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == DeviceType.CUDA)
@@ -456,7 +497,7 @@ def device_busy(events, wall: float, kernels=()) -> str:
             busy_us += b - max(a, end)
             end = b
         by_name[name] = by_name.get(name, 0.0) + (b - a)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     named = {k: round(sum(t for n, t in by_name.items() if k in n), 3) for k in kernels}
     return (f"device busy {busy_us / 1e6!r} s ({100 * busy_us / 1e6 / wall!r}% busy) over "
             f"{len(spans)} device events; top device time (us): "
@@ -567,19 +608,22 @@ def check_lm_kernels(dev, flush, f32_op_ms):
     import torch.nn.functional as F
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.kernels.decode_attention import (
-        CHUNK, decode_attention_kernel, decode_attention_plain)
+        CHUNK, _fns as k7_fns, decode_attention_kernel, decode_attention_plain,
+        kernel_chunk as kernel_chunk7)
     from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
     from repro_torch.kernels.mamba2_ssd import (
         P_SLICE, kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain, mma_blocks_per_sm)
 
     gen = torch.Generator(device=dev).manual_seed(2)
+    smem7 = k7_fns()[1]
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def flash_inputs(B, Hq, Hkv, S, d, dtype):
-        return (randn(B, Hq, S, d, dtype=dtype), randn(B, Hkv, S, d, dtype=dtype),
-                randn(B, S, Hkv, d, dtype=dtype).transpose(1, 2))
+    def flash_inputs(B, Hq, Hkv, S, d, dtype, Sk=None, dv=None):
+        Sk = S if Sk is None else Sk
+        return (randn(B, Hq, S, d, dtype=dtype), randn(B, Hkv, Sk, d, dtype=dtype),
+                randn(B, Sk, Hkv, dv or d, dtype=dtype).transpose(1, 2))
 
     def decode_inputs(B, Hq, Hkv, S_max, d, dtype):
         return (randn(B, Hq, d, dtype=dtype), randn(B, Hkv, S_max, d, dtype=dtype),
@@ -625,7 +669,15 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         return err, k_ms, p_ms, lib_ms
 
     def sdpa(q, k, v, causal):
-        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        def call():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+        try:
+            call()
+        except RuntimeError as exc:     # no SDPA backend takes the shape
+            print(f"[3] SDPA refuses q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+                  f"{tuple(v.shape)}: {str(exc).splitlines()[0][:120]}", flush=True)
+            return None
+        return call
 
     def sdpa_decode(q, k, v, valid):
         return lambda: F.scaled_dot_product_attention(
@@ -688,6 +740,58 @@ def check_lm_kernels(dev, flush, f32_op_ms):
           lambda q, k, v: flash_attention_kernel(q, k, v, causal=True),
           lambda q, k, v: flash_attention_plain(q, k, v, causal=True), None, (q, k, v),
           torch.bfloat16, reps=3)
+    # K6 on the shapes of phase 11's paths: MLA's prefill (q, k 192 wide, v
+    # 128 wide, padded by ops.flash_attention to 192 and sliced back: the
+    # function the path calls, timed pad included, against the plain version
+    # on the unpadded v), Whisper-base's encoder (S 1,500, not causal), its
+    # prompt's cross-attention (64 queries over 1,500 keys) and causal self-
+    # attention, the prompts of arctic (a group of 7), chameleon (a group of
+    # 8) and granite (MQA, a group of 48); and edges: Sk one past a tile, one
+    # query row, the groups of 7 and 48 at a small S.
+    from repro_torch.kernels import ops as lm_ops
+    for B, Hq, Hkv, S, Sk, d, dv, causal, dtype, entry in (
+            (LM_BATCH, 16, 16, LM_PROMPT, LM_PROMPT, 192, 128, True, torch.bfloat16,
+             "flash_attention[mla d192]"),
+            (LM_BATCH, 8, 8, WHISPER_FRAMES, WHISPER_FRAMES, 64, 64, False, torch.bfloat16,
+             "flash_attention[whisper encoder]"),
+            (LM_BATCH, 8, 8, WHISPER_PROMPT, WHISPER_FRAMES, 64, 64, False, torch.bfloat16,
+             "flash_attention[whisper cross]"),
+            (LM_BATCH, 8, 8, WHISPER_PROMPT, WHISPER_PROMPT, 64, 64, True, torch.bfloat16,
+             "flash_attention[whisper self]"),
+            (LM_BATCH, 56, 8, LM_PROMPT, LM_PROMPT, 128, 128, True, torch.bfloat16,
+             "flash_attention[arctic g7]"),
+            (LM_BATCH, 64, 8, LM_PROMPT, LM_PROMPT, 128, 128, True, torch.bfloat16,
+             "flash_attention[chameleon g8]"),
+            (LM_BATCH, 48, 1, LM_PROMPT, LM_PROMPT, 128, 128, True, torch.bfloat16,
+             "flash_attention[granite mqa g48]"),
+            (2, 16, 16, 300, 300, 192, 128, True, torch.float32, None),
+            (2, 16, 16, 300, 300, 192, 192, False, torch.bfloat16, None),
+            (1, 4, 2, 100, 129, 64, 64, False, torch.bfloat16, None),
+            (1, 4, 2, 100, 129, 64, 64, False, torch.float32, None),
+            (2, 8, 8, 1, WHISPER_FRAMES, 64, 64, False, torch.bfloat16, None),
+            (2, 8, 8, 1, WHISPER_FRAMES, 64, 64, False, torch.float32, None),
+            (1, 4, 2, 130, 64, 80, 80, False, torch.bfloat16, None),
+            (1, 56, 8, 256, 256, 128, 128, True, torch.bfloat16, None),
+            (1, 48, 1, 256, 256, 128, 128, True, torch.bfloat16, None),
+            (1, 48, 1, 100, 100, 128, 128, True, torch.float32, None)):
+        q, k, v = flash_inputs(B, Hq, Hkv, S, d, dtype, Sk=Sk, dv=dv)
+        e = check(f"flash_attention (B, Hq, Hkv, S, Sk, d, dv)={(B, Hq, Hkv, S, Sk, d, dv)} "
+                  f"causal={causal} {dtype}{f' ({entry})' if entry else ''}", "flash_attention",
+                  lambda q, k, v: lm_ops.flash_attention(q, k, v, causal=causal),
+                  lambda q, k, v: flash_attention_plain(q, k, v, causal=causal),
+                  sdpa(q, k, v, causal), (q, k, v), dtype, reps=10 if entry else 3)
+        if entry:
+            pairs = S * (S + 1) // 2 if causal else S * Sk
+            nbytes = (B * Hq * S * (d + dv) + B * Hkv * Sk * (d + dv)) * q.element_size()
+            rates(f"K6 {dtype} at phase 11's {entry}", e, nbytes,
+                  2 * B * Hq * pairs * (d + dv), e[3] or math.nan)
+            entries[entry] = dict(
+                kind="flash_attention", err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
+                nbytes=nbytes, mm_flops=2 * B * Hq * pairs * (d + dv), ops=5 * B * Hq * pairs,
+                lat_ms=(log2c(Sk) + log2c(d)) * f32_op_ms,
+                shapes=[(B, Hq, Hkv, S, Sk, d, dv), causal])
+            if e[3] is None:
+                entries[entry]["library_none"] = "no SDPA backend takes dv != dq at this shape"
     # K7, every decode step of the shared block; the main path's largest
     # valid length is the last step's, prompt + new tokens. The kernel splits
     # the cache into chunks of CHUNK positions: valid_len at a chunk's end,
@@ -728,6 +832,41 @@ def check_lm_kernels(dev, flush, f32_op_ms):
                 mm_flops=4 * B * Hq * valid * d, ops=5 * B * Hq * valid,
                 lat_ms=(log2c(valid) + log2c(d)) * f32_op_ms,
                 shapes=[(B, Hq, d), (B, Hkv, S_max, d), valid])
+    # K7 on phase 11's decode shapes: Whisper-base's cross-attention of one
+    # token (all 1,500 encoder positions valid) and its self-attention,
+    # granite's MQA (48 query heads of 128 on one kv head: the chunk
+    # kernel_chunk finds), arctic's group of 7 and chameleon's of 8, at the
+    # last step's valid length in the cache phase 11 serves with.
+    for B, Hq, Hkv, S_max, d, valid, dtype, entry in (
+            (LM_BATCH, 8, 8, WHISPER_FRAMES, 64, WHISPER_FRAMES, torch.bfloat16,
+             "decode_attention[whisper cross]"),
+            (LM_BATCH, 48, 1, LM_MAX_SEQ, 128, LM_PROMPT + LM_NEW, torch.bfloat16,
+             "decode_attention[granite mqa g48]"),
+            (LM_BATCH, 56, 8, LM_MAX_SEQ, 128, LM_PROMPT + LM_NEW, torch.bfloat16,
+             "decode_attention[arctic g7]"),
+            (LM_BATCH, 64, 8, LM_MAX_SEQ, 128, LM_PROMPT + LM_NEW, torch.bfloat16,
+             "decode_attention[chameleon g8]"),
+            (LM_BATCH, 8, 8, WHISPER_PROMPT + LM_NEW + 8, 64, WHISPER_PROMPT + LM_NEW,
+             torch.bfloat16, "decode_attention[whisper self]"),
+            (2, 48, 1, 300, 128, 257, torch.float32, None),
+            (2, 56, 8, 300, 128, 1, torch.float32, None),
+            (2, 8, 8, WHISPER_FRAMES, 64, WHISPER_FRAMES, torch.float32, None)):
+        q, k, v = decode_inputs(B, Hq, Hkv, S_max, d, dtype)
+        chunk = kernel_chunk7(Hq // Hkv, d, dtype, smem7)
+        e = check(f"decode_attention (B, Hq, Hkv, S_max, d)={(B, Hq, Hkv, S_max, d)} "
+                  f"valid_len={valid} {dtype}, chunk {chunk}{f' ({entry})' if entry else ''}",
+                  "decode_attention",
+                  lambda q, k, v: decode_attention_kernel(q, k, v, valid),
+                  lambda q, k, v: decode_attention_plain(q, k, v, valid),
+                  sdpa_decode(q, k, v, valid), (q, k, v), dtype, reps=20 if entry else 3)
+        if entry:
+            nbytes = (2 * B * Hq * d + 2 * B * Hkv * valid * d) * q.element_size()
+            rates(f"K7 bf16 at phase 11's {entry}", e, nbytes, 4 * B * Hq * valid * d, e[3])
+            entries[entry] = dict(
+                kind="decode_attention", err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
+                nbytes=nbytes, mm_flops=4 * B * Hq * valid * d, ops=5 * B * Hq * valid,
+                lat_ms=(log2c(valid) + log2c(d)) * f32_op_ms,
+                shapes=[(B, Hq, d), (B, Hkv, S_max, d), valid, chunk])
     # K8, the prompt pass of every Mamba2 layer (80 heads of 64, N = 64). The
     # bf16 rows run the tensor-core route (P-slices, hi/lo split products),
     # the f32 rows the scalar kernel; a view shifted by ``pad`` columns puts
@@ -776,21 +915,29 @@ def check_lm_kernels(dev, flush, f32_op_ms):
     return entries
 
 
-def teacher_forced(engine_a, engine_b, prompts, forced, dev_a, dev_b):
+def teacher_forced(engine_a, engine_b, prompts, forced, dev_a, dev_b, kv_a=None, kv_b=None):
     """Prefill and each decode step of two engines on the same prompts, fed
-    the same tokens; returns their logits as (a, b) pairs on the CPU."""
+    the same tokens (the audio family also the cross k, v of its encoder's
+    output, ``whisper.cross_kv``, on each side); returns their logits as
+    (a, b) pairs on the CPU."""
     from repro_torch.serving import init_cache
 
     with torch.inference_mode():
+        args_a = () if kv_a is None else (kv_a,)
+        args_b = () if kv_b is None else (kv_b,)
         ca = init_cache(engine_a.cfg, engine_a.scfg, device=dev_a)
         cb = init_cache(engine_b.cfg, engine_b.scfg, device=dev_b)
-        la, ca = engine_a.prefill(engine_a.params, torch.from_numpy(prompts).to(dev_a), ca)
-        lb, cb = engine_b.prefill(engine_b.params, torch.from_numpy(prompts).to(dev_b), cb)
+        la, ca = engine_a.prefill(engine_a.params, torch.from_numpy(prompts).to(dev_a), ca,
+                                  *args_a)
+        lb, cb = engine_b.prefill(engine_b.params, torch.from_numpy(prompts).to(dev_b), cb,
+                                  *args_b)
         pairs = [(la.cpu(), lb.cpu())]
         for i in range(forced.shape[1]):
             tok = torch.from_numpy(forced[:, i:i + 1])
-            la, ca = engine_a.step(engine_a.params, tok.to(dev_a), prompts.shape[1] + i, ca)
-            lb, cb = engine_b.step(engine_b.params, tok.to(dev_b), prompts.shape[1] + i, cb)
+            la, ca = engine_a.step(engine_a.params, tok.to(dev_a), prompts.shape[1] + i, ca,
+                                   *args_a)
+            lb, cb = engine_b.step(engine_b.params, tok.to(dev_b), prompts.shape[1] + i, cb,
+                                   *args_b)
             pairs.append((la.cpu(), lb.cpu()))
     return pairs
 
@@ -1009,6 +1156,319 @@ def serve_zamba2(dev, K):
         print(f"[7] smoke Zamba2 {dtype} on the card vs the CPU, teacher-forced (prefill of 64 + "
               f"6 steps): max abs diff {worst!r} (allclose {tol})", flush=True)
     return main_counts, k4
+
+
+def serve_model(K, label, cfg, params, prompts, new, per_prefill, per_step, enc_out=None,
+                profile_step=False):
+    """One model's serving on the card: a warm-up ``generate``; the main
+    run (``generate`` through the engine, launch counts reset just before
+    and read just after, held to ``per_prefill`` + ``new`` x ``per_step``,
+    every K6 launch on the tensor-core route); a second ``generate`` whose
+    greedy tokens must equal the first's; then the prefill and each step
+    apart, timed, each held to its counts. Returns (the main run's counts,
+    the prefill's ms, the steps' ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import whisper
+    from repro_torch.serving import ServeConfig, ServingEngine, init_cache
+
+    B, Sp = prompts.shape
+    scfg = ServeConfig(batch=B, max_seq=Sp + new + 8)
+    engine = ServingEngine(cfg, params, scfg)
+    kw = {} if enc_out is None else {"enc_out": enc_out}
+    t0 = time.perf_counter()
+    engine.generate(prompts, max_new_tokens=2, **kw)               # warm-up
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=new, **kw)
+    gen_s = time.perf_counter() - t0
+    main = K.launch_counts()
+    want = {k: per_prefill.get(k, 0) + new * per_step.get(k, 0) for k in main}
+    if main != want:
+        fail(f"{label} generate: launches {main}; expected {want}")
+    if K.flash_attention_kernel.routes["scalar"] != 0:
+        fail(f"{label} generate: K6 routes {K.flash_attention_kernel.routes}; expected every "
+             "launch on the tensor-core route")
+    if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab:
+        fail(f"{label} generate: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
+    again = engine.generate(prompts, max_new_tokens=new, **kw)
+    if not np.array_equal(out, again):
+        fail(f"{label}: two generate calls gave different greedy tokens")
+    print(f"[11] {label} generate: {B} x {Sp} prompt tokens, {new} new each, in {gen_s!r} s "
+          f"({B * new / gen_s!r} generated tokens/s end to end; warm-up of 2 tokens "
+          f"{warm_s:.3f} s); launches { {k: n for k, n in main.items() if n} }, K6 routes "
+          f"{K.flash_attention_kernel.routes}; a second generate gave the same tokens; first "
+          f"tokens {out[0, :8].tolist()}", flush=True)
+
+    def timed(fn, want, what):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+        if counts != {k: want.get(k, 0) for k in counts}:
+            fail(f"{label} {what}: launches {counts}; expected {want} and no other kernel")
+        if not bool(torch.isfinite(res[0]).all()) or res[0].shape[-1] != cfg.vocab:
+            fail(f"{label} {what}: logits {tuple(res[0].shape)} not finite")
+        return res, ms
+
+    with torch.inference_mode():
+        args = () if enc_out is None else (whisper.cross_kv(params, enc_out, cfg),)
+        caches = init_cache(cfg, scfg, device=engine.device)
+        tokens = torch.from_numpy(prompts).to(engine.device)
+        (logits, caches), prefill_ms = timed(
+            lambda: engine.prefill(params, tokens, caches, *args), per_prefill, "prefill")
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        steps, step_ms = [tok], []
+        for i in range(new):
+            (logits, caches), ms = timed(
+                lambda: engine.step(params, tok, Sp + i, caches, *args), per_step,
+                f"step {i}")
+            step_ms.append(ms)
+            tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+            steps.append(tok)
+        same = np.array_equal(torch.cat(steps[:-1], dim=1).cpu().numpy(), out)
+        if not same:
+            fail(f"{label}: the prefill and steps apart gave other tokens than generate")
+        med = float(np.median(step_ms))
+        print(f"[11] {label} prefill {prefill_ms!r} ms ({B * Sp / prefill_ms * 1e3!r} prompt "
+              f"tokens/s); decode per step (batch {B}) min {min(step_ms)!r} ms, median {med!r} "
+              f"ms, max {max(step_ms)!r} ms ({B * 1e3 / med!r} tokens/s at the median); "
+              f"launches per prefill {per_prefill}, per step {per_step}, exact; tokens equal to "
+              f"generate's", flush=True)
+        if profile_step:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.step(params, tok, Sp + new, caches, *args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(f"[11] {label} profiled decode step: wall {wall!r} s, "
+                  f"{device_busy(tprof.events(), wall, top=12)}", flush=True)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.prefill(params, tokens, init_cache(cfg, scfg, device=tokens.device),
+                               *args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            print(f"[11] {label} profiled prefill: wall {wall!r} s, "
+                  f"{device_busy(tprof.events(), wall, ('flash_wgmma_kernel',), top=12)}",
+                  flush=True)
+    return main, prefill_ms, step_ms
+
+
+def serve_phase(dev, K):
+    """Phase 11: the MoE, MLA, GELU, vlm and audio architectures on the card.
+    DeepSeek-V2-Lite-16B (MLA + MoE) at full width and depth and
+    Whisper-base at full width are served; arctic, chameleon and granite at
+    full width with the depth of ``CUT_DEPTH``; then the six smoke models on
+    the card against the CPU. Returns the launch counts of each main run."""
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import family_module, get_config, get_smoke_config, param_count
+    from repro_torch.models import whisper
+    from repro_torch.serving import ServeConfig, ServingEngine, init_cache
+
+    runs = {}
+
+    def load(cfg, label):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mod = family_module(cfg)
+        init = mod.init_model if cfg.family == "audio" else mod.init_lm
+        t0 = time.perf_counter()
+        params = init(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n = sum(p.numel() for p in params.parameters())
+        nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+        # param_count is the reference's analytic count, which leaves out the
+        # GELU MLPs' biases (and whisper's layer norms' shifts)
+        if cfg.family != "audio" and cfg.mlp_type == "swiglu" and n != param_count(cfg):
+            fail(f"{label}: {n} parameters, param_count says {param_count(cfg)}")
+        print(f"[11] {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n} parameters, "
+              f"{nbytes} B of {cfg.dtype} weights drawn on the card in {init_s:.3f} s "
+              f"(max_memory_allocated {torch.cuda.max_memory_allocated()} B)", flush=True)
+        return params, nbytes
+
+    def prompts_of(cfg, S):
+        return lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=S, global_batch=LM_BATCH),
+                        0)["tokens"]
+
+    # DeepSeek-V2-Lite-16B, full width and depth: MLA prefill through K6
+    # (v padded to 192), the absorbed decode and the MoE in plain torch.
+    cfg = get_config("deepseek_v2_lite_16b")
+    params, wbytes = load(cfg, "DeepSeek-V2-Lite-16B")
+    L = cfg.n_layers
+    m, moe = cfg.mla, cfg.moe
+    T = LM_BATCH * LM_PROMPT
+
+    def groups_capacity(tokens):
+        """The reference's dispatch groups G and capacity C for ``tokens``."""
+        G = moe.dispatch_groups if tokens % moe.dispatch_groups == 0 else 1
+        return G, max(1, int(tokens // G * moe.top_k * moe.capacity_factor) // moe.num_experts)
+
+    print(f"[11] DeepSeek MoE dispatch (groups G, capacity C per expert and group): prefill "
+          f"{groups_capacity(T)}, decode {groups_capacity(LM_BATCH)} for "
+          f"{LM_BATCH * moe.top_k} assignments a step over {moe.num_experts} experts (the "
+          "reference's drops)", flush=True)
+    main, pre_ms, step_ms = serve_model(
+        K, "DeepSeek-V2-Lite-16B", cfg, params, prompts_of(cfg, LM_PROMPT), LM_NEW,
+        {"flash_attention": L, "embedding_gather": 1}, {"embedding_gather": 1},
+        profile_step=True)
+    runs["deepseek"] = main
+    table = params["embed"]["table"]
+    cache_bytes = L * LM_BATCH * (LM_PROMPT + LM_NEW) * (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    step_bytes = wbytes - table.numel() * table.element_size() + cache_bytes
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    active = cfg.active_param_count() - table.numel()
+    pre_bound = max(wbytes / HBM_BYTES_PER_S, 2 * active * T / TENSOR_FLOPS_PER_S) * 1e3
+    print(f"[11] DeepSeek device bounds: a decode step reads every expert's weights and the "
+          f"latent cache, {step_bytes} B / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {step_bound!r} ms "
+          f"(median step {float(np.median(step_ms))!r} ms = "
+          f"{float(np.median(step_ms)) / step_bound!r} x); prefill max(weights / HBM, "
+          f"2 x {active} active parameters x {T} tokens / {TENSOR_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s) = {pre_bound!r} ms (prefill {pre_ms!r} ms = {pre_ms / pre_bound!r} x)",
+          flush=True)
+    del params, table
+    torch.cuda.empty_cache()
+
+    # Whisper-base, full width: the encoder over 1,500 random frames (K6,
+    # not causal), then generate with its output (K6 for the prompt's self-
+    # and cross-attention, K7 for a step's).
+    cfg = get_config("whisper_base")
+    params, wbytes = load(cfg, "Whisper-base")
+    L = cfg.n_layers
+    frames = torch.randn((LM_BATCH, cfg.encdec.encoder_seq, cfg.d_model), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1)).bfloat16()
+    with torch.inference_mode():
+        whisper.encode(params, frames, cfg)                          # warm-up
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        enc = whisper.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        enc_counts = K.launch_counts()
+    if enc_counts != {k: {"flash_attention": cfg.encdec.encoder_layers}.get(k, 0)
+                      for k in enc_counts}:
+        fail(f"Whisper encode: launches {enc_counts}")
+    if not bool(torch.isfinite(enc).all()):
+        fail("Whisper encode: states not finite")
+    print(f"[11] Whisper-base encode of {LM_BATCH} x {cfg.encdec.encoder_seq} frames: "
+          f"{enc_ms!r} ms ({LM_BATCH * cfg.encdec.encoder_seq / enc_ms * 1e3!r} frames/s); "
+          f"launches { {k: n for k, n in enc_counts.items() if n} }", flush=True)
+    main, _, step_ms = serve_model(
+        K, "Whisper-base", cfg, params, prompts_of(cfg, WHISPER_PROMPT), LM_NEW,
+        {"flash_attention": 2 * L, "embedding_gather": 1},
+        {"decode_attention": 2 * L, "embedding_gather": 1}, enc_out=enc)
+    runs["whisper"] = {k: n + enc_counts[k] for k, n in main.items()}
+
+    def tree_bytes(tree):
+        return sum(p.numel() * p.element_size() for p in tree.parameters())
+
+    # The encoder's bound: its weights, the frames read and the states written
+    # over HBM, against 2 x its stacked products' weights (the 3-dim leaves) x
+    # tokens plus QK^T and PV (4 x B x H x S^2 x dh a layer) at the tensor-core
+    # rate. A step's: the decoder's weights, the tied head's table (the
+    # logits read all of it), the self caches up to the last step's valid
+    # length and every layer's cross k, v over HBM.
+    S_enc, H, dh = cfg.encdec.encoder_seq, cfg.n_heads, cfg.attn_head_dim
+    act_bytes = 2 * LM_BATCH * S_enc * cfg.d_model * enc.element_size()
+    enc_flops = (2 * sum(p.numel() for p in params["enc_layers"].parameters() if p.dim() == 3)
+                 * LM_BATCH * S_enc + 4 * cfg.encdec.encoder_layers * LM_BATCH * H * S_enc ** 2
+                 * dh)
+    enc_bound = max((tree_bytes(params["enc_layers"]) + act_bytes) / HBM_BYTES_PER_S,
+                    enc_flops / TENSOR_FLOPS_PER_S) * 1e3
+    valid = WHISPER_PROMPT + LM_NEW
+    kv_bytes = 2 * L * LM_BATCH * cfg.n_kv_heads * (valid + S_enc) * dh * enc.element_size()
+    step_bytes = (tree_bytes(params["dec_layers"]) + tree_bytes(params["embed"])
+                  + tree_bytes(params["dec_norm"]) + kv_bytes)
+    step_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    med = float(np.median(step_ms))
+    print(f"[11] Whisper device bounds: encode max(({tree_bytes(params['enc_layers'])} B of "
+          f"weights + {act_bytes} B of frames and states) / {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+          f"{enc_flops} FLOP / {TENSOR_FLOPS_PER_S / 1e12:.0f} TFLOP/s) = {enc_bound!r} ms "
+          f"(encode {enc_ms!r} ms = {enc_ms / enc_bound!r} x); a decode step reads the "
+          f"decoder's weights, the tied table, the self caches and the cross k, v, {step_bytes} "
+          f"B / {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {step_bound!r} ms (median step {med!r} ms = "
+          f"{med / step_bound!r} x)", flush=True)
+    del params, enc, frames
+    torch.cuda.empty_cache()
+
+    # Full width, depth cut: arctic (128 experts top-2 beside a dense
+    # residual MLP, a group of 7), chameleon (vlm, a group of 8), granite
+    # (MQA, a group of 48, the GELU MLP).
+    for arch, layers in CUT_DEPTH.items():
+        cfg = get_config(arch).replace(n_layers=layers)
+        params, _ = load(cfg, f"{arch} (depth {layers})")
+        main, _, _ = serve_model(
+            K, f"{arch} (depth {layers})", cfg, params, prompts_of(cfg, LM_PROMPT), LM_NEW,
+            {"flash_attention": layers, "embedding_gather": 1},
+            {"decode_attention": layers, "embedding_gather": 1})
+        runs[arch] = main
+        del params
+        torch.cuda.empty_cache()
+
+    # The six at their smoke size on the card against the CPU, teacher-
+    # forced (f32 at the reference's 2e-4 / 2e-3, bf16 at 8e-2; the smoke
+    # MoEs are dropless), then each step after a prefill against the
+    # forward on the card (tests/test_serving.py's 8e-2).
+    for arch in ("deepseek_v2_lite_16b", "arctic_480b", "chameleon_34b", "granite_34b",
+                 "granite_20b", "whisper_base"):
+        worst = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_smoke_config(arch).replace(dtype=dtype)
+            mod = family_module(cfg)
+            init = mod.init_model if cfg.family == "audio" else mod.init_lm
+            on_cpu = init(cfg, device="cpu")
+            on_card = init(cfg, device=dev)
+            on_card.load_state_dict(on_cpu.state_dict())
+            scfg = ServeConfig(batch=2, max_seq=40)
+            p_s = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=24, global_batch=2),
+                           0)["tokens"]
+            enc_cpu = kv_cpu = kv_card = frames = None
+            if cfg.family == "audio":
+                frames = torch.randn((2, cfg.encdec.encoder_seq, cfg.d_model),
+                                     generator=torch.Generator().manual_seed(0)).to(
+                    getattr(torch, dtype))
+                with torch.inference_mode():
+                    enc_cpu = mod.encode(on_cpu, frames, cfg)
+                    kv_cpu = mod.cross_kv(on_cpu, enc_cpu, cfg)
+                    kv_card = mod.cross_kv(on_card, mod.encode(on_card, frames.to(dev), cfg), cfg)
+            cpu_engine = ServingEngine(cfg, on_cpu, scfg)
+            forced = cpu_engine.generate(p_s, max_new_tokens=6,
+                                         **({} if enc_cpu is None else {"enc_out": enc_cpu}))
+            pairs = teacher_forced(ServingEngine(cfg, on_card, scfg), cpu_engine, p_s, forced,
+                                   dev, "cpu", kv_card, kv_cpu)
+            tol = dict(atol=2e-4, rtol=2e-3) if dtype == "float32" else dict(atol=8e-2, rtol=0.0)
+            worst[dtype] = max(max_abs_err(a, b) for a, b in pairs)
+            if not all(torch.allclose(a.float(), b.float(), **tol) for a, b in pairs):
+                fail(f"smoke {arch} {dtype} on the card differs from the CPU by "
+                     f"{worst[dtype]!r} ({tol})")
+            with torch.inference_mode():
+                toks = torch.from_numpy(np.concatenate([p_s, forced[:, :1]], axis=1)).to(dev)
+                S = toks.shape[1]
+                args = () if frames is None else (frames.to(dev),)
+                full = mod.forward(on_card, toks, *args, cfg)
+                card_engine = ServingEngine(cfg, on_card, scfg)
+                e_args = () if kv_card is None else (kv_card,)
+                caches = init_cache(cfg, scfg, device=dev)
+                _, caches = card_engine.prefill(on_card, toks[:, :S - 1], caches, *e_args)
+                last, _ = card_engine.step(on_card, toks[:, S - 1:], S - 1, caches, *e_args)
+                fwd_err = max_abs_err(last[:, -1], full[:, -1])
+            if fwd_err >= 8e-2:
+                fail(f"smoke {arch} {dtype} on the card: the step after a prefill differs from "
+                     f"the forward by {fwd_err!r} (>= 8e-2)")
+            worst[dtype + " step vs forward"] = fwd_err
+        print(f"[11] smoke {arch} on the card vs the CPU, teacher-forced (prefill of 24 + 6 "
+              f"steps), max abs diff {worst} (f32 allclose 2e-4 / 2e-3, bf16 8e-2; step vs "
+              f"forward < 8e-2)", flush=True)
+    return runs
 
 
 def sweep_phase(dev, K, wl):
@@ -2571,6 +3031,11 @@ def main() -> None:
     serving_launches = serving_phase(dev, K, wl, etrace)
     print(f"[10] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 11. the remaining LM architectures served on the card -------------
+    t0 = time.perf_counter()
+    serve_runs = serve_phase(dev, K)
+    print(f"[11] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
@@ -2593,7 +3058,10 @@ def main() -> None:
                     "rrip_scan[srrip]"):
             e["serving_launches"] = {run: c[e["kind"]] for run, c in serving_launches.items()}
     for name, e in lm_entries.items():
-        e["launches"] = lm_counts[e["kind"]]
+        run = PHASE11_RUN.get(name)
+        e["launches"] = (serve_runs[run] if run else lm_counts)[e["kind"]]
+        if e["launches"] == 0:
+            fail(f"{name}: no launch in its main run")
     entries.update(lm_entries)
     entries["embedding_gather[zamba2 prompt]"] = k4_lm
     out = []

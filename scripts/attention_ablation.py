@@ -84,7 +84,7 @@ def time_k6(libs, flush, gen) -> None:
     fns = {}
     for name, lib in libs.items():
         fn = ctypes.CDLL(str(lib)).flash_attention_bf16_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
     stream = torch.cuda.current_stream().cuda_stream

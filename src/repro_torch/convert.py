@@ -127,10 +127,11 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
 
 def lm_params_from_jax(params: Dict[str, Any], cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     """The LM's state dict (CPU tensors) from the reference's ``init_lm``
-    tree as numpy arrays, for the dense, ssm and hybrid families: the tree
-    flattened to dotted names (``groups.mixer.in_z``, ...), each array
+    tree (whisper's ``init_model``) as numpy arrays, for every family: the
+    tree flattened to dotted names (``groups.mixer.in_z``, ...), each array
     checked against the port's shape and cast to its dtype (bf16 goes
-    through f32, which is exact)."""
+    through f32, which is exact; the MoE router stays f32 in every model
+    dtype, as in the reference)."""
     from .models.registry import family_module
 
     want = _flatten(family_module(cfg).init_params(cfg, generator=None,

@@ -1,9 +1,12 @@
 // K6: tiled online-softmax (flash) attention for Hopper (sm_90a).
 //
 // Replaces `_flash_kernel` of src/repro/kernels/flash_attention.py. For q
-// (B,Hq,S,d) and k, v (B,Hkv,S,d), query head h reads kv head
+// (B,Hq,S,d) and k, v (B,Hkv,Sk,d), query head h reads kv head
 // h / (Hq / Hkv) (GQA, MQA), and
 //     out = softmax(q k^T * sm_scale [+ causal mask]) v
+// Causal attention needs Sk == S; without the mask Sk is free (a decoder's
+// queries over an encoder's keys), and the kv-tile loop and the ragged
+// last tile's mask read Sk.
 // with the reference's arithmetic: f32 scores and accumulator, masked
 // scores set to -1e30, running max m and sum l per query row, and
 // out = acc / max(l, 1e-30) cast to q's dtype. In causal mode both routes
@@ -100,7 +103,7 @@ struct FlashArgs {
   void* o;
   // element strides (b, h, s) of q, k, v
   int64_t qs_b, qs_h, qs_s, ks_b, ks_h, ks_s, vs_b, vs_h, vs_s;
-  int B, Hq, Hkv, S, d, causal;
+  int B, Hq, Hkv, S, Sk, d, causal;
   float scale;
 };
 
@@ -126,7 +129,7 @@ __device__ __forceinline__ float row_sum(float x) {
 template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
   extern __shared__ float smem[];
-  const int d = a.d, S = a.S;
+  const int d = a.d, S = a.S, Sk = a.Sk;
   float* qs = smem;                    // [BQ][d+1]
   float* kT = qs + kBQ * (d + 1);      // [d][BK+1]
   float* vs = kT + d * (kBK + 1);      // [BK][d]
@@ -154,12 +157,12 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
   }
 
   // Causal: tiles past the q tile's last row are fully masked; skip them.
-  const int k_end = a.causal ? min(S, q0 + kBQ) : S;
+  const int k_end = a.causal ? min(S, q0 + kBQ) : Sk;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile's K, V and p are no longer read
     for (int e = tid; e < kBK * d; e += kThreads) {
       const int r = e / d, c = e % d;
-      const bool in = k0 + r < S;
+      const bool in = k0 + r < Sk;
       kT[c * (kBK + 1) + r] = in ? to_f32(kb[(k0 + r) * a.ks_s + c]) : 0.f;
       vs[e] = in ? to_f32(vb[(k0 + r) * a.vs_s + c]) : 0.f;
     }
@@ -191,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
       for (int jj = 0; jj < kCols; ++jj) {
         const int col = k0 + tx + 16 * jj;
         float x = s[ii][jj] * a.scale;
-        if (col >= S || (a.causal && col > row)) x = kNegInf;
+        if (col >= Sk || (a.causal && col > row)) x = kNegInf;
         s[ii][jj] = x;
         mx = fmaxf(mx, x);
       }
@@ -297,7 +300,7 @@ struct WgLayout {
 
 struct WgArgs {
   __nv_bfloat16* o;
-  int S, d, Hq, group, causal;
+  int S, Sk, d, Hq, group, causal;
   float scale_log2;  // sm_scale * log2(e): p = exp2(s * scale_log2 - m)
 };
 
@@ -492,8 +495,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
   // Longest causal q tile first within each head.
   const int iq = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = iq * kWgBQ, S = a.S;
-  const int k_end = a.causal ? min(S, q0 + kWgBQ) : S;
+  const int q0 = iq * kWgBQ, S = a.S, Sk = a.Sk;
+  const int k_end = a.causal ? min(S, q0 + kWgBQ) : Sk;
   const int nk = (k_end + BK - 1) / BK;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -573,13 +576,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       // before scaling (sm_scale > 0 keeps the order); the max is taken on
       // the raw scores and p = 2^(s * scale_log2 - m) is one FFMA and one
       // MUFU.EX2 per score.
-      if (k0 + BK > S || (a.causal && k0 + BK - 1 > q0 + wgi * 64)) {
+      if (k0 + BK > Sk || (a.causal && k0 + BK - 1 > q0 + wgi * 64)) {
 #pragma unroll
         for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = k0 + 8 * i + cq + (e & 1);
-            if (col >= S || (a.causal && col > (e < 2 ? row0 : row1))) s[4 * i + e] = -1e30f;
+            if (col >= Sk || (a.causal && col > (e < 2 ? row0 : row1))) s[4 * i + e] = -1e30f;
           }
       }
       float mx0 = s[0], mx1 = s[2];
@@ -730,8 +733,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int64_t* st,
                  WgArgs a, cudaStream_t stream) {
   CUtensorMap m[6] = {};
   int err = encode_operand<DP>(&m[0], &m[1], q, a.d, a.S, a.Hq, B, st, kWgBQ);
-  if (err == 0) err = encode_operand<DP>(&m[2], &m[3], k, a.d, a.S, Hkv, B, st + 3, BK);
-  if (err == 0) err = encode_operand<DP>(&m[4], &m[5], v, a.d, a.S, Hkv, B, st + 6, BK);
+  if (err == 0) err = encode_operand<DP>(&m[2], &m[3], k, a.d, a.Sk, Hkv, B, st + 3, BK);
+  if (err == 0) err = encode_operand<DP>(&m[4], &m[5], v, a.d, a.Sk, Hkv, B, st + 6, BK);
   if (err != 0) return err;
   constexpr int bytes = WgLayout<DP, BK>::kSmem;
   static SmemOptIn opt_in;
@@ -745,19 +748,19 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int64_t* st,
 
 }  // namespace
 
-// f32 (the scalar kernel): q (B,Hq,S,d), k and v (B,Hkv,S,d), each with the
-// element strides (b, h, s) in `strides` (q's three, then k's, then v's);
-// out contiguous (B,Hq,S,d).
+// f32 (the scalar kernel): q (B,Hq,S,d), k and v (B,Hkv,Sk,d), each with
+// the element strides (b, h, s) in `strides` (q's three, then k's, then
+// v's); out contiguous (B,Hq,S,d). Causal needs Sk == S.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* out,
                                           const int64_t* strides, int B, int Hq, int Hkv, int S,
-                                          int d, int causal, float scale, void* stream) {
+                                          int Sk, int d, int causal, float scale, void* stream) {
   if (B < 1 || B > 65535 || Hq < 1 || Hq > 65535 || Hkv < 1 || Hq % Hkv != 0 || S < 1 ||
-      d < 1 || d > 256) {
+      Sk < 1 || (causal && Sk != S) || d < 1 || d > 256) {
     return (int)cudaErrorInvalidValue;
   }
   FlashArgs a{q, k, v, out,
               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-              strides[6], strides[7], strides[8], B, Hq, Hkv, S, d, causal ? 1 : 0, scale};
+              strides[6], strides[7], strides[8], B, Hq, Hkv, S, Sk, d, causal ? 1 : 0, scale};
   return launch_by_width<float>(a, (cudaStream_t)stream);
 }
 
@@ -765,15 +768,16 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k, const vo
 // stride a multiple of 8 elements (16 bytes) and q, k, v 16-byte aligned.
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k, const void* v, void* out,
                                            const int64_t* strides, int B, int Hq, int Hkv, int S,
-                                           int d, int causal, float scale, void* stream) {
+                                           int Sk, int d, int causal, float scale, void* stream) {
   if (B < 1 || B > 65535 || Hq < 1 || Hq > 65535 || Hkv < 1 || Hq % Hkv != 0 || S < 1 ||
-      d < 8 || d > 256 || d % 8 != 0) {
+      Sk < 1 || (causal && Sk != S) || d < 8 || d > 256 || d % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   for (int i = 0; i < 9; ++i)
     if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0) return (int)cudaErrorInvalidValue;
-  WgArgs a{(__nv_bfloat16*)out, S, d, Hq, Hq / Hkv, causal ? 1 : 0, scale * 1.4426950408889634f};
+  WgArgs a{(__nv_bfloat16*)out, S, Sk, d, Hq, Hq / Hkv, causal ? 1 : 0,
+           scale * 1.4426950408889634f};
   cudaStream_t st = (cudaStream_t)stream;
   if (d <= 16) return launch_wgmma<16, 128>(q, k, v, strides, B, Hkv, a, st);
   if (d <= 32) return launch_wgmma<32, 128>(q, k, v, strides, B, Hkv, a, st);

@@ -20,8 +20,10 @@ The kernel reads the cache only up to ``valid_len`` and takes any S_max
 ``CHUNK`` = 128 positions was chosen on an H100 (``PERF.md`` §6): at
 Zamba2's decode shape it gives 9 chunks x 256 (b, kv head) = 2,304 blocks of
 ~40 KB of copies in flight each. A head group too wide for a block's shared
-memory at that chunk halves it (``kernel_chunk``); the chunk never depends
-on ``valid_len``, so the launch shape is the same at every step.
+memory at that chunk halves it (``kernel_chunk``), down to ``MIN_CHUNK`` = 8
+positions, which still holds granite's 48 query heads of 128 on one kv head
+(bf16: 227,072 bytes); the chunk never depends on ``valid_len``, so the
+launch shape is the same at every step.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ MAX_HEAD_DIM = 256
 # Shared memory one block may use on an H100 (the opt-in maximum).
 SMEM_LIMIT = 232_448
 CHUNK = 128
-MIN_CHUNK = 16
+MIN_CHUNK = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

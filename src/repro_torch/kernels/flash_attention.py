@@ -2,9 +2,11 @@
 
 Replaces ``_flash_kernel`` of ``repro/kernels/flash_attention.py`` (the
 prefill attention of the LM families): tiled online-softmax attention of
-q ``(B, Hq, S, d)`` over k, v ``(B, Hkv, S, d)``, query head h reading kv
+q ``(B, Hq, S, d)`` over k, v ``(B, Hkv, Sk, d)``, query head h reading kv
 head ``h // (Hq // Hkv)``, causal or not, ``sm_scale = 1/sqrt(d)`` by
-default, f32 accumulation, output in q's dtype.
+default, f32 accumulation, output in q's dtype. Causal attention needs
+``Sk == S``; without the mask the key length is free (a decoder's queries
+over an encoder's states), as in the reference's oracle.
 
 ``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` for CUDA
 tensors and runs ``flash_attention_plain`` (the reference's oracle,
@@ -43,19 +45,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _fn(route: str):
     lib = load_library("flash_attention")
     fn = lib.flash_attention_bf16_launch if route == "wgmma" else lib.flash_attention_f32_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
     name = "flash_attention"
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"{name}: q must be (B, Hq, S, d) and k, v one (B, Hkv, S, d) shape; "
+        raise ValueError(f"{name}: q must be (B, Hq, S, d) and k, v one (B, Hkv, Sk, d) shape; "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, S, d = q.shape
-    if k.shape[0] != B or k.shape[2] != S or k.shape[3] != d:
-        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+    if k.shape[0] != B or k.shape[3] != d or (causal and k.shape[2] != S) or k.shape[2] < 1:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not match q {tuple(q.shape)}"
+                         f"{' (causal attention needs Sk == S)' if causal else ''}")
     if k.shape[1] < 1 or Hq % k.shape[1]:
         raise ValueError(f"{name}: q heads {Hq} are not a multiple of kv heads {k.shape[1]}")
     if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -69,7 +72,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, sm_scale: Optional[float] = None) -> torch.Tensor:
-    """The reference's oracle: full (S, S) f32 scores, softmax, p.v."""
+    """The reference's oracle: full (S, Sk) f32 scores, softmax, p.v."""
     return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
@@ -118,23 +121,27 @@ def _launch(fn, q, k, v, out, causal: bool, scale: float, stream) -> int:
     B, Hq, S, d = q.shape
     strides = (ctypes.c_int64 * 9)(*_strides(q), *_strides(k), *_strides(v))
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-              B, Hq, k.shape[1], S, d, int(causal), scale, stream)
+              B, Hq, k.shape[1], S, k.shape[2], d, int(causal), scale, stream)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                           causal: bool = True,
-                           sm_scale: Optional[float] = None) -> torch.Tensor:
+                           causal: bool = True, sm_scale: Optional[float] = None,
+                           round_p: bool = False) -> torch.Tensor:
     """Attention ``(B, Hq, S, d)`` of q over k, v (see the module docstring).
 
     On the card, the tensor-core kernel for bf16 and the scalar kernel for
-    f32; ``flash_attention_plain`` for CPU tensors. A failed build or launch
-    raises.
+    f32; ``flash_attention_plain`` for CPU tensors, or with ``round_p`` (a
+    caller whose reference is the JAX package's chunked oracle, which rounds
+    p to v's dtype before p.v) ``flash_attention_bf16p_plain`` for bf16 ones,
+    the card's bf16 route in either case. A failed build or launch raises.
     """
-    _check(q, k, v)
+    _check(q, k, v, causal)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, sm_scale=sm_scale)
+        plain = (flash_attention_bf16p_plain if round_p and q.dtype == torch.bfloat16
+                 else flash_attention_plain)
+        return plain(q, k, v, causal=causal, sm_scale=sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.numel() == 0:

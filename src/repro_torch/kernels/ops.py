@@ -16,6 +16,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .decode_attention import decode_attention_kernel
 from .embedding_bag import (
@@ -98,8 +99,21 @@ def embedding_bag_pinned(
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q (B, Hq, S, d), k, v (B, Hkv, S, d) -> (B, Hq, S, d), through K6."""
-    return flash_attention_kernel(q, k, v, causal=causal)
+    """q (B, Hq, S, dq), k (B, Hkv, Sk, dq), v (B, Hkv, Sk, dv) -> (B, Hq, S,
+    dv), through K6 (causal needs Sk == S). K6 has one head width, so a
+    narrower v (MLA: dq 192, dv 128) goes in padded with zero columns to dq
+    and the output comes back sliced to dv: exact, as the padded columns'
+    sums are zero, for dq / dv (1.5 at MLA) times the p.v work of a native
+    dv. The reference sends dv != dq to its chunked oracle, which rounds p
+    to v's dtype before p.v, as K6's bf16 route does; on the CPU
+    ``round_p`` makes K6's plain version round there too."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    if dv == dq:
+        return flash_attention_kernel(q, k, v, causal=causal)
+    if dv > dq:
+        raise ValueError(f"flash_attention: v's head dim {dv} exceeds q's {dq}")
+    return flash_attention_kernel(q, k, F.pad(v, (0, dq - dv)), causal=causal,
+                                  round_p=True)[..., :dv]
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

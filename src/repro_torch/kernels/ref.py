@@ -5,7 +5,8 @@ every row, then one reduction over L, in whatever order torch sums) and the
 LM oracles ``flash_attention_ref``, ``decode_attention_ref``,
 ``mamba2_ssd_ref`` (the exact sequential recurrence) and
 ``mamba2_final_state`` (the closed-form state after a prompt).
-``chunked_attention`` waits with MLA, the one path that needs it.
+``chunked_attention`` is not ported: the reference sends MLA's dv != dq
+there, and the port sends it through K6 with v padded (``ops``).
 """
 from __future__ import annotations
 

@@ -5,8 +5,7 @@
     PYTHONPATH=src python -m repro_torch.launch.simulate --workload lm \
         --arch command_r_plus_104b --shape decode_32k --policy pinning
 
-``--arch`` takes the architectures whose configuration the port builds
-(``models.get_config``); the others raise ``NotImplementedError``.
+``--arch`` takes every architecture of ``models.ARCH_IDS``.
 
 ``--device`` defaults to ``cuda`` and fails when there is no card; pass
 ``--device cpu`` to run the kernels' plain versions on the CPU.

@@ -1,11 +1,9 @@
 """Architecture configuration — one dataclass covering all assigned families.
 
 A copy of ``repro/models/config.py`` (pure Python). Every architecture is an
-``ArchConfig``; the port's ``configs/<id>.py`` hold the ones whose family it
-runs, and reduced variants (``smoke()``) instantiate the same family at toy
-scale for CPU tests. ``MoEConfig``, ``MLAConfig`` and ``EncDecConfig`` are
-here so that every configuration can be built and counted, though the port
-does not run those features yet (``registry.get_config`` says so).
+``ArchConfig``; the port's ``configs/<id>.py`` hold them all, and reduced
+variants (``smoke()``) instantiate the same family at toy scale for CPU
+tests.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Layers of the model zoo, ported from ``repro/models/layers.py``.
 
-The LM part: RMSNorm, RoPE, GQA attention (prefill and decode against
-a KV cache), SwiGLU, the Mamba2/SSD block with its decode step, embedding
-and LM head; and the DLRM's initialiser. MLA, MoE and the GELU MLP are not
-ported yet (``registry`` refuses the configurations that need them).
+The LM part: RMS and layer norms, RoPE, GQA attention (prefill and decode
+against a KV cache), DeepSeek's MLA attention (latent cache, weight-absorbed
+decode), the SwiGLU and GELU MLPs, the sort-based capacity MoE, the
+Mamba2/SSD block with its decode step, embedding and LM head; and the DLRM's
+initialiser.
 
 Parameters are nested dicts of tensors, or ``ParamTree`` modules that index
 the same way (``p["attn"]["wq"]``); ``init_*`` draw them from an explicit
@@ -12,8 +13,10 @@ dtypes and scales. The apply functions compute in the dtypes the reference
 names, and round to bf16 where it rounds. The attention and SSD products go
 through ``kernels.ops`` (the kernels K6, K7 and K8), the embedding through
 K4: the reference's ``use_pallas=True`` route, which the port always takes.
-The reference's sharding hints (``shard_attention_q``) do nothing on one
-device and are dropped.
+The products the reference computes outside Pallas stay plain torch on
+every device: MLA's absorbed decode and the MoE's router, dispatch, expert
+FFNs and combine. The reference's sharding hints (``shard_attention_q``,
+``constrain``) do nothing on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ def _dense_init(shape: Sequence[int], *, generator: torch.Generator, device: tor
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
     x = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -108,25 +111,25 @@ def stacked_layers(tree, key: str, depth: int = 1):
 
 def init_stacked(make: Callable[[], Params], n: int) -> Params:
     """``n`` draws of ``make()`` stacked along a new first dim, filled one
-    draw at a time."""
-    first = make()
-
-    def alloc(t):
-        if isinstance(t, dict):
-            return {k: alloc(v) for k, v in t.items()}
-        return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
-
+    draw at a time. Each leaf of a draw is freed as soon as it is copied in
+    (the stacked leaf allocated on the first draw), so filling holds at most
+    one draw and one stacked leaf beside the result: less than a draw's own
+    f32 transient (arctic's single layer of 28 GB peaks in ``make``)."""
     def fill(dst, src, i):
-        for k, v in src.items():
+        for k in list(src):
+            v = src.pop(k)
             if isinstance(v, dict):
-                fill(dst[k], v, i)
+                dst[k] = fill(dst.get(k, {}), v, i)
             else:
+                if k not in dst:
+                    dst[k] = torch.empty((n, *v.shape), dtype=v.dtype, device=v.device)
                 dst[k][i].copy_(v)
+            del v
+        return dst
 
-    out = alloc(first)
-    fill(out, first, 0)
-    for i in range(1, n):
-        fill(out, make(), i)
+    out = {}
+    for i in range(n):
+        out = fill(out, make(), i)
     return out
 
 
@@ -149,6 +152,19 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(d: int, dtype=torch.float32, *, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -271,6 +287,93 @@ def _decode_attention(q, ck, cv, valid_len: int, group: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2): latent KV compression
+# --------------------------------------------------------------------------
+
+def init_mla(cfg: ArchConfig, dtype, *, generator, device) -> Params:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    return {
+        "wq": _dense_init((D, H * qd), **kw),
+        "w_dkv": _dense_init((D, m.kv_lora_rank + m.qk_rope_head_dim), **kw),
+        "w_uk": _dense_init((m.kv_lora_rank, H * m.qk_nope_head_dim), **kw),
+        "w_uv": _dense_init((m.kv_lora_rank, H * m.v_head_dim), **kw),
+        "wo": _dense_init((H * m.v_head_dim, D), **kw),
+    }
+
+
+def mla_attention(
+    p: Params,
+    x: torch.Tensor,               # (B, S, D)
+    cfg: ArchConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    kv_cache: Optional[torch.Tensor] = None,   # latent cache (B, S_max, r + rope)
+    cache_index: Optional[int] = None,
+    prefill: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (out, kv_cache). With a cache, the new tokens' latents (the
+    compressed kv and the roped key) are written into it in place at host
+    position ``cache_index``; a step that is not the prefill then attends in
+    the latent space (``_mla_absorbed_decode``, every new token over the
+    whole valid length, as in the reference). Otherwise per-head k and v
+    are expanded from the new tokens' latents and attention runs through K6,
+    whose one head width takes v padded to the query's (``ops``)."""
+    m = cfg.mla
+    B, S, D = x.shape
+    H, r = cfg.n_heads, m.kv_lora_rank
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+
+    q = (x @ p["wq"]).reshape(B, S, H, -1).transpose(1, 2)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    latent = x @ p["w_dkv"]                                   # (B, S, r + rope)
+    kv_l, k_rope = latent[..., :r], latent[..., r:]
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)  # (B, 1, S, rope)
+
+    if kv_cache is not None:
+        lat_new = torch.cat([kv_l, k_rope[:, 0]], dim=-1)
+        write_cache(kv_cache[:, None], lat_new.to(kv_cache.dtype)[:, None], cache_index)
+        if not prefill:
+            out = _mla_absorbed_decode(p, q_nope, q_rope, kv_cache, cache_index + S, m, H)
+            out = out.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
+            return out @ p["wo"], kv_cache
+
+    k_nope = (kv_l @ p["w_uk"]).reshape(B, -1, H, m.qk_nope_head_dim).transpose(1, 2)
+    vv = (kv_l @ p["w_uv"]).reshape(B, -1, H, m.v_head_dim).transpose(1, 2)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    out = ops.flash_attention(qq, k, vv, causal=causal)
+    out = out.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
+    return out @ p["wo"], kv_cache
+
+
+def _mla_absorbed_decode(p, q_nope, q_rope, latent_cache, valid_len: int, m, H):
+    """Weight-absorbed latent attention, all in f32: scores (q_nope W_uk^T) .
+    latent + q_rope . k_rope over the cache's first ``valid_len`` positions,
+    then (softmax . latent) W_uv. q_nope/q_rope: (B, H, Sn, .);
+    latent_cache: (B, S_max, r + rope)."""
+    r = m.kv_lora_rank
+    lat = latent_cache[..., :r].float()                      # (B, S, r)
+    k_rope = latent_cache[..., r:].float()                   # (B, S, rope)
+    w_uk = p["w_uk"].reshape(r, H, m.qk_nope_head_dim).float()
+    q_lat = torch.einsum("bhqn,rhn->bhqr", q_nope.float(), w_uk)
+    s = torch.einsum("bhqr,bsr->bhqs", q_lat, lat)
+    s = s + torch.einsum("bhqp,bsp->bhqs", q_rope.float(), k_rope)
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    span = torch.arange(lat.shape[1], device=lat.device)
+    w = torch.softmax(s.masked_fill(span >= valid_len, -1e30), dim=-1)
+    ctx = torch.einsum("bhqs,bsr->bhqr", w, lat)
+    w_uv = p["w_uv"].reshape(r, H, m.v_head_dim).float()
+    return torch.einsum("bhqr,rhv->bhqv", ctx, w_uv).to(q_nope.dtype)
+
+
+# --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 
@@ -282,6 +385,127 @@ def init_swiglu(d: int, f: int, dtype, *, generator, device) -> Params:
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (silu(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default) as the
+    reference computes it, ``x * (0.5 * (1 + tanh(c * (x + 0.044715 x^3))))``
+    op by op in x's dtype (``F.gelu(approximate="tanh")`` rounds once and
+    differs from it in many bf16 outputs)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=torch.float32).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
+def init_gelu_mlp(d: int, f: int, dtype, *, generator, device) -> Params:
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    return {"w1": _dense_init((d, f), **kw), "b1": torch.zeros((f,), dtype=dtype, device=device),
+            "w2": _dense_init((f, d), **kw), "b2": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (sort-based capacity dispatch)
+# --------------------------------------------------------------------------
+
+def init_moe(cfg: ArchConfig, dtype, *, generator, device) -> Params:
+    """Router (f32 in every model dtype), the experts' SwiGLU weights
+    stacked (E, ...), and the shared experts' SwiGLU when there are any."""
+    m = cfg.moe
+    D, E, F_ = cfg.d_model, m.num_experts, m.d_ff_expert
+    kw = dict(dtype=dtype, generator=generator, device=device)
+    p = {
+        "router": _dense_init((D, E), dtype=torch.float32, generator=generator, device=device),
+        "wg": _dense_init((E, D, F_), **kw),
+        "wu": _dense_init((E, D, F_), **kw),
+        "wd": _dense_init((E, F_, D), **kw),
+    }
+    if m.num_shared_experts:
+        p["shared"] = init_swiglu(D, m.d_ff_shared or F_ * m.num_shared_experts, dtype,
+                                  generator=generator, device=device)
+    return p
+
+
+def _rank_within_group(ids: torch.Tensor) -> torch.Tensor:
+    """Position of each element within its run of equal ids along the last
+    axis (ids sorted), batched over the leading dims."""
+    iota = torch.arange(ids.shape[-1], device=ids.device).expand(ids.shape)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[..., 1:] = ids[..., 1:] != ids[..., :-1]
+    start = torch.cummax(torch.where(first, iota, 0), dim=-1).values
+    return iota - start
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
+        capacity_factor: Optional[float] = None) -> torch.Tensor:
+    """Sort-based capacity MoE with group-local dispatch, the reference's
+    semantics (they decide which tokens are dropped): the T tokens split
+    into ``dispatch_groups`` groups (one when T is not a multiple), routed
+    top-k by f32 softmax probabilities (ties to the lower expert), sorted by
+    expert within the group (stably), packed into a (G, E, C, D) buffer
+    with capacity C = max(1, int(Tg K cf) // E) (an assignment past C is
+    dropped: zero input, zero weight), run through the experts' SwiGLU as
+    batched products, and combined with the normalised gate weights. Each
+    token's K contributions are added into zeros in x's dtype in ascending
+    expert order, the order of the reference's scatter-add, by a fixed loop
+    of gathers (no atomics, so a run repeats bit for bit on the card).
+    """
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = m.num_experts, m.top_k
+    cf = capacity_factor if capacity_factor is not None else m.capacity_factor
+    G = m.dispatch_groups if T % m.dispatch_groups == 0 else 1
+    Tg = T // G
+    C = max(1, int(Tg * K * cf) // E)
+
+    xg = x.reshape(G, Tg, D)
+    probs = torch.softmax(xg.float() @ p["router"], dim=-1)              # (G, Tg, E)
+    gate_w, gate_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, gate_e = gate_w[..., :K], gate_e[..., :K]                    # (G, Tg, K)
+    gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    a_expert = gate_e.reshape(G, Tg * K)
+    order = torch.argsort(a_expert, dim=-1, stable=True)                # per-group sort
+    se = torch.gather(a_expert, 1, order)
+    st = order // K                                                      # token of each
+    rank = _rank_within_group(se)
+    keep = rank < C
+    slot = se * C + rank.clamp(max=C - 1)
+
+    # The buffer: kept assignments at their slots, the rest zeros (a dropped
+    # assignment adds zeros to its expert's last slot in the reference). A
+    # dropped one is written to a trash row past the buffer, sliced off, so
+    # no mask has to be resolved on the host.
+    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
+    buf = torch.zeros((G * E * C + 1, D), dtype=x.dtype, device=x.device)
+    dest = torch.where(keep, g_idx * (E * C) + slot, G * E * C)
+    buf[dest.reshape(-1)] = xg.reshape(G * Tg, D)[(g_idx * Tg + st).reshape(-1)]
+    h = buf[:-1].reshape(G, E, C, D)
+    act = silu(torch.einsum("gecd,edf->gecf", h, p["wg"])) * torch.einsum(
+        "gecd,edf->gecf", h, p["wu"])
+    out_buf = torch.einsum("gecf,efd->gecd", act, p["wd"]).reshape(G, E * C, D)
+
+    # Each assignment's weighted output, back in (token, k) order: sorted
+    # position order[i] holds assignment order[i] = token * K + k.
+    contrib = torch.gather(out_buf, 1, slot[..., None].expand(G, Tg * K, D))
+    contrib = contrib * (torch.gather(gate_w.reshape(G, Tg * K), 1, order)
+                         * keep)[..., None].to(out_buf.dtype)
+    by_assignment = torch.empty_like(contrib)
+    by_assignment.scatter_(1, order[..., None].expand(G, Tg * K, D), contrib.to(x.dtype))
+    by_assignment = by_assignment.reshape(G, Tg, K, D)
+    k_order = torch.argsort(gate_e, dim=-1)                              # ascending expert
+    out = torch.zeros((G, Tg, D), dtype=x.dtype, device=x.device)
+    for j in range(K):
+        idx = k_order[..., j, None, None].expand(G, Tg, 1, D)
+        out = out + torch.gather(by_assignment, 2, idx)[:, :, 0]
+    out = out.reshape(B, S, D)
+
+    if "shared" in p:
+        out = out + swiglu(p["shared"], x)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Architecture registry: name -> config + family dispatch + param counting.
 
-A port of ``repro/models/registry.py``. ``param_count`` is the reference's
-pure-Python count for every architecture. ``get_config``,
-``get_smoke_config`` and ``family_module`` raise ``NotImplementedError`` for
-an architecture whose family or feature the port does not run yet (MoE,
-MLA, the audio and vlm families, the GELU MLP), naming what is missing.
+A port of ``repro/models/registry.py``: ``get_config`` and
+``get_smoke_config`` read the port's copies of the reference's ``configs/``,
+``family_module`` sends the audio family to ``whisper``, hybrid to
+``hybrid``, ssm to ``mamba`` and dense, moe and vlm to ``transformer``, and
+``param_count`` is the reference's pure-Python count.
 """
 from __future__ import annotations
 
@@ -38,27 +38,13 @@ _ALIASES = {
     "mamba2-130m": "mamba2_130m",
 }
 
-# What each architecture of ARCH_IDS without a config module here needs.
-_UNPORTED = {
-    "arctic_480b": "the MoE FFN (models/layers.py moe)",
-    "deepseek_v2_lite_16b": "MLA attention and the MoE FFN",
-    "chameleon_34b": "the vlm family",
-    "granite_34b": "the GELU MLP (mlp_type='gelu')",
-    "granite_20b": "the GELU MLP (mlp_type='gelu')",
-    "whisper_base": "the audio family (models/whisper.py)",
-}
-
 
 def normalize(name: str) -> str:
     return _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
 
 
 def _config_module(name: str):
-    arch = normalize(name)
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"{arch}: the PyTorch port does not run {_UNPORTED[arch]} yet")
-    return importlib.import_module(f"..configs.{arch}", __package__)
+    return importlib.import_module(f"..configs.{normalize(name)}", __package__)
 
 
 def get_config(name: str) -> ArchConfig:
@@ -69,30 +55,16 @@ def get_smoke_config(name: str) -> ArchConfig:
     return _config_module(name).smoke()
 
 
-def unported_feature(cfg: ArchConfig) -> str:
-    """What of ``cfg`` the port cannot run, or "" when it runs all of it."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        return f"the {cfg.family} family"
-    if cfg.moe is not None:
-        return "the MoE FFN"
-    if cfg.mla is not None:
-        return "MLA attention"
-    if cfg.mlp_type != "swiglu":
-        return f"the {cfg.mlp_type} MLP"
-    return ""
-
-
 def family_module(cfg: ArchConfig):
-    missing = unported_feature(cfg)
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: the PyTorch port does not run {missing} yet")
-    from . import hybrid, mamba, transformer
+    from . import hybrid, mamba, transformer, whisper
 
+    if cfg.family == "audio":
+        return whisper
     if cfg.family == "hybrid":
         return hybrid
     if cfg.family == "ssm":
         return mamba
-    return transformer  # dense
+    return transformer  # dense | moe | vlm
 
 
 # --------------------------------------------------------------------------

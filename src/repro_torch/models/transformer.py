@@ -1,12 +1,13 @@
-"""Decoder-only LM of the dense family: GQA attention + SwiGLU FFN over
-stacked layers, with KV-cache prefill and decode.
+"""Generic decoder-only LM of the dense / moe / vlm (early-fusion) families:
+GQA or MLA attention + SwiGLU, GELU or MoE FFN over stacked layers, with
+KV-cache prefill and decode.
 
-A port of ``repro/models/transformer.py`` for ``family="dense"`` with the
-SwiGLU MLP; MoE, MLA, the GELU MLP and the vlm family are not ported yet
-(``registry.family_module`` refuses them). The reference's sharding calls
-(``activation_constraint``, ``fsdp_unshard``) do nothing on one device and
-are dropped; so is ``remat``, since serving keeps no activations. Caches are
-updated in place.
+A port of ``repro/models/transformer.py``. An early-fusion VLM (chameleon)
+is this model: its image tokens are vocabulary entries. MLA keeps one
+latent cache ``(L, B, S_max, r + rope)`` instead of per-head k and v. The
+reference's sharding calls (``activation_constraint``, ``fsdp_unshard``) do
+nothing on one device and are dropped; so is ``remat``, since serving keeps
+no activations. Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -24,12 +25,15 @@ Params = L.Params
 def init_layer(cfg: ArchConfig, *, generator: torch.Generator, device) -> Params:
     dt = L.model_dtype(cfg)
     kw = dict(generator=generator, device=device)
-    return {
-        "norm1": L.init_rmsnorm(cfg.d_model, device=device),
-        "norm2": L.init_rmsnorm(cfg.d_model, device=device),
-        "attn": L.init_attention(cfg, dt, **kw),
-        "mlp": L.init_swiglu(cfg.d_model, cfg.d_ff, dt, **kw),
-    }
+    p = {"norm1": L.init_rmsnorm(cfg.d_model, device=device),
+         "norm2": L.init_rmsnorm(cfg.d_model, device=device),
+         "attn": (L.init_mla if cfg.mla is not None else L.init_attention)(cfg, dt, **kw)}
+    init_mlp = L.init_gelu_mlp if cfg.mlp_type == "gelu" else L.init_swiglu
+    if cfg.moe is not None:
+        p["moe"] = L.init_moe(cfg, dt, **kw)
+    if cfg.moe is None or cfg.d_ff:   # arctic: a dense residual MLP beside the MoE
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, dt, **kw)
+    return p
 
 
 def lm_tree(cfg: ArchConfig, body: Params, generator, device) -> Params:
@@ -64,13 +68,21 @@ def _apply_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
                  kv_cache=None, cache_index: Optional[int] = None,
                  prefill: bool = False) -> Tuple[torch.Tensor, Any]:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    attn_out, new_cache = L.attention(
+    attend = L.mla_attention if cfg.mla is not None else L.attention
+    attn_out, new_cache = attend(
         p["attn"], h, cfg, positions=positions,
         kv_cache=kv_cache, cache_index=cache_index, prefill=prefill,
     )
     x = x + attn_out
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h), new_cache
+    dense_mlp = L.gelu_mlp if cfg.mlp_type == "gelu" else L.swiglu
+    if cfg.moe is not None:
+        ff = L.moe(p["moe"], h, cfg)
+        if "mlp" in p:
+            ff = ff + dense_mlp(p["mlp"], h)
+    else:
+        ff = dense_mlp(p["mlp"], h)
+    return x + ff, new_cache
 
 
 def hidden_to_logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -97,11 +109,15 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 # Serving: KV cache prefill / decode
 # --------------------------------------------------------------------------
 
-def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
-                  device: DeviceLike = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device: DeviceLike = "cuda"):
+    """Per-head (k, v) caches (L, B, Hkv, S_max, dh), or MLA's one latent
+    cache (L, B, S_max, r + rope)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.attn_head_dim)
     dt = L.model_dtype(cfg)
+    if cfg.mla is not None:
+        width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+        return torch.zeros((cfg.n_layers, batch, max_seq, width), dtype=dt, device=dev)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.attn_head_dim)
     return (torch.zeros(shape, dtype=dt, device=dev), torch.zeros(shape, dtype=dt, device=dev))
 
 
@@ -109,9 +125,9 @@ def _cached_hidden(params, tokens, cache_index: int, caches, cfg, prefill: bool)
     B, Sn = tokens.shape
     x = L.embed(params["embed"], tokens)
     positions = cache_index + torch.arange(Sn, device=x.device)
-    ck, cv = caches
     for i, lp in enumerate(L.stacked_layers(params, "layers")):
-        x, _ = _apply_layer(cfg, lp, x, positions, kv_cache=(ck[i], cv[i]),
+        cache = caches[i] if cfg.mla is not None else (caches[0][i], caches[1][i])
+        x, _ = _apply_layer(cfg, lp, x, positions, kv_cache=cache,
                             cache_index=cache_index, prefill=prefill)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 

@@ -59,7 +59,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "core.sweep", "core.sweep_ckpt", "core.search", "core.faults",
                 "distributed", "distributed.sweep_shard", "core.lm_mapper",
                 "core.requests", "serving.scheduler", "core.oracle", "core.memory.golden",
-                "core.memory.golden_dram"):
+                "core.memory.golden_dram", "models.whisper", "configs.deepseek_v2_lite_16b",
+                "configs.arctic_480b", "configs.chameleon_34b", "configs.granite_34b",
+                "configs.granite_20b", "configs.whisper_base"):
         assert f"repro_torch.{sub}" in names, sub
 
 

@@ -629,6 +629,51 @@ def test_flash_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S, d, causal, dty
     torch.testing.assert_close(got.float(), want.float(), **LM_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("B,Hq,Hkv,S,Sk,d,causal", [
+    (8, 8, 8, 64, 1500, 64, False),    # Whisper-base's cross-attention of a prompt
+    (8, 8, 8, 1500, 1500, 64, False),  # its encoder, ragged
+    (2, 8, 8, 1, 1500, 64, False),     # one query row
+    (1, 4, 2, 100, 129, 64, False),    # Sk one past a tile
+    (1, 4, 2, 130, 64, 80, False),     # Sk shorter than Sq
+    (2, 16, 16, 300, 300, 192, True),  # MLA's q/k width (DeepSeek-V2)
+    (2, 16, 16, 300, 300, 192, False),
+    (1, 56, 8, 200, 200, 128, True),   # arctic's group of 7
+    (1, 48, 1, 200, 200, 128, True),   # granite's MQA, a group of 48
+])
+def test_flash_attention_other_key_lengths_and_widths(cuda, B, Hq, Hkv, S, Sk, d, causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+
+    q = _randn(cuda, (B, Hq, S, d), dtype, 1)
+    k = _randn(cuda, (B, Hkv, Sk, d), dtype, 2)
+    v = _randn(cuda, (B, Sk, Hkv, d), dtype, 3).transpose(1, 2)
+    reset_launch_counts()
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    assert launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **LM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+def test_mla_attention_pads_v_for_the_kernel(cuda, dtype):
+    """ops.flash_attention with dv 128 < dq 192: K6 on v padded with zeros,
+    the output sliced back, equal to the plain version on the unpadded v."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bf16p_plain, flash_attention_plain)
+
+    q, k = (_randn(cuda, (2, 16, 256, 192), dtype, i) for i in (1, 2))
+    v = _randn(cuda, (2, 16, 256, 128), dtype, 3)
+    reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert launch_counts()["flash_attention"] == 1 and got.shape == (2, 16, 256, 128)
+    plain = flash_attention_bf16p_plain if dtype == "bfloat16" else flash_attention_plain
+    torch.testing.assert_close(got.float(), plain(q, k, v, causal=True).float(),
+                               **LM_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_routes_by_dtype(cuda, dtype):
     """bf16 goes to the tensor-core kernel, f32 to the scalar one."""
@@ -671,6 +716,9 @@ def test_flash_attention_copies_strides_tma_cannot_read(cuda):
     (2, 4, 1, 1000, 128, 1000),    # full cache, MQA
     (1, 32, 4, 77, 80, 77),
     (1, 16, 1, 64, 256, 64),       # 16 heads of 256 on one kv head
+    (2, 48, 1, 1064, 128, 1056),   # granite's MQA: 48 heads of 128 on one kv head
+    (2, 56, 8, 1064, 128, 1056),   # arctic's group of 7
+    (8, 8, 8, 1500, 64, 1500),     # Whisper-base's cross-attention of one token
 ])
 def test_decode_attention_kernel_equals_plain(cuda, B, Hq, Hkv, S_max, d, valid, dtype):
     from repro_torch.kernels.decode_attention import decode_attention_kernel, decode_attention_plain
@@ -833,7 +881,10 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
                                 torch.tensor(3, device=cuda))
     big = torch.zeros((1, 1, 4, 256), device=cuda)
     with pytest.raises(ValueError, match="exceed a block's shared memory"):
-        decode_attention_kernel(torch.zeros((1, 64, 256), device=cuda), big, big, 4)
+        decode_attention_kernel(torch.zeros((1, 128, 256), device=cuda), big, big, 4)
+    with pytest.raises(ValueError, match="causal attention needs Sk == S"):
+        flash_attention_kernel(q, torch.zeros((1, 3, 9, 16), device=cuda),
+                               torch.zeros((1, 3, 9, 16), device=cuda))
     x = torch.zeros((1, 2, 8, 128), device=cuda)
     a = torch.zeros((1, 2, 8), device=cuda)
     bc = torch.zeros((1, 8, 16), device=cuda)
@@ -841,7 +892,9 @@ def test_lm_kernels_refuse_what_they_do_not_take(cuda):
         mamba2_ssd_kernel(x, a, a, bc, bc)
 
 
-@pytest.mark.parametrize("arch", ["zamba2_2p7b", "stablelm_3b", "mamba2_130m"])
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "stablelm_3b", "mamba2_130m",
+                                  "deepseek_v2_lite_16b", "arctic_480b", "chameleon_34b",
+                                  "granite_34b"])
 def test_smoke_lm_serving_on_the_card_equals_cpu(cuda, arch):
     """f32, teacher-forced: the CPU engine generates, both engines are fed
     its tokens, and their logits agree at 2e-4 / 2e-3."""
@@ -877,6 +930,54 @@ def test_smoke_lm_serving_on_the_card_equals_cpu(cuda, arch):
                           "mamba2_ssd": cfg.n_layers if cfg.ssm else 0,
                           "flash_attention": attn if cfg.n_heads else 0}
                 assert counts == {k: expect.get(k, 0) for k in counts}
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
+
+
+def test_smoke_whisper_serving_on_the_card_equals_cpu(cuda):
+    """f32, teacher-forced with the encoder's output: K6 for the encoder,
+    the prompt's self- and cross-attention (Sk = S_enc), K7 for a step's."""
+    import numpy as np
+    from repro_torch.models import get_smoke_config, whisper
+    from repro_torch.serving import ServeConfig, ServingEngine, init_cache
+
+    cfg = get_smoke_config("whisper_base").replace(dtype="float32")
+    on_cpu = whisper.init_model(cfg, device="cpu")
+    on_card = whisper.init_model(cfg, device=cuda)
+    on_card.load_state_dict(on_cpu.state_dict())
+    scfg = ServeConfig(batch=2, max_seq=40)
+    frames = torch.randn((2, cfg.encdec.encoder_seq, cfg.d_model),
+                         generator=torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 24), dtype=np.int32)
+    logits = {}
+    for where, params in (("cpu", on_cpu), ("cuda", on_card)):
+        eng = ServingEngine(cfg, params, scfg)
+        with torch.inference_mode():
+            reset_launch_counts()
+            enc = whisper.encode(params, frames.to(where), cfg)
+            enc_counts = launch_counts()
+            if where == "cpu":
+                forced = eng.generate(prompts, max_new_tokens=4, enc_out=enc)
+            kv = whisper.cross_kv(params, enc, cfg)
+            caches = init_cache(cfg, scfg, device=where)
+            reset_launch_counts()
+            out, caches = eng.prefill(params, torch.from_numpy(prompts).to(where), caches, kv)
+            pre_counts = launch_counts()
+            got = [out.cpu()]
+            reset_launch_counts()
+            for i in range(forced.shape[1]):
+                tok = torch.from_numpy(forced[:, i:i + 1]).to(where)
+                out, caches = eng.step(params, tok, 24 + i, caches, kv)
+                got.append(out.cpu())
+            step_counts = launch_counts()
+        logits[where] = got
+        if where == "cuda":
+            L, n = cfg.n_layers, forced.shape[1]
+            assert enc_counts["flash_attention"] == cfg.encdec.encoder_layers
+            assert pre_counts == {k: {"flash_attention": 2 * L, "embedding_gather": 1}.get(k, 0)
+                                  for k in pre_counts}
+            assert step_counts == {k: {"decode_attention": 2 * L * n, "embedding_gather": n}.get(
+                k, 0) for k in step_counts}
     for a, b in zip(logits["cuda"], logits["cpu"]):
         torch.testing.assert_close(a, b, atol=2e-4, rtol=2e-3)
 

@@ -83,15 +83,9 @@ def _close(got, want, dtype):
 def test_param_count_matches_reference(arch):
     jcfg = jregistry.get_config(arch)
     cfg = arch_config_from_dict(dataclasses.asdict(jcfg))
-    if arch not in _unported():
-        assert get_config(arch) == cfg
+    assert get_config(arch) == cfg
     assert param_count(cfg) == jregistry.param_count(jcfg)
     assert param_count(cfg, active_only=True) == jregistry.param_count(jcfg, active_only=True)
-
-
-def _unported():
-    return {"arctic_480b", "deepseek_v2_lite_16b", "chameleon_34b", "granite_34b",
-            "granite_20b", "whisper_base"}
 
 
 def test_zamba2_full_width():
@@ -105,15 +99,15 @@ def test_zamba2_full_width():
     assert tuple(ARCH_IDS) == tuple(jregistry.ARCH_IDS)
 
 
-@pytest.mark.parametrize("arch", sorted(_unported()))
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="does not run"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="does not run"):
-        get_smoke_config(arch)
-    cfg = arch_config_from_dict(dataclasses.asdict(jregistry.get_config(arch)))
-    with pytest.raises(NotImplementedError, match="does not run"):
-        family_module(cfg)
+@pytest.mark.parametrize("arch", jregistry.ARCH_IDS)
+def test_every_architecture_resolves_as_in_the_reference(arch):
+    """``get_config``/``get_smoke_config`` equal the reference's, and
+    ``family_module`` names the reference's family module."""
+    assert get_config(arch) == arch_config_from_dict(dataclasses.asdict(jregistry.get_config(arch)))
+    smoke = get_smoke_config(arch)
+    assert smoke == arch_config_from_dict(dataclasses.asdict(jsmoke(arch)))
+    assert family_module(smoke).__name__.rsplit(".", 1)[1] == \
+        jfamily(jsmoke(arch)).__name__.rsplit(".", 1)[1]
 
 
 def test_converter_checks_every_shape():

@@ -358,7 +358,9 @@ def test_cluster_journal_resumes_in_the_other_package(cluster_ref, tmp_path, wri
 # The LM workload mapper and the CLI's second workload
 # --------------------------------------------------------------------------
 
-LM_ARCHS = ("zamba2_2p7b", "command_r_plus_104b", "stablelm_3b", "mamba2_130m")
+LM_ARCHS = ("zamba2_2p7b", "command_r_plus_104b", "stablelm_3b", "mamba2_130m",
+            "arctic_480b", "deepseek_v2_lite_16b", "chameleon_34b", "granite_34b",
+            "granite_20b", "whisper_base")
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
@@ -393,8 +395,20 @@ def test_cli_lm_workload_on_cpu_equals_jax_package(capsys):
     assert ours == json.loads(ref.to_json())
 
 
-def test_cli_lm_rejects_unported_architecture():
-    from repro_torch.launch.simulate import main
+@pytest.mark.parametrize("arch", ["arctic_480b", "deepseek_v2_lite_16b", "chameleon_34b",
+                                  "granite_34b", "granite_20b", "whisper_base"])
+def test_cli_lm_workload_of_every_architecture_equals_jax_package(arch, monkeypatch):
+    """``--workload lm --arch <a>`` simulates the reference's ``lm_workload``
+    of the architecture (the workload the CLI hands to ``simulate``)."""
+    from repro.core.lm_mapper import lm_workload as r_lm
+    from repro.models import SHAPES_BY_NAME, get_config
+    from repro_torch.launch import simulate as cli
 
-    with pytest.raises(NotImplementedError, match="does not run"):
-        main(["--workload", "lm", "--arch", "granite_34b", "--device", "cpu"])
+    seen = []
+    monkeypatch.setattr(cli, "simulate", lambda wl, hw, **kw: seen.append((wl, hw, kw)) or
+                        T.simulate(T.dlrm_rmc2_small(num_tables=1, rows_per_table=50,
+                                                     batch_size=1), hw, device="cpu"))
+    cli.main(["--workload", "lm", "--arch", arch, "--shape", "prefill_32k", "--device", "cpu"])
+    (wl, hw, kw), = seen
+    assert plain(wl) == plain(r_lm(get_config(arch), SHAPES_BY_NAME["prefill_32k"]))
+    assert kw == {"zipf_s": 1.0, "device": "cpu"}

@@ -7,6 +7,8 @@ engines' prefill and decode steps, whose logits are compared at 8e-2 (bf16,
 ``tests/test_serving.py``). The JAX steps run with ``use_pallas=True`` and
 are compiled with XLA's excess precision off (see ``test_torch_lm.py``).
 Prompts of 64 tokens take the reference's kernel route, 24 its ragged one.
+Whisper's engine, which also takes the encoder's output, is held in
+``test_torch_whisper.py``.
 """
 import contextlib
 import io
@@ -58,7 +60,9 @@ def _engines(arch, batch, max_seq):
 
 
 @pytest.mark.parametrize("prompt_len", [64, 24])
-@pytest.mark.parametrize("arch", ["zamba2_2p7b", "mamba2_130m", "stablelm_3b"])
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "mamba2_130m", "stablelm_3b",
+                                  "deepseek_v2_lite_16b", "arctic_480b", "chameleon_34b",
+                                  "granite_34b", "granite_20b"])
 def test_generate_teacher_forced_matches_jax(arch, prompt_len):
     batch, max_seq = 2, prompt_len + NEW + 8
     jcfg, jp, jscfg, jengine, engine = _engines(arch, batch, max_seq)
@@ -85,7 +89,8 @@ def test_generate_teacher_forced_matches_jax(arch, prompt_len):
             np.testing.assert_allclose(_f32(logits), _f32(jlogits), atol=TOL)
 
 
-@pytest.mark.parametrize("arch", ["zamba2_2p7b", "stablelm_3b"])
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "stablelm_3b", "deepseek_v2_lite_16b",
+                                  "arctic_480b"])
 def test_engine_generates_deterministically(arch):
     cfg = get_smoke_config(arch)
     params = family_module(cfg).init_lm(cfg, device="cpu")
