@@ -172,6 +172,22 @@ passed over):
      beside their device bounds; the six at their smoke size on the card
      against the CPU, teacher-forced, and each step after a prefill against
      the forward;
+ 12. training on the card, no kernel launched (the train step runs the
+     reference's plain route, ``use_pallas=False``; launch counts reset
+     before and read after each part): stablelm-3b at full width and depth
+     (32 layers, d_model 2560, bf16, 2.8 B parameters), default AdamW,
+     remat, batch 8 x 1,024 of ``lm_batch``, 6 steps of one batch, the loss
+     falling and finite, step s, tokens/s, peak memory and the product bound
+     (8 x N x tokens / 989 TFLOP/s) beside the card's name and power limit,
+     one more step under ``torch.profiler`` for the busy share; mamba2-130m
+     at full width and depth (seq 256) through the sequential SSD
+     recurrence: ``launch/train.py`` under deterministic algorithms run
+     straight for 6 steps (each timed), and again stopped by SIGTERM after
+     its second step (it saves at the end of the step it is in) and
+     resumed, its final state bitwise the straight run's; one f32 train step of six families' smoke configs on
+     the card against the CPU (loss, grad norm, gradients, updated
+     parameters); a cached step of 4 new tokens after a prefill (stablelm,
+     zamba2; f32 and bf16) on the card against the CPU;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
@@ -1469,6 +1485,258 @@ def serve_phase(dev, K):
               f"steps), max abs diff {worst} (f32 allclose 2e-4 / 2e-3, bf16 8e-2; step vs "
               f"forward < 8e-2)", flush=True)
     return runs
+
+
+# Phase 12, training: stablelm-3b at full width and depth on TRAIN_BATCH x
+# TRAIN_SEQ tokens for TRAIN_STEPS steps of one batch; mamba2-130m at full
+# width and depth, SSM_SEQ tokens a sequence, through the launcher, killed
+# and resumed.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+SSM_SEQ, SSM_STEPS = 256, 6
+TRAIN_ARCHS = ("stablelm_3b", "deepseek_v2_lite_16b", "mamba2_130m", "zamba2_2p7b",
+               "chameleon_34b", "whisper_base")
+# The launcher run with deterministic kernels: cuBLAS's workspace fixed
+# before CUDA starts, then torch.use_deterministic_algorithms (the
+# embedding's backward is a scatter-add, in no fixed order otherwise).
+DETERMINISTIC_LAUNCH = ("import runpy, sys, torch; torch.use_deterministic_algorithms(True); "
+                        "sys.argv = ['train'] + sys.argv[1:]; "
+                        "runpy.run_module('repro_torch.launch.train', run_name='__main__')")
+
+
+def no_launches(K, what: str) -> None:
+    counts = K.launch_counts()
+    if any(counts.values()):
+        fail(f"{what}: launches {counts}; the training route runs no kernel")
+
+
+def train_phase(dev, K, name_power: str) -> None:
+    """Phase 12: training on the card. (a) stablelm-3b at full width and
+    depth, timed, its device busy share profiled; (b) mamba2-130m at full
+    width and depth through ``launch/train.py`` (straight, then SIGTERM after
+    its second step and ``--resume auto``), the final states bitwise equal;
+    (c) one step of each family's f32 smoke config on the card against the
+    CPU; (d) a cached step of 4 new tokens on the card against the CPU.
+    No kernel launches in (a)-(c): the train step runs the reference's plain
+    route (``use_pallas=False``)."""
+    import os
+    import signal
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import family_module, get_config, get_smoke_config, param_count
+    from repro_torch.models import transformer as TT
+    from repro_torch.training import TrainConfig, build_loss_fn, build_train_step, init_state
+    from repro_torch.training.optimizer import lr_schedule
+    from repro_torch.training.train_step import value_and_grad
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[12] {name_power}; memory_allocated at the phase's start "
+          f"{torch.cuda.memory_allocated()} B", flush=True)
+
+    # (a) stablelm-3b, full width and depth: default AdamW, remat, no
+    # compression, one repeated batch.
+    cfg = get_config("stablelm_3b")
+    tcfg = TrainConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(0, cfg, tcfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in T.leaves(state["params"]))
+    if n != param_count(cfg):
+        fail(f"stablelm-3b: {n} parameters, param_count says {param_count(cfg)}")
+    state_bytes = torch.cuda.memory_allocated()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in lm_batch(
+        LMDataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH), 0).items()}
+    step = build_train_step(cfg, tcfg)
+    losses, gnorms, step_s = [], [], []
+    K.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gnorms.append(float(m["grad_norm"]))
+    no_launches(K, "stablelm-3b train steps")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"stablelm-3b training: losses {losses}, grad norms {gnorms} not all finite")
+    if not losses[-1] < losses[0]:
+        fail(f"stablelm-3b training: the loss did not fall from step 1 to {TRAIN_STEPS}: {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = float(np.median(step_s[1:]))
+    bound_s = 8 * n * tokens / TENSOR_FLOPS_PER_S
+    print(f"[12] stablelm-3b train (32 layers, d_model 2560, {n} bf16 parameters, state drawn "
+          f"in {init_s:.3f} s, {state_bytes} B: params, f32 moments; default AdamW, remat, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}): losses {losses}, grad norms {gnorms}; step s "
+          f"{step_s} (first with warm-up); median of steps 2-{TRAIN_STEPS} {med!r} s = "
+          f"{tokens / med!r} tokens/s; max_memory_allocated {peak} B; product bound 8 x {n} x "
+          f"{tokens} / {TENSOR_FLOPS_PER_S / 1e12:.0f} TFLOP/s = {bound_s!r} s "
+          f"({med / bound_s!r} x); no kernel launched; {name_power}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tprof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print(f"[12] stablelm-3b profiled train step: wall {wall!r} s, "
+          f"{device_busy(tprof.events(), wall, top=10)}", flush=True)
+    del state, batch, step, m, tprof
+    torch.cuda.empty_cache()
+
+    # (b) mamba2-130m, full width and depth, through the launcher: the SSM
+    # trains through the sequential recurrence (mamba2_ssd_ref), a Python
+    # loop of S steps a layer, so its steps (the straight run's, timed by
+    # the launcher) are host-bound launches.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+    def launch(ckpt, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-c", DETERMINISTIC_LAUNCH, "--arch", "mamba2_130m", "--device",
+             dev.type, "--steps", str(SSM_STEPS), "--seq", str(SSM_SEQ), "--batch",
+             str(TRAIN_BATCH), "--log-every", "1", "--save-every", "1000",
+             "--checkpoint-dir", ckpt, *extra],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"launcher {what}: no exit within 300 s")
+        if proc.returncode != 0:
+            fail(f"launcher {what} exited {proc.returncode}: {err[-2000:]}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        straight = finish(launch(f"{tmp}/straight"), "straight run")
+        straight_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = launch(f"{tmp}/resumed")
+        head = []
+        for line in proc.stdout:
+            head.append(line)
+            if line.startswith("step     1"):
+                proc.send_signal(signal.SIGTERM)
+                break
+        killed = "".join(head) + finish(proc, "stopped by SIGTERM")
+        saved = CheckpointManager(CheckpointConfig(directory=f"{tmp}/resumed")).all_steps()
+        if len(saved) != 1 or not 2 <= saved[0] < SSM_STEPS:
+            fail(f"launcher SIGTERM: checkpoints {saved}; expected one at step 2..{SSM_STEPS - 1}")
+        resumed = finish(launch(f"{tmp}/resumed", "--resume", "auto"), "resumed")
+        kill_s = time.perf_counter() - t0
+        if f"resumed from step {saved[0]}" not in resumed:
+            fail(f"launcher resume: {resumed[-500:]}")
+        a = CheckpointManager(CheckpointConfig(directory=f"{tmp}/straight")).restore()
+        b = CheckpointManager(CheckpointConfig(directory=f"{tmp}/resumed")).restore()
+    if a["step"] != SSM_STEPS or b["step"] != SSM_STEPS or a["names"] != b["names"]:
+        fail(f"launcher checkpoints: steps {a['step']}, {b['step']}")
+    differ = [nm for nm, x, y in zip(a["names"], a["leaves"], b["leaves"])
+              if not bitwise_equal(x, y)]
+    if differ:
+        fail(f"launcher kill-and-resume: {len(differ)} of {len(a['names'])} leaves differ from "
+             f"the straight run's, first {differ[:5]}")
+    step_ms = [float(ln.rsplit(" ", 2)[1]) for ln in straight.splitlines()
+               if ln.startswith("step ")]
+    print(f"[12] launch/train.py --arch mamba2_130m --device cuda (24 layers, d_model 768, "
+          f"{SSM_STEPS} steps, batch {TRAIN_BATCH} x {SSM_SEQ}, the recurrence {SSM_SEQ} steps a "
+          f"layer, deterministic algorithms): straight run {straight_s:.1f} s (step ms {step_ms}: "
+          f"{TRAIN_BATCH * SSM_SEQ * 1e3 / float(np.median(step_ms[1:]))!r} tokens/s at the "
+          f"median of steps 2-{SSM_STEPS}); SIGTERM after step 2 saved step {saved[0]}, resumed to "
+          f"{SSM_STEPS}: {kill_s:.1f} s for both processes; the {len(a['names'])} leaves of the "
+          f"final state bitwise equal to the straight run's; straight losses "
+          f"{[ln.split()[2] for ln in straight.splitlines() if ln.startswith('step ')]}, "
+          f"resumed {[ln.split()[2] for ln in (killed + resumed).splitlines() if ln.startswith('step ')]}",
+          flush=True)
+
+    # (c) one train step of each family's f32 smoke config, card against CPU,
+    # from one state: loss rtol 1e-5, grad norm 1e-4, each gradient leaf at
+    # 1e-4 of its largest magnitude; the updated parameters within 2 x lr
+    # (+1e-6 relative): Adam's first step moves an element by +-lr by the
+    # sign of its gradient, which two sums of a near-zero gradient may
+    # differ on.
+    worst = {}
+    for arch in TRAIN_ARCHS:
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        tc = TrainConfig(loss_chunk=16)
+        cpu_state = init_state(0, cfg, tc, device="cpu")
+        card_state = T.unflatten(cpu_state, [t.to(dev) for t in T.leaves(cpu_state)])
+        b = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4), 0)
+        if cfg.family == "audio":
+            b["frames"] = (np.random.default_rng(0).standard_normal(
+                (4, cfg.encdec.encoder_seq, cfg.d_model)) * 0.5).astype(np.float32)
+        runs = {}
+        K.reset_launch_counts()
+        for where, st in (("cpu", cpu_state), (dev, card_state)):
+            batch = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+            _, grads = value_and_grad(build_loss_fn(cfg, tc), st["params"], batch)
+            st, m = build_train_step(cfg, tc)(st, batch)
+            runs[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
+                           [g.cpu() for g in T.leaves(grads)], [p.cpu() for p in
+                                                                T.leaves(st["params"])])
+        no_launches(K, f"smoke {arch} train steps")
+        (l_c, n_c, g_c, p_c), (l_g, n_g, g_g, p_g) = runs["cpu"], runs[str(dev)]
+        lr1 = float(lr_schedule(tc.adamw, torch.tensor(1)))
+        g_err = max(max_abs_err(x, y) / max(float(x.abs().max()), 1e-30) for x, y in zip(g_c, g_g))
+        p_err = max(max_abs_err(x, y) for x, y in zip(p_c, p_g))
+        if not (abs(l_c - l_g) <= 1e-5 * abs(l_c) and abs(n_c - n_g) <= 1e-4 * n_c
+                and all(torch.allclose(y, x, rtol=1e-4, atol=1e-4 * float(x.abs().max()))
+                        for x, y in zip(g_c, g_g))
+                and all(torch.allclose(y, x, rtol=1e-6, atol=2 * lr1) for x, y in zip(p_c, p_g))):
+            fail(f"smoke {arch} train step on the card differs from the CPU: loss {l_g!r} vs "
+                 f"{l_c!r}, grad norm {n_g!r} vs {n_c!r}, grads {g_err!r} of the leaf max, "
+                 f"params {p_err!r}")
+        worst[arch] = (abs(l_c - l_g), abs(n_c - n_g) / n_c, g_err, p_err)
+    print(f"[12] one f32 smoke train step, card vs CPU (|loss|, grad norm rel, grads / leaf max, "
+          f"params abs; 2 x lr = {2 * lr1!r}): {worst}; no kernel launched", flush=True)
+
+    # (d) a cached step of 4 new tokens after a prefill of 24: the
+    # reference's full-cache attention (and the hybrid's sequential SSD
+    # steps), plain torch on the card; phase 11's tolerances.
+    errs = {}
+    for arch in ("stablelm_3b", "zamba2_2p7b"):
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_smoke_config(arch).replace(dtype=dtype)
+            mod = family_module(cfg)
+            on_cpu = mod.init_lm(cfg, device="cpu")
+            on_card = mod.init_lm(cfg, device=dev)
+            on_card.load_state_dict(on_cpu.state_dict())
+            toks = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=28, global_batch=2),
+                            1)["tokens"]
+            out = {}
+            with torch.inference_mode():
+                for where, params in (("cpu", on_cpu), (dev, on_card)):
+                    tt = torch.from_numpy(toks).to(where)
+                    if cfg.family == "hybrid":
+                        _, caches = mod.prefill_with_state(params, tt[:, :24], cfg, max_seq=40)
+                    else:
+                        caches = TT.init_kv_cache(cfg, 2, 40, device=where)
+                        _, caches = TT.prefill(params, tt[:, :24], caches, cfg)
+                    K.reset_launch_counts()
+                    logits, _ = mod.decode_step(params, tt[:, 24:], 24, caches, cfg)
+                    counts = K.launch_counts()
+                    want = {"embedding_gather": 1} if torch.device(where).type == "cuda" else {}
+                    if counts != {k: want.get(k, 0) for k in counts}:
+                        fail(f"{arch} {dtype} 4-token step on {where}: launches {counts}")
+                    out[str(where)] = logits.cpu()
+            tol = dict(atol=2e-4, rtol=2e-3) if dtype == "float32" else dict(atol=8e-2, rtol=0.0)
+            card = out[str(dev)]
+            if card.shape != (2, 4, cfg.vocab) or not torch.allclose(
+                    card.float(), out["cpu"].float(), **tol):
+                fail(f"{arch} {dtype}: a cached step of 4 tokens on the card differs from the "
+                     f"CPU by {max_abs_err(card, out['cpu'])!r} ({tol})")
+            errs[f"{arch} {dtype}"] = max_abs_err(card, out["cpu"])
+    print(f"[12] a cached step of 4 new tokens after a prefill of 24, card vs CPU, max abs "
+          f"diff {errs} (f32 2e-4 / 2e-3, bf16 8e-2); K4 its one launch", flush=True)
 
 
 def sweep_phase(dev, K, wl):
@@ -3035,6 +3303,11 @@ def main() -> None:
     t0 = time.perf_counter()
     serve_runs = serve_phase(dev, K)
     print(f"[11] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 12. training on the card -------------------------------------------
+    t0 = time.perf_counter()
+    train_phase(dev, K, name_power)
+    print(f"[12] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),

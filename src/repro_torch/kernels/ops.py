@@ -2,13 +2,15 @@
 offsets, hot/cold split, the hot-pinned path) over K3, K4 and K5, and the
 attention and SSD ops over K6, K7 and K8.
 
-Ports of ``repro/kernels/ops.py``. The reference chooses between its Pallas
-kernels and a jnp path with ``use_pallas``, and sends shapes its kernels do
-not tile (S % 128, S_max % 512, S % chunk) to its oracles; the port has no
-such switch and no such branch: every op goes through its kernel's wrapper,
-which launches the CUDA kernel for CUDA tensors and runs the plain torch
-version for CPU tensors. The CUDA kernels take any D and any length, so
-nothing is padded to the TPU's 128 lanes.
+Ports of ``repro/kernels/ops.py``. Flash attention and the SSD scan take
+the reference's ``use_pallas``: True (the default) goes through the kernel's
+wrapper, which launches the CUDA kernel for CUDA tensors and runs the plain
+torch version for CPU tensors; False takes the reference's jnp routes, the
+plain oracles of ``ref`` on every device (training's route: no kernel has a
+backward). The reference also sends shapes its kernels do not tile (S % 128,
+S_max % 512, S % chunk) to its oracles; the port has no such branch: the
+CUDA kernels take any D and any length, so nothing is padded to the TPU's
+128 lanes.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from .embedding_bag import (
 )
 from .flash_attention import flash_attention_kernel
 from .mamba2_ssd import mamba2_ssd_kernel
+from . import ref
 
 
 def _flat_indices(indices: torch.Tensor, rows_per_table: int) -> torch.Tensor:
@@ -98,7 +101,7 @@ def embedding_bag_pinned(
 # --------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, use_pallas: bool = True) -> torch.Tensor:
     """q (B, Hq, S, dq), k (B, Hkv, Sk, dq), v (B, Hkv, Sk, dv) -> (B, Hq, S,
     dv), through K6 (causal needs Sk == S). K6 has one head width, so a
     narrower v (MLA: dq 192, dv 128) goes in padded with zero columns to dq
@@ -106,8 +109,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sums are zero, for dq / dv (1.5 at MLA) times the p.v work of a native
     dv. The reference sends dv != dq to its chunked oracle, which rounds p
     to v's dtype before p.v, as K6's bf16 route does; on the CPU
-    ``round_p`` makes K6's plain version round there too."""
+    ``round_p`` makes K6's plain version round there too.
+
+    ``use_pallas=False``: the reference's jnp route, ``ref.chunked_attention``
+    for S > 2048 or dv != dq, else ``ref.flash_attention_ref``."""
     dq, dv = q.shape[-1], v.shape[-1]
+    if not use_pallas:
+        if q.shape[2] > 2048 or dq != dv:
+            return ref.chunked_attention(q, k, v, causal=causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal)
     if dv == dq:
         return flash_attention_kernel(q, k, v, causal=causal)
     if dv > dq:
@@ -119,12 +129,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: int) -> torch.Tensor:
     """q (B, Hq, dh) over the cache's first ``valid_len`` positions (a host
-    int) of k, v (B, Hkv, S_max, dh), through K7."""
+    int) of k, v (B, Hkv, S_max, dh), through K7. (The reference's
+    ``use_pallas=False`` never comes here: its attention then takes the
+    full-cache ``_decode_attention`` of ``models.layers``.)"""
     return decode_attention_kernel(q, k, v, valid_len)
 
 
 def mamba2_ssd(x: torch.Tensor, adt: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
-               C: torch.Tensor, *, chunk: int = 128) -> torch.Tensor:
+               C: torch.Tensor, *, chunk: int = 128, use_pallas: bool = True) -> torch.Tensor:
     """x (B, H, S, P), adt and dt (B, H, S) f32, Bm and C (B, S, N) ->
-    y (B, H, S, P), through K8."""
+    y (B, H, S, P), through K8 (``use_pallas=False``: the sequential
+    recurrence ``ref.mamba2_ssd_ref``)."""
+    if not use_pallas:
+        return ref.mamba2_ssd_ref(x, adt, dt, Bm, C)
     return mamba2_ssd_kernel(x, adt, dt, Bm, C, chunk=chunk)

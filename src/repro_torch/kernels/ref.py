@@ -2,11 +2,12 @@
 
 Ports of ``repro/kernels/ref.py``: the embedding oracles (one gather of
 every row, then one reduction over L, in whatever order torch sums) and the
-LM oracles ``flash_attention_ref``, ``decode_attention_ref``,
+LM oracles ``flash_attention_ref``, ``chunked_attention`` (online softmax
+over key blocks, for dv != dq and S > 2048), ``decode_attention_ref``,
 ``mamba2_ssd_ref`` (the exact sequential recurrence) and
-``mamba2_final_state`` (the closed-form state after a prompt).
-``chunked_attention`` is not ported: the reference sends MLA's dv != dq
-there, and the port sends it through K6 with v padded (``ops``).
+``mamba2_final_state`` (the closed-form state after a prompt). The
+``use_pallas=False`` route of ``ops`` runs them; so does training, whose
+gradients flow through them (no kernel has a backward).
 """
 from __future__ import annotations
 
@@ -56,6 +57,54 @@ def flash_attention_ref(
         s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,   # (B, Hq, S, dq)
+    k: torch.Tensor,   # (B, Hkv, Sk, dq)
+    v: torch.Tensor,   # (B, Hkv, Sk, dv)
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    k_block: int = 512,
+) -> torch.Tensor:
+    """Online-softmax attention over blocks of ``k_block`` keys (never the
+    whole (S, Sk) scores), GQA by expanding each block's k, v, any dv. As the
+    reference computes it: the scores from q and k in their dtype with f32
+    sums, p rounded to v's dtype before p.v (f32 sums), the running max from
+    -1e30, the output divided by max(l, 1e-30)."""
+    B, Hq, S, dq = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    G = Hq // Hkv
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(dq)
+    k_block = min(k_block, Sk)
+    rows = torch.arange(S, device=q.device)
+    qf = q.float()
+    m = torch.full((B, Hq, S, 1), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, S, dv), dtype=torch.float32, device=q.device)
+    neg = torch.tensor(-1e30, device=q.device)
+    for lo in range(0, Sk, k_block):
+        kc = k[:, :, lo:lo + k_block].repeat_interleave(G, dim=1)
+        vc = v[:, :, lo:lo + k_block].repeat_interleave(G, dim=1)
+        if kc.shape[2] < k_block:            # the reference pads the last block
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, k_block - kc.shape[2]))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, k_block - vc.shape[2]))
+        s = torch.einsum("bhsd,bhtd->bhst", qf, kc.float()) * sm_scale
+        cols = lo + torch.arange(k_block, device=q.device)
+        mask = (cols[None, :] < Sk).expand(S, k_block)
+        if causal:
+            mask = mask & (rows[:, None] >= cols[None, :])
+        s = torch.where(mask, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhst,bhtd->bhsd", p.to(v.dtype).float(), vc.float())
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
 def decode_attention_ref(

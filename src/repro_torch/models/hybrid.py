@@ -7,7 +7,10 @@ A port of ``repro/models/hybrid.py``. The Mamba2 layers are stacked
 applications of the shared block. On the prompt every Mamba2 layer runs K8
 and every application of the shared block K6; each decoded token runs K7 in
 every application. The reference's sharding calls do nothing on one device
-and are dropped; so is ``remat``. Caches are updated in place.
+and are dropped. ``final_hidden`` and ``forward`` take ``use_pallas`` and
+``remat`` (each group of E Mamba2 layers and its shared block recomputed in
+the backward, the reference's checkpointed unit). Caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -64,30 +67,37 @@ def init_lm(cfg: ArchConfig, *, device: DeviceLike = "cuda",
 
 
 def _shared_block(cfg, shared, x, positions, *, kv_cache=None, cache_index=None,
-                  prefill=False):
+                  prefill=False, use_pallas=True):
     h = L.rmsnorm(shared["norm1"], x, cfg.norm_eps)
     attn_out, new_cache = L.attention(
         shared["attn"], h, cfg, positions=positions,
-        kv_cache=kv_cache, cache_index=cache_index, prefill=prefill,
+        kv_cache=kv_cache, cache_index=cache_index, prefill=prefill, use_pallas=use_pallas,
     )
     x = x + attn_out
     h = L.rmsnorm(shared["norm2"], x, cfg.norm_eps)
     return x + L.swiglu(shared["mlp"], h), new_cache
 
 
-def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+                 use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
     _check(cfg)
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
     positions = torch.arange(tokens.shape[1], device=x.device)
-    for group in L.stacked_layers(params, "groups", 2):
+
+    def body(x, group, shared):
         for lp in group:
-            x, _, _ = mamba._apply_layer(cfg, lp, x)
-        x, _ = _shared_block(cfg, params["shared"], x, positions)
+            x = mamba._apply_layer(cfg, lp, x, use_pallas=use_pallas)[0]
+        return _shared_block(cfg, shared, x, positions, use_pallas=use_pallas)[0]
+
+    for group in L.stacked_layers(params, "groups", 2):
+        x = L.remat_call(body, x, group, params["shared"], remat=remat)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return hidden_to_logits(params, final_hidden(params, tokens, cfg), cfg)
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
+    return hidden_to_logits(
+        params, final_hidden(params, tokens, cfg, use_pallas=use_pallas, remat=remat), cfg)
 
 
 # --------------------------------------------------------------------------

@@ -11,12 +11,15 @@ the same way (``p["attn"]["wq"]``); ``init_*`` draw them from an explicit
 ``torch.Generator`` on an explicit device, with the reference's shapes,
 dtypes and scales. The apply functions compute in the dtypes the reference
 names, and round to bf16 where it rounds. The attention and SSD products go
-through ``kernels.ops`` (the kernels K6, K7 and K8), the embedding through
-K4: the reference's ``use_pallas=True`` route, which the port always takes.
-The products the reference computes outside Pallas stay plain torch on
-every device: MLA's absorbed decode and the MoE's router, dispatch, expert
-FFNs and combine. The reference's sharding hints (``shard_attention_q``,
-``constrain``) do nothing on one device and are dropped.
+through ``kernels.ops``, the embedding through K4, under the reference's
+``use_pallas``: True (the default, serving's route) launches the kernels K6,
+K7, K8 and K4; False (training's route) runs the reference's jnp routes, the
+plain oracles of ``kernels.ref`` and ``table[tokens]``, which autograd
+differentiates. The products the reference computes outside Pallas stay
+plain torch on every device: a cached step of several new tokens, MLA's
+absorbed decode and the MoE's router, dispatch, expert FFNs and combine.
+The reference's sharding hints (``shard_attention_q``, ``constrain``) do
+nothing on one device and are dropped.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -93,20 +97,38 @@ def new_params(init_params, cfg: ArchConfig, device, generator) -> "ParamTree":
 
 def stacked_layers(tree, key: str, depth: int = 1):
     """Views of the layers stacked in ``tree[key]``: a list (of lists, for
-    ``depth`` 2) of plain dicts whose tensors index the leading dims."""
-    def leaf(t, idx):
+    ``depth`` 2) of plain dicts whose tensors index the leading dims. Each
+    stacked tensor is split by one ``unbind``, so the gradients of its
+    layers come back to it through one stack (a view per layer would add
+    the whole tensor's worth of zeros per layer in the backward)."""
+    def unbound(t):
         if isinstance(t, torch.Tensor):
+            return t.unbind(0)
+        return {k: unbound(t[k]) for k in t.keys()}
+
+    def pick(t, idx):
+        if isinstance(t, tuple):
             return t[idx]
-        return {k: leaf(t[k], idx) for k in t.keys()}
+        return {k: pick(v, idx) for k, v in t.items()}
 
     def split(t, d):
         first = t
-        while not isinstance(first, torch.Tensor):
+        while not isinstance(first, tuple):
             first = first[next(iter(first.keys()))]
-        items = [leaf(t, i) for i in range(first.shape[0])]
-        return items if d == 1 else [split(x, d - 1) for x in items]
+        items = [pick(t, i) for i in range(len(first))]
+        return items if d == 1 else [split(unbound(x), d - 1) for x in items]
 
-    return split(tree[key], depth)
+    return split(unbound(tree[key]), depth)
+
+
+def remat_call(fn: Callable, *args, remat: bool):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``remat`` is set and autograd records: the reference's
+    ``jax.checkpoint`` of a layer, which keeps the layer's inputs and
+    recomputes the rest in the backward. Without gradients it is ``fn``."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def init_stacked(make: Callable[[], Params], n: int) -> Params:
@@ -225,6 +247,7 @@ def attention(
     cache_index: Optional[int] = None,
     use_rope: bool = True,
     prefill: bool = False,
+    use_pallas: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Returns (out, kv_cache). With a cache, x is the new-token slice and
     k, v are written into the cache in place (copying the cache per step
@@ -232,10 +255,9 @@ def attention(
 
     ``prefill=True``: the cache is empty and x is the full prompt, so
     attention is causal flash (K6) over the new tokens only; one new token
-    decodes through K7. Any other cached step takes the reference's
-    full-cache path (``_decode_attention``), plain torch, so it runs only on
-    the CPU: no kernel covers several new tokens against a cache yet, and on
-    the card it raises ``NotImplementedError``.
+    decodes through K7 (with ``use_pallas``). Any other cached step takes
+    the reference's full-cache path (``_decode_attention``), plain torch on
+    every device, as the reference computes it in jnp outside its kernels.
     """
     B, S, D = x.shape
     Hq, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.attn_head_dim
@@ -254,17 +276,13 @@ def attention(
         write_cache(ck, k.to(ck.dtype), cache_index)
         write_cache(cv, v.to(cv.dtype), cache_index)
         if prefill:
-            out = ops.flash_attention(q, k, v, causal=causal)
-        elif S == 1:
+            out = ops.flash_attention(q, k, v, causal=causal, use_pallas=use_pallas)
+        elif use_pallas and S == 1:
             out = ops.decode_attention(q[:, :, 0], ck, cv, cache_index + S)[:, :, None, :]
         else:
-            if q.device.type != "cpu":
-                raise NotImplementedError(
-                    f"attention: a cached step of {S} new tokens on {q.device} (no kernel "
-                    "covers it; prefill and one-token decode do)")
             out = _decode_attention(q, ck, cv, cache_index + S, Hq // Hkv)
     else:
-        out = ops.flash_attention(q, k, v, causal=causal)
+        out = ops.flash_attention(q, k, v, causal=causal, use_pallas=use_pallas)
 
     out = out.transpose(1, 2).reshape(B, S, Hq * dh)
     return out @ p["wo"], kv_cache
@@ -314,6 +332,7 @@ def mla_attention(
     kv_cache: Optional[torch.Tensor] = None,   # latent cache (B, S_max, r + rope)
     cache_index: Optional[int] = None,
     prefill: bool = False,
+    use_pallas: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (out, kv_cache). With a cache, the new tokens' latents (the
     compressed kv and the roped key) are written into it in place at host
@@ -321,7 +340,9 @@ def mla_attention(
     the latent space (``_mla_absorbed_decode``, every new token over the
     whole valid length, as in the reference). Otherwise per-head k and v
     are expanded from the new tokens' latents and attention runs through K6,
-    whose one head width takes v padded to the query's (``ops``)."""
+    whose one head width takes v padded to the query's (``ops``), or with
+    ``use_pallas=False`` through ``ref.chunked_attention`` (dv != dq), as
+    the reference always does."""
     m = cfg.mla
     B, S, D = x.shape
     H, r = cfg.n_heads, m.kv_lora_rank
@@ -348,7 +369,7 @@ def mla_attention(
     vv = (kv_l @ p["w_uv"]).reshape(B, -1, H, m.v_head_dim).transpose(1, 2)
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    out = ops.flash_attention(qq, k, vv, causal=causal)
+    out = ops.flash_attention(qq, k, vv, causal=causal, use_pallas=use_pallas)
     out = out.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
     return out @ p["wo"], kv_cache
 
@@ -562,9 +583,11 @@ def mamba2_block(
     ssm_state: Optional[torch.Tensor] = None,  # (B, H, P, N) decode carry
     conv_state: Optional[torch.Tensor] = None,  # (B, W-1, Ch)
     return_final_state: bool = False,          # prefill: parallel scan + state out
+    use_pallas: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
     """Returns (out, new_ssm_state, new_conv_state). Without a state the
-    prompt runs through the chunked SSD scan (K8) and, when asked, the state
+    prompt runs through the chunked SSD scan (K8; with ``use_pallas=False``
+    the sequential recurrence ``ref.mamba2_ssd_ref``) and, when asked, the state
     after it comes from the closed form ``mamba2_final_state``; with one,
     the new tokens step through ``_ssd_decode_step``."""
     s = cfg.ssm
@@ -592,7 +615,8 @@ def mamba2_block(
     adt = A[None, :, None] * dt_h
 
     if ssm_state is None:
-        y = ops.mamba2_ssd(xh, adt, dt_h, Bm, Cm, chunk=s.chunk)      # (B,H,S,P)
+        y = ops.mamba2_ssd(xh, adt, dt_h, Bm, Cm, chunk=s.chunk,
+                           use_pallas=use_pallas)                     # (B,H,S,P)
         new_state = kref.mamba2_final_state(xh, adt, dt_h, Bm) if return_final_state else None
     else:
         y, new_state = _ssd_decode_step(xh, adt, dt_h, Bm, Cm, ssm_state)
@@ -627,8 +651,11 @@ def init_embedding(vocab: int, d: int, dtype, *, generator, device) -> Params:
                                  device=device)}
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token rows through the row gather (K4)."""
+def embed(p: Params, tokens: torch.Tensor, *, use_pallas: bool = True) -> torch.Tensor:
+    """Token rows through the row gather (K4), or ``table[tokens]`` with
+    ``use_pallas=False``."""
+    if not use_pallas:
+        return p["table"][tokens.long()]
     return ops.embedding_gather(p["table"], tokens)
 
 

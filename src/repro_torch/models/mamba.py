@@ -4,8 +4,9 @@ A port of ``repro/models/mamba.py``. The prompt pass runs every layer's
 chunked SSD scan through K8 and takes each layer's state from the closed
 form, so decode continues with O(1) state per layer. The reference's
 sharding calls (``activation_constraint``, ``fsdp_unshard``) do nothing on
-one device and are dropped; so is ``remat``. The state caches are updated in
-place.
+one device and are dropped. ``final_hidden`` and ``forward`` take
+``use_pallas`` and ``remat`` as ``transformer``'s do. The state caches are
+updated in place.
 """
 from __future__ import annotations
 
@@ -45,10 +46,10 @@ def init_lm(cfg: ArchConfig, *, device: DeviceLike = "cuda",
     return L.new_params(init_params, cfg, device, generator)
 
 
-def _apply_layer(cfg, p, x, *, ssm_state=None, conv_state=None):
+def _apply_layer(cfg, p, x, *, ssm_state=None, conv_state=None, use_pallas=True):
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-    y, new_ssm, new_conv = L.mamba2_block(p["mixer"], h, cfg,
-                                          ssm_state=ssm_state, conv_state=conv_state)
+    y, new_ssm, new_conv = L.mamba2_block(p["mixer"], h, cfg, ssm_state=ssm_state,
+                                          conv_state=conv_state, use_pallas=use_pallas)
     return x + y, new_ssm, new_conv
 
 
@@ -59,15 +60,22 @@ def _prefill_layer(cfg, p, x):
     return x + y, st, cv
 
 
-def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = L.embed(params["embed"], tokens)
+def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+                 use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
+    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
+
+    def body(x, lp):
+        return _apply_layer(cfg, lp, x, use_pallas=use_pallas)[0]
+
     for lp in L.stacked_layers(params, "layers"):
-        x, _, _ = _apply_layer(cfg, lp, x)
+        x = L.remat_call(body, x, lp, remat=remat)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    return hidden_to_logits(params, final_hidden(params, tokens, cfg), cfg)
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
+    return hidden_to_logits(
+        params, final_hidden(params, tokens, cfg, use_pallas=use_pallas, remat=remat), cfg)
 
 
 # --------------------------------------------------------------------------

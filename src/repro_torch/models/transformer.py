@@ -6,8 +6,10 @@ A port of ``repro/models/transformer.py``. An early-fusion VLM (chameleon)
 is this model: its image tokens are vocabulary entries. MLA keeps one
 latent cache ``(L, B, S_max, r + rope)`` instead of per-head k and v. The
 reference's sharding calls (``activation_constraint``, ``fsdp_unshard``) do
-nothing on one device and are dropped; so is ``remat``, since serving keeps
-no activations. Caches are updated in place.
+nothing on one device and are dropped. ``final_hidden`` and ``forward``
+take the reference's ``use_pallas`` (default True here: the kernels) and
+``remat`` (each layer recomputed in the backward; nothing to do without
+gradients). Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -66,12 +68,12 @@ def init_lm(cfg: ArchConfig, *, device: DeviceLike = "cuda",
 
 def _apply_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                  kv_cache=None, cache_index: Optional[int] = None,
-                 prefill: bool = False) -> Tuple[torch.Tensor, Any]:
+                 prefill: bool = False, use_pallas: bool = True) -> Tuple[torch.Tensor, Any]:
     h = L.rmsnorm(p["norm1"], x, cfg.norm_eps)
     attend = L.mla_attention if cfg.mla is not None else L.attention
     attn_out, new_cache = attend(
         p["attn"], h, cfg, positions=positions,
-        kv_cache=kv_cache, cache_index=cache_index, prefill=prefill,
+        kv_cache=kv_cache, cache_index=cache_index, prefill=prefill, use_pallas=use_pallas,
     )
     x = x + attn_out
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
@@ -91,18 +93,25 @@ def hidden_to_logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.
     return L.lm_logits(params["head"], x)
 
 
-def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+                 use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
     """Hidden states after the final norm."""
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
     positions = torch.arange(tokens.shape[1], device=x.device)
+
+    def body(x, lp):
+        return _apply_layer(cfg, lp, x, positions, use_pallas=use_pallas)[0]
+
     for lp in L.stacked_layers(params, "layers"):
-        x, _ = _apply_layer(cfg, lp, x, positions)
+        x = L.remat_call(body, x, lp, remat=remat)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
+            use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
     """(B, S) int tokens -> (B, S, vocab) logits."""
-    return hidden_to_logits(params, final_hidden(params, tokens, cfg), cfg)
+    return hidden_to_logits(
+        params, final_hidden(params, tokens, cfg, use_pallas=use_pallas, remat=remat), cfg)
 
 
 # --------------------------------------------------------------------------

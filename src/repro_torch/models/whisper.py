@@ -15,9 +15,10 @@ decoded token through K7 with ``valid_len = S_enc`` (the reference computes
 both with its plain oracle, the same function). The cross-attention's k, v
 of the encoder's states are projected once (``cross_kv``) and passed to the
 decoder and every step: the same numbers as the reference's projection in
-each layer of each step.
-The reference's sharding calls do nothing on one device and are dropped;
-caches are updated in place.
+each layer of each step. With ``use_pallas=False`` (training's route)
+every attention takes the reference's plain oracles and the embedding
+``table[tokens]``. The reference's sharding calls do nothing on one device
+and are dropped; caches are updated in place.
 """
 from __future__ import annotations
 
@@ -46,18 +47,19 @@ def sinusoids(length: int, channels: int, device=None) -> torch.Tensor:
 
 
 def cross_attention(p: Params, x: torch.Tensor, enc_kv: Tuple[torch.Tensor, torch.Tensor],
-                    cfg: ArchConfig) -> torch.Tensor:
+                    cfg: ArchConfig, *, use_pallas: bool = True) -> torch.Tensor:
     """x: (B, S_dec, D); enc_kv: the encoder's (k, v) (B, Hkv, S_enc, dh).
     One query token attends through K7 over all S_enc positions, a prompt
-    through K6 (not causal, S_dec queries over S_enc keys)."""
+    through K6 (not causal, S_dec queries over S_enc keys); with
+    ``use_pallas=False`` both through the reference's plain oracle."""
     B, S, D = x.shape
     Hq, dh = cfg.n_heads, cfg.attn_head_dim
     q = (x @ p["wq"]).reshape(B, S, Hq, dh).transpose(1, 2)
     k, v = enc_kv
-    if S == 1:
+    if use_pallas and S == 1:
         out = ops.decode_attention(q[:, :, 0], k, v, k.shape[2])[:, :, None, :]
     else:
-        out = ops.flash_attention(q, k, v, causal=False)
+        out = ops.flash_attention(q, k, v, causal=False, use_pallas=use_pallas)
     return out.transpose(1, 2).reshape(B, S, Hq * dh) @ p["wo"]
 
 
@@ -115,12 +117,14 @@ def init_model(cfg: ArchConfig, *, device: DeviceLike = "cuda",
     return L.new_params(init_params, cfg, device, generator)
 
 
-def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig, *,
+           use_pallas: bool = True) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> encoder states."""
     x = frames + sinusoids(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
     for p in L.stacked_layers(params, "enc_layers"):
         h = L.layernorm(p["norm1"], x, cfg.norm_eps)
-        a, _ = L.attention(p["attn"], h, cfg, causal=False, use_rope=False)
+        a, _ = L.attention(p["attn"], h, cfg, causal=False, use_rope=False,
+                           use_pallas=use_pallas)
         x = x + a
         h = L.layernorm(p["norm2"], x, cfg.norm_eps)
         x = x + L.gelu_mlp(p["mlp"], h)
@@ -129,12 +133,13 @@ def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
 
 def decode_hidden(params: Params, tokens: torch.Tensor, enc_kv: List[Tuple],
                   cfg: ArchConfig, *, positions: Optional[torch.Tensor] = None,
-                  kv_caches=None, cache_index: Optional[int] = None, prefill: bool = False):
+                  kv_caches=None, cache_index: Optional[int] = None, prefill: bool = False,
+                  use_pallas: bool = True):
     """The decoder's final hidden states (B, S, D) and the caches; the
     cross-attention's k, v of each layer come from ``enc_kv``
     (``cross_kv``)."""
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
     if positions is None:
         positions = torch.arange(S, device=x.device)
     x = x + params["pos_dec"][positions]
@@ -143,20 +148,21 @@ def decode_hidden(params: Params, tokens: torch.Tensor, enc_kv: List[Tuple],
         h = L.layernorm(p["norm1"], x, cfg.norm_eps)
         a, _ = L.attention(p["self_attn"], h, cfg, positions=positions, causal=True,
                            kv_cache=cache, cache_index=cache_index, use_rope=False,
-                           prefill=prefill)
+                           prefill=prefill, use_pallas=use_pallas)
         x = x + a
         h = L.layernorm(p["norm2"], x, cfg.norm_eps)
-        x = x + cross_attention(p["cross_attn"], h, enc_kv[i], cfg)
+        x = x + cross_attention(p["cross_attn"], h, enc_kv[i], cfg, use_pallas=use_pallas)
         h = L.layernorm(p["norm3"], x, cfg.norm_eps)
         x = x + L.gelu_mlp(p["mlp"], h)
     return L.layernorm(params["dec_norm"], x, cfg.norm_eps), kv_caches
 
 
 def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
-            cfg: ArchConfig) -> torch.Tensor:
+            cfg: ArchConfig, *, use_pallas: bool = True) -> torch.Tensor:
     """Full encoder-decoder forward -> decoder logits (tied embeddings)."""
-    enc_out = encode(params, frames, cfg)
-    x, _ = decode_hidden(params, tokens, cross_kv(params, enc_out, cfg), cfg)
+    enc_out = encode(params, frames, cfg, use_pallas=use_pallas)
+    x, _ = decode_hidden(params, tokens, cross_kv(params, enc_out, cfg), cfg,
+                         use_pallas=use_pallas)
     return x @ params["embed"]["table"].T
 
 

@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, nothing of the JAX package, and no
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no
+``msgpack`` or ``ml_dtypes`` (the card's machine has neither), and no
 silent CPU fallback when the card is missing."""
 import os
 import re
@@ -18,7 +19,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 _FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$|,)|from\s+repro(\.|\s))",
+    r"^\s*(import\s+(jax|msgpack|ml_dtypes)\b|from\s+(jax|msgpack|ml_dtypes)\b"
+    r"|import\s+repro(\.|\s|$|,)|from\s+repro(\.|\s))",
     re.MULTILINE,
 )
 
@@ -27,7 +29,8 @@ def test_every_port_module_imports_without_jax_or_repro():
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
-        sys.modules["jax"] = None
+        for refused in ("jax", "msgpack", "ml_dtypes"):
+            sys.modules[refused] = None
 
         class Refuse(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -41,7 +44,8 @@ def test_every_port_module_imports_without_jax_or_repro():
         for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             names.append(m.name)
             importlib.import_module(m.name)
-        assert not any(n == "jax" or n.startswith(("jax.", "repro.")) or n == "repro"
+        assert not any(n in ("jax", "repro", "msgpack", "ml_dtypes")
+                       or n.startswith(("jax.", "repro.", "msgpack.", "ml_dtypes."))
                        for n, mod in sys.modules.items() if mod is not None)
         print(" ".join(names))
     """)
@@ -61,7 +65,11 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "core.requests", "serving.scheduler", "core.oracle", "core.memory.golden",
                 "core.memory.golden_dram", "models.whisper", "configs.deepseek_v2_lite_16b",
                 "configs.arctic_480b", "configs.chameleon_34b", "configs.granite_34b",
-                "configs.granite_20b", "configs.whisper_base"):
+                "configs.granite_20b", "configs.whisper_base", "tree", "training",
+                "training.losses", "training.optimizer", "training.compression",
+                "training.train_step", "checkpoint", "checkpoint.manager",
+                "checkpoint.messagepack", "runtime", "runtime.fault", "runtime.elastic",
+                "runtime.straggler", "launch.train"):
         assert f"repro_torch.{sub}" in names, sub
 
 
@@ -75,10 +83,12 @@ def test_port_sources_do_not_import_jax_or_repro(path):
 
 def test_forbidden_import_pattern_matches_what_it_must():
     for bad in ("import jax", "from jax import numpy", "import repro",
-                "from repro.core import simulate", "    import repro.core"):
+                "from repro.core import simulate", "    import repro.core", "import msgpack",
+                "from msgpack import packb", "import ml_dtypes", "  from ml_dtypes import x"):
         assert _FORBIDDEN.search(bad), bad
     for ok in ("import repro_torch", "from repro_torch.core import simulate",
-               "from .core import simulate"):
+               "from .core import simulate", "from .messagepack import packb",
+               "import msgpack_like"):
         assert not _FORBIDDEN.search(ok), ok
 
 

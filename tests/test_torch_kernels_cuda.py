@@ -983,20 +983,27 @@ def test_smoke_whisper_serving_on_the_card_equals_cpu(cuda):
 
 
 def test_multi_token_cached_attention_refuses_the_card(cuda):
-    """No kernel covers several new tokens against a cache, and plain
-    attention does not run on the card: such a step raises there."""
+    """No kernel covers several new tokens against a cache: such a step runs
+    the reference's plain full-cache attention on the card too, launches no
+    kernel, and equals the same step on the CPU (f32, 2e-5)."""
     from repro_torch.models import get_smoke_config
     from repro_torch.models import layers as TL
 
     cfg = get_smoke_config("stablelm_3b").replace(dtype="float32")
     D, Hq, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.attn_head_dim
-    p = {"wq": torch.zeros(D, Hq * dh, device=cuda), "wk": torch.zeros(D, Hkv * dh, device=cuda),
-         "wv": torch.zeros(D, Hkv * dh, device=cuda), "wo": torch.zeros(Hq * dh, D, device=cuda)}
-    cache = (torch.zeros(2, Hkv, 10, dh, device=cuda), torch.zeros(2, Hkv, 10, dh, device=cuda))
-    reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="cached step of 3 new tokens"):
-        TL.attention(p, torch.zeros(2, 3, D, device=cuda), cfg, kv_cache=cache, cache_index=4)
-    assert not any(launch_counts().values())
+    g = torch.Generator().manual_seed(0)
+    p = {k: torch.randn(shape, generator=g) / 8 for k, shape in (
+        ("wq", (D, Hq * dh)), ("wk", (D, Hkv * dh)), ("wv", (D, Hkv * dh)), ("wo", (Hq * dh, D)))}
+    cache = torch.randn((2, 2, Hkv, 10, dh), generator=g)
+    x = torch.randn((2, 3, D), generator=g)
+    out = {}
+    for where in ("cpu", cuda):
+        reset_launch_counts()
+        got, _ = TL.attention({k: v.to(where) for k, v in p.items()}, x.to(where), cfg,
+                              kv_cache=tuple(cache.to(where).clone()), cache_index=4)
+        assert not any(launch_counts().values())
+        out[str(where)] = got.cpu()
+    torch.testing.assert_close(out[str(cuda)], out["cpu"], atol=2e-5, rtol=2e-5)
 
 
 def test_scan_kernels_launch_from_threads_on_their_own_streams(cuda):
@@ -1277,3 +1284,83 @@ def test_serving_sweep_on_the_card_sharded_equals_cpu(cuda):
     sharded = sweep(wl, tpuv6e(), devices=2, **axes)
     assert sharded.sharded and sharded.device_count == 1
     assert records(sharded) == want
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "deepseek_v2_lite_16b", "mamba2_130m",
+                                  "zamba2_2p7b", "chameleon_34b", "granite_34b",
+                                  "whisper_base"])
+def test_smoke_train_step_on_the_card_equals_cpu(cuda, arch):
+    """One f32 train step from one state on the card and on the CPU: the
+    loss at rtol 1e-5, the grad norm at 1e-4, every gradient leaf at 1e-4
+    of its largest magnitude, the updated parameters within 2 x lr of each
+    other (Adam's first step moves an element by +-lr by its gradient's
+    sign, which two sums of a gradient near zero may differ on). The train
+    step runs the plain route: no kernel launches."""
+    from repro_torch import tree as T
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import get_smoke_config
+    from repro_torch.training import TrainConfig, build_loss_fn, build_train_step, init_state
+    from repro_torch.training.optimizer import lr_schedule
+    from repro_torch.training.train_step import value_and_grad
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    tc = TrainConfig(loss_chunk=16)
+    cpu_state = init_state(0, cfg, tc, device="cpu")
+    states = {"cpu": cpu_state,
+              "cuda": T.unflatten(cpu_state, [t.to(cuda) for t in T.leaves(cpu_state)])}
+    b = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4), 0)
+    if cfg.family == "audio":
+        b["frames"] = (np.random.default_rng(0).standard_normal(
+            (4, cfg.encdec.encoder_seq, cfg.d_model)) * 0.5).astype(np.float32)
+    got = {}
+    reset_launch_counts()
+    for where, st in states.items():
+        batch = {k: torch.from_numpy(v).to(st["step"].device) for k, v in b.items()}
+        _, grads = value_and_grad(build_loss_fn(cfg, tc), st["params"], batch)
+        st, m = build_train_step(cfg, tc)(st, batch)
+        got[where] = (float(m["loss"]), float(m["grad_norm"]),
+                      [g.cpu() for g in T.leaves(grads)], [p.cpu() for p in T.leaves(st["params"])])
+    assert not any(launch_counts().values())
+    (l_c, n_c, g_c, p_c), (l_g, n_g, g_g, p_g) = got["cpu"], got["cuda"]
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c) and abs(n_g - n_c) <= 1e-4 * n_c
+    for x, y in zip(g_c, g_g):
+        torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-4 * float(x.abs().max()))
+    lr1 = float(lr_schedule(tc.adamw, torch.tensor(1)))
+    for x, y in zip(p_c, p_g):
+        torch.testing.assert_close(y, x, rtol=1e-6, atol=2 * lr1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "zamba2_2p7b"])
+def test_cached_step_of_several_tokens_on_the_card_equals_cpu(cuda, arch, dtype):
+    """After a prefill of 24, a step of 4 new tokens (the plain full-cache
+    attention and sequential SSD steps, K4 its one launch) on the card
+    against the CPU: f32 2e-4 / 2e-3, bf16 8e-2."""
+    from repro_torch.data import LMDataConfig, lm_batch
+    from repro_torch.models import family_module, get_smoke_config
+    from repro_torch.models import transformer as TT
+
+    cfg = get_smoke_config(arch).replace(dtype=dtype)
+    mod = family_module(cfg)
+    on_cpu = mod.init_lm(cfg, device="cpu")
+    on_card = mod.init_lm(cfg, device=cuda)
+    on_card.load_state_dict(on_cpu.state_dict())
+    toks = lm_batch(LMDataConfig(vocab=cfg.vocab, seq_len=28, global_batch=2), 1)["tokens"]
+    out = {}
+    with torch.inference_mode():
+        for where, params in (("cpu", on_cpu), ("cuda", on_card)):
+            tt = torch.from_numpy(toks).to(params["embed"]["table"].device)
+            if cfg.family == "hybrid":
+                _, caches = mod.prefill_with_state(params, tt[:, :24], cfg, max_seq=40)
+            else:
+                caches = TT.init_kv_cache(cfg, 2, 40, device=tt.device)
+                _, caches = TT.prefill(params, tt[:, :24], caches, cfg)
+            reset_launch_counts()
+            logits, _ = mod.decode_step(params, tt[:, 24:], 24, caches, cfg)
+            counts = launch_counts()
+            want = {"embedding_gather": 1} if where == "cuda" else {}
+            assert counts == {k: want.get(k, 0) for k in counts}
+            out[where] = logits.cpu()
+    assert out["cuda"].shape == (2, 4, cfg.vocab)
+    tol = dict(atol=2e-4, rtol=2e-3) if dtype == "float32" else dict(atol=8e-2, rtol=0.0)
+    torch.testing.assert_close(out["cuda"].float(), out["cpu"].float(), **tol)

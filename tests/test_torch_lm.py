@@ -223,14 +223,17 @@ def test_cache_write_clamps_like_dynamic_update_slice(rng):
 
 
 def test_multi_token_cached_step_runs_only_on_the_cpu(rng):
-    """Several new tokens against a cache take plain torch attention, which
-    no kernel covers: off the CPU (here the meta device) that raises."""
+    """Several new tokens against a cache take plain torch attention (the
+    reference's jnp ``_decode_attention``), which no kernel covers: it runs
+    on any device, here the meta device, and launches nothing."""
     _, cfg, _, tp = _attn_setup(rng)
     meta = {k: v.to("meta") for k, v in tp.items()}
     cache = (torch.zeros(2, cfg.n_kv_heads, 10, cfg.attn_head_dim, device="meta"),) * 2
-    with pytest.raises(NotImplementedError, match="cached step of 3 new tokens"):
-        TL.attention(meta, torch.zeros(2, 3, cfg.d_model, device="meta"), cfg,
-                     kv_cache=cache, cache_index=4)
+    reset_launch_counts()
+    out, _ = TL.attention(meta, torch.zeros(2, 3, cfg.d_model, device="meta"), cfg,
+                          kv_cache=cache, cache_index=4)
+    assert out.shape == (2, 3, cfg.d_model) and out.device.type == "meta"
+    assert not any(launch_counts().values())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
