@@ -188,6 +188,20 @@ passed over):
      the card against the CPU (loss, grad norm, gradients, updated
      parameters); a cached step of 4 new tokens after a prefill (stablelm,
      zamba2; f32 and bf16) on the card against the CPU;
+ 13. the last slice on the card: (a) D3, the per-access DRAM scan with
+     arrival times, bitwise against its plain version at 4, 16 and 32 rows
+     x L of 1, 100 and 2,048 (8 banks; a non-zero interval, start, both,
+     fractional values), then ``simulate_dram`` with (interval 0.5) and
+     (interval 2.0, start 1,000) over phase 4's lru/stack miss trace (both
+     batches, 3,254,576 lines), one D3 launch each and no other kernel,
+     equal to the JAX package's ``REF_D3``; D3 at that width against its
+     plain version, timed (warm and L2 flushed) beside its chain bound;
+     (b) ``ring_matmul`` and ``psum_matmul`` on a one-rank NCCL group at
+     stablelm-3b's MLP down projection (x 8,192 x 6,912 @ w 6,912 x 2,560,
+     f32 and bf16) against ``x @ w`` at 1e-5 / 8e-2, timed beside
+     ``torch.matmul``; (c) the smoke stablelm-3b train state saved and
+     restored with ``shardings=`` (``param_specs`` on a (1, 1) mesh of the
+     card): every leaf a DTensor on the card, bitwise what was saved;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
@@ -201,7 +215,8 @@ launches in the phase-9 runs of ``CLUSTER_RUNS``, D1's in every run on
 ``dram_scan[spm 4 cores]`` only, ``cluster_launches``; K1, K2, D1 and D2
 with their launches in each phase-10 run, ``serving_launches``, on
 ``cache_scan[lru]``, ``stack_distance[lru]``, ``dram_scan[spm]`` and
-``rrip_scan[srrip]``) and, last,
+``rrip_scan[srrip]``; D3's launches in phase 13's first ``simulate_dram``)
+and, last,
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
 """
@@ -373,6 +388,23 @@ REF_SERVING = {
         p99_cycles=97629.02, batch_cycles='97066.5498046875', dram_cycles='95634.24609375',
         cache_hits=3212680),
 }
+# Phase 13 (a): D3, ``simulate_dram`` with arrival times over phase 4's
+# lru/stack miss trace (both batches as one trace, 3,254,576 lines). The
+# JAX package's results on the CPU (``repro.core.memory.dram.simulate_dram``
+# on the same lines), by (issue interval, start cycle): (finish_cycle,
+# total_latency_cycles, row_hits, row_misses, accesses).
+D3_ARRIVALS = ((0.5, 0.0), (2.0, 1000.0))
+REF_D3 = {(0.5, 0.0): (1637923.0, 94614490752.0, 2847804, 406772, 3254576),
+          (2.0, 1000.0): (6519970.0, 375807299200.0, 2847804, 406772, 3254576)}
+# D3 against its plain version at small sizes: rows x slots, 8 banks, and
+# (interval, start) pairs covering each arrival form.
+D3_SMALL_ROWS = (4, 16, 32)
+D3_SMALL_L = (1, 100, 2048)
+D3_SMALL_ARRIVALS = ((0.5, 0.0), (0.0, 1000.0), (2.0, 1000.0), (0.37, 13.3))
+# Phase 13 (b): stablelm-3b's MLP down projection, x (tokens, d_ff) @ w
+# (d_ff, d_model), for a batch of 8 x 1,024 tokens.
+CMM_SHAPE = (8 * 1024, 6912, 2560)
+CMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-2}
 # The serving sweep of phase 10: these policies x steady_off and
 # overload_storm with their request counts cut to SWEEP_SERVING_REQUESTS.
 SWEEP_SERVING_POLICIES = ("spm", "lru")
@@ -385,6 +417,8 @@ KERNEL_SOURCES = {
     "cache_scan": ("src/repro_torch/csrc/cache_scan.cu", "src/repro/kernels/cache_scan.py:44"),
     "stack_distance": ("src/repro_torch/csrc/stack_distance.cu", "src/repro/kernels/stack_distance.py:31"),
     "dram_scan": ("src/repro_torch/csrc/dram_scan.cu", "src/repro/core/memory/dram.py:315"),
+    "dram_scan_full": ("src/repro_torch/csrc/dram_scan_full.cu",
+                       "src/repro/core/memory/dram.py:259"),
     "rrip_scan": ("src/repro_torch/csrc/rrip_scan.cu", "src/repro/core/memory/rrip.py:137"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:36"),
@@ -2452,6 +2486,181 @@ def serving_phase(dev, K, wl, etrace):
     return launches
 
 
+def d3_chain(bk_m: np.ndarray, va_m: np.ndarray) -> int:
+    """Dependent f32 operations on D3's longest row: two an access (the max
+    with the bus-free cycle and the bus add), one more where it follows a
+    valid access to its own bank. There the bank-free and bus-free cycles
+    are both the step before's ``done``, so ``max(a, done) + occ`` is at
+    least ``done`` and the max with the bus-free cycle is exact: the chain
+    is the max with the arrival, the activation add and the bus add."""
+    same = np.zeros_like(va_m)
+    for r in range(bk_m.shape[0]):
+        b = bk_m[r][va_m[r]]
+        same[r, :b.size] = np.concatenate(([False], b[1:] == b[:-1]))
+    return int((2 * va_m.sum(axis=1) + same.sum(axis=1)).max())
+
+
+def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
+    """Phase 13: (a) D3 against its plain version, small and at full width,
+    then ``simulate_dram`` with arrivals over phase 4's lru/stack miss trace
+    against the JAX package's ``REF_D3``; (b) the collective matmul on a
+    one-rank NCCL group at stablelm-3b's MLP down projection; (c) the smoke
+    stablelm-3b train state saved and restored with ``shardings=`` onto a
+    (1, 1) mesh of the card. Returns D3's report entry."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.core.memory.dram import DramModel, arrival_rows, simulate_dram
+    from repro_torch.core.memory.system import MemorySystem
+    from repro_torch.distributed import param_specs, tree_shardings
+    from repro_torch.distributed.collective_matmul import psum_matmul, ring_matmul
+    from repro_torch.kernels.dram_scan import dram_scan_full, dram_scan_full_plain
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_smoke_config
+    from repro_torch.training import TrainConfig, init_state
+
+    print(f"[13] {name_power}", flush=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)     # > the 50 MB L2
+    # (a) D3, small: every (rows, slots) x arrival form, bitwise
+    rng = np.random.default_rng(13)
+    for R in D3_SMALL_ROWS:
+        for L in D3_SMALL_L:
+            for interval, start in D3_SMALL_ARRIVALS:
+                valid = rng.random((R, L)) < 0.85
+                valid[:, L - L // 4:] = False
+                args = [torch.from_numpy(a).to(dev) for a in (
+                    rng.integers(0, 8, size=(R, L)).astype(np.int32),
+                    rng.integers(0, 3, size=(R, L)).astype(np.int32),
+                    (start + np.arange(R * L, dtype=np.float32).reshape(R, L) * interval
+                     ).astype(np.float32), valid)]
+                got = dram_scan_full(*args, 8, 22.0, 44.0, 0.6016)
+                want = dram_scan_full_plain(*args, 8, 22.0, 44.0, 0.6016)
+                if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
+                    fail(f"dram_scan_full differs from its plain version at (R, L)={(R, L)}, "
+                         f"interval {interval}, start {start}")
+    print(f"[13] dram_scan_full: bitwise equal to plain at rows {D3_SMALL_ROWS} x L "
+          f"{D3_SMALL_L}, 8 banks, (interval, start) {D3_SMALL_ARRIVALS}", flush=True)
+
+    # (a) D3 at full width: the main path, then its kernel apart
+    t0 = time.perf_counter()
+    lines = MemorySystem.from_hardware(hw.with_policy("lru"), "cuda").prepare_embedding(
+        etrace).request.lines
+    dm = DramModel.from_hardware(hw)
+    print(f"[13] lru/stack miss trace: {lines.size} lines in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    launches = {}
+    for interval, start in D3_ARRIVALS:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = simulate_dram(lines, dm, issue_interval_cycles=interval, start_cycle=start)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        launches[(interval, start)] = counts["dram_scan_full"]
+        if counts != {k: int(k == "dram_scan_full") for k in counts}:
+            fail(f"simulate_dram({interval}, {start}): launches {counts}; expected one of D3")
+        got = (res.finish_cycle, res.total_latency_cycles, res.row_hits, res.row_misses,
+               res.accesses)
+        if got != REF_D3[(interval, start)]:
+            fail(f"simulate_dram({interval}, {start}) gave {got}; the reference "
+                 f"{REF_D3[(interval, start)]}")
+        print(f"[13] simulate_dram(interval {interval}, start {start}): "
+              f"{dataclasses.asdict(res)} equal to REF_D3; wall {wall!r} s; launches "
+              f"{counts['dram_scan_full']} of D3", flush=True)
+    st = arrival_rows(lines, dm, *D3_ARRIVALS[0])
+    args = [torch.from_numpy(st[k]).to(dev) for k in ("bk_m", "row_m", "ar_m", "va_m")]
+    scal = (dm.banks_per_channel, float(dm.t_cas), float(dm.t_rp + dm.t_rcd),
+            float(dm.line_bytes / dm.chan_bytes_per_cycle))
+    got = dram_scan_full(*args, *scal)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want = dram_scan_full_plain(*args, *scal)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
+        fail("dram_scan_full differs bitwise from its plain version at full width")
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    k_ms = time_ms(lambda: dram_scan_full(*args, *scal), 10)
+    cold_ms = time_cold_ms(lambda: dram_scan_full(*args, *scal), 10, flush)
+    R, L = args[0].shape
+    chain = d3_chain(st["bk_m"], st["va_m"])
+    n_valid = int(st["va_m"].sum())
+    print(f"[13] dram_scan_full: bitwise equal to plain at (R, L)={(R, L)} (longest channel "
+          f"{L} accesses, {n_valid} in all); kernel {k_ms!r} ms ({cold_ms!r} L2 flushed), "
+          f"{k_ms * 1e6 / L!r} ns per access, {chain * f32_op_ms / k_ms!r} of its chain bound "
+          f"{chain * f32_op_ms!r} ms ({chain} dependent f32 ops x {f32_op_ms * 1e6:.4f} ns); "
+          f"plain {plain_ms:.1f} ms", flush=True)
+    entry = dict(kind="dram_scan_full", err=err, ms=k_ms, plain_ms=plain_ms,
+                 nbytes=R * L * (4 + 4 + 4 + 1) + R * L * (4 + 4 + 1),
+                 ops=8 * n_valid, lat_ms=chain * f32_op_ms, shapes=[(R, L)],
+                 launches=launches[D3_ARRIVALS[0]],
+                 library_none="no one PyTorch call computes it")
+    del flush, args, got, want
+
+    # (b) the collective matmul on a one-rank NCCL group
+    store_dir = tempfile.TemporaryDirectory()
+    store = dist.FileStore(str(Path(store_dir.name) / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        M, Kd, N = CMM_SHAPE
+        gen = torch.Generator(device=dev).manual_seed(13)
+        for dtype, tol in CMM_TOL.items():
+            x = torch.randn(M, Kd, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(Kd, N, generator=gen, device=dev) / math.sqrt(Kd)).to(dtype)
+            ref = x @ w
+            times = {}
+            for name, fn in (("ring_matmul", ring_matmul), ("psum_matmul", psum_matmul)):
+                y = fn(x, w)
+                diff = max_abs_err(y, ref)
+                if tuple(y.shape) != (M, N) or not diff <= tol:
+                    fail(f"{name} {dtype}: shape {tuple(y.shape)}, max abs diff {diff!r} > {tol}")
+                times[name] = (time_ms(lambda fn=fn: fn(x, w), 10), diff)
+            mm_ms = time_ms(lambda: x @ w, 10)
+            # the ring's tail on its own: the all-gather of the reduced chunk
+            # and the concatenation, what a one-rank ring adds to the product
+            gathered = [torch.empty_like(ref)]
+
+            def ring_tail():
+                dist.all_gather(gathered, ref)
+                return torch.cat(gathered, dim=-1)
+            gather_ms = time_ms(ring_tail, 10)
+            print(f"[13] {dtype} x {tuple(x.shape)} @ w {tuple(w.shape)} on a one-rank NCCL "
+                  f"group: ring_matmul {times['ring_matmul'][0]!r} ms (max abs diff "
+                  f"{times['ring_matmul'][1]!r}), psum_matmul {times['psum_matmul'][0]!r} ms "
+                  f"({times['psum_matmul'][1]!r}), torch.matmul {mm_ms!r} ms, the ring's "
+                  f"all-gather + concatenation alone {gather_ms!r} ms; tolerance {tol}",
+                  flush=True)
+
+        # (c) the smoke stablelm-3b train state restored onto a (1, 1) mesh
+        cfg = get_smoke_config("stablelm_3b")
+        state = init_state(0, cfg, TrainConfig(), device=dev)
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(CheckpointConfig(directory=tmp, async_save=False))
+            mgr.save(1, state)
+            t0 = time.perf_counter()
+            step, _, restored = mgr.restore(
+                target_tree=state, shardings=tree_shardings(mesh, param_specs(state, mesh)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got, want = T.leaves(restored), T.leaves(state)
+        for (name, a), b in zip(T.flatten_with_paths(restored), want):
+            if not isinstance(a, DTensor) or a.device.type != "cuda" or a.device_mesh is not mesh:
+                fail(f"restore(shardings=): {name} is {type(a).__name__} on {a.device}")
+            if not bitwise_equal(a.to_local(), b):
+                fail(f"restore(shardings=): {name} differs from what was saved")
+        print(f"[13] smoke stablelm-3b state: {len(got)} leaves restored with shardings= onto "
+              f"{mesh}, each a DTensor on the card, bitwise what was saved (step {step}, "
+              f"{wall!r} s)", flush=True)
+    finally:
+        dist.destroy_process_group()
+        store_dir.cleanup()
+    return entry
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false; this script needs an NVIDIA GPU")
@@ -2512,7 +2721,7 @@ def main() -> None:
     print(f"[2] built {sorted(p.name for p in libs.values())} in {build_s:.3f} s "
           f"({' | '.join(regs)})", flush=True)
     for lib, word in (("cache_scan", ""), ("stack_distance", ""), ("dram_scan", ""),
-                      ("rrip_scan", ""), ("flash_attention", ""), ("mamba2_ssd", ""),
+                      ("dram_scan_full", ""), ("rrip_scan", ""), ("flash_attention", ""), ("mamba2_ssd", ""),
                       ("embedding_bag", "")):
         log = libs[lib].with_suffix(".log")
         if log.exists():
@@ -3309,6 +3518,12 @@ def main() -> None:
     train_phase(dev, K, name_power)
     print(f"[12] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 13. D3, the collective matmul and the sharded restore ---------------
+    t0 = time.perf_counter()
+    entries["dram_scan_full[lru arrivals]"] = distributed_phase(
+        dev, K, name_power, hw, etrace, f32_op_ms)
+    print(f"[13] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),
                 "cache_scan[fifo]": ("fifo", "pallas"), "stack_distance[lru]": ("lru", "stack_pallas"),
@@ -3320,7 +3535,7 @@ def main() -> None:
             e["launches"] = launches[main_run[name]][e["kind"]]
         elif runs:
             e["launches"] = cluster_launches[runs[0]][e["kind"]]
-        else:
+        elif "launches" not in e:
             e["launches"] = dlrm_launches[e["kind"]]
         if name in ("cache_scan[lru]", "stack_distance[lru]", "dram_scan[spm]",
                     "rrip_scan[srrip]"):

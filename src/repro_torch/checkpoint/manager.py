@@ -14,9 +14,10 @@ other).
 
 Leaves are named and ordered as the reference's ``_flatten_with_paths``
 names them (``repro_torch.tree``): dict keys sorted, NamedTuple fields in
-order, tuple entries by index. ``restore`` puts them on a torch device; the
-reference's ``shardings=`` (restore onto another mesh) waits for the port's
-device mesh.
+order, tuple entries by index. ``restore`` puts them on a torch device, or,
+with ``shardings=`` (a tree of ``distributed.sharding.NamedSharding``, as
+``tree_shardings`` builds), lays each out as a DTensor on its sharding's
+mesh: restore onto another topology.
 """
 from __future__ import annotations
 
@@ -156,13 +157,20 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None, *, target_tree: Any = None,
-                device=None):
+                device=None, shardings: Any = None):
         """Load ``step`` (default the latest). With ``target_tree`` (the same
         structure) returns (step, extra, the tree with the loaded leaves),
         each leaf on ``device`` or, by default, its target leaf's device,
         names, dtypes and shapes checked against the target's; without,
         {"step", "extra", "leaves" (tensors on ``device``, default the
-        CPU), "names"}."""
+        CPU), "names"}. ``shardings`` (with ``target_tree``, not with
+        ``device``): a tree of the target's structure whose leaves are
+        ``NamedSharding``s; each leaf is ``distribute_tensor``ed onto its
+        sharding's mesh and placements (cross-topology resharding)."""
+        if shardings is not None and device is not None:
+            raise ValueError("restore takes device= or shardings=, not both")
+        if shardings is not None and target_tree is None:
+            raise ValueError("restore(shardings=) needs target_tree=")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -193,5 +201,15 @@ class CheckpointManager:
             if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
                 raise ValueError(f"{name}: checkpoint {got.dtype} {tuple(got.shape)}, target "
                                  f"{want.dtype} {tuple(want.shape)}")
-            out.append(got.to(want.device if device is None else device))
+            out.append(got)
+        if shardings is not None:
+            from ..distributed.sharding import distribute
+
+            shard_flat = T.leaves(shardings)
+            if len(shard_flat) != len(out):
+                raise ValueError(f"{len(shard_flat)} shardings for {len(out)} leaves")
+            out = [distribute(t, sh) for t, sh in zip(out, shard_flat)]
+        else:
+            out = [t.to(want.device if device is None else device)
+                   for t, (_, want) in zip(out, flat)]
         return meta["step"], meta["extra"], T.unflatten(target_tree, out)

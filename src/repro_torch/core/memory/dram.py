@@ -26,9 +26,14 @@ per-segment aggregates are reduced on the host in original access order.
 ``estimate_dram_fast`` is a closed-form vectorized estimate (per-channel bus
 occupancy vs per-bank row-op serialization) used for very long traces.
 
-``simulate_dram`` with a non-zero issue interval or start cycle needs the
-reference's per-access scan with arrival times (``_scan_channel_full``, D3),
-which is not ported yet: it raises ``NotImplementedError``.
+``simulate_dram`` with a non-zero issue interval or start cycle keeps the
+per-access scan with an arrival time per access (chunk compression assumes
+the bus is the only arrival constraint): ``dram_scan_full`` (D3), one
+kernel launch per call on the card, its plain torch version on the CPU,
+over each channel's FR-FCFS-ordered accesses padded to the longest
+channel. Its per-channel latency sums are added in the order XLA's CPU
+backend adds the reference's (``xla_row_sum``), so every field of the
+result is bitwise the reference's.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ...kernels.dram_scan import dram_scan_chunked
+from ...kernels.dram_scan import dram_scan_chunked, dram_scan_full
 from ..hardware import HardwareConfig
 from ...device import DeviceLike, resolve_device
 from ..profiling import is_active as _profiling_active, stage
@@ -276,20 +281,17 @@ def simulate_dram(
     controller queue is always full (memory-bound phase), the usual regime for
     embedding gathers. That default (zero issue interval, zero start cycle)
     routes through the chunked one-segment engine, the same code path as the
-    segmented/contended timing. Non-zero arrivals need the per-access scan
-    with arrival times (the reference's ``_scan_channel_full``, queued as D3
-    in ROADMAP.md), which is not ported yet: they raise.
+    segmented/contended timing. Non-zero arrivals keep the per-access scan
+    (D3, ``dram_scan_full``: one launch on ``device="cuda"``), bitwise the
+    reference's ``_scan_channel_full`` route.
     """
     lines = np.asarray(lines, dtype=np.int64).reshape(-1)
     n = lines.size
     if n == 0:
         return DramResult(start_cycle, 0.0, 0, 0, 0)
     if issue_interval_cycles != 0.0 or start_cycle != 0.0:
-        raise NotImplementedError(
-            "simulate_dram with a non-zero issue interval or start cycle needs "
-            "the per-access DRAM scan with arrival times (D3), which is not "
-            "ported yet (see ROADMAP.md)"
-        )
+        return _simulate_dram_arrivals(lines, model, issue_interval_cycles, start_cycle,
+                                       resolve_device(device))
     results, _ = simulate_dram_contended(
         lines,
         np.zeros(n, dtype=np.int64),
@@ -300,6 +302,84 @@ def simulate_dram(
         device=device,
     )
     return results[0]
+
+
+# XLA's CPU backend rewrites a long reduction into windows of this many
+# elements (its tree-reduction pass), added in sequence, then reduces the
+# window sums the same way until at most one window is left.
+_XLA_REDUCE_WINDOW = 32
+
+
+def xla_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Row sums of a ``(R, L)`` f32 tensor, added in the order in which the
+    reference's ``lat.sum(axis=-1)`` adds them under ``jit`` on the CPU.
+
+    While a row is longer than 32, it is padded with zeros to a multiple of
+    32 (half the padding in front, the larger half behind, as XLA pads the
+    reduce-window it emits) and each window of 32 is summed in sequence from
+    0; the last row of at most 32 is summed in sequence. Every add is one
+    rounded f32 add, so the result is bitwise XLA's on any device.
+    """
+    w = _XLA_REDUCE_WINDOW
+    while x.shape[1] > w:
+        R, L = x.shape
+        n = -(-L // w) * w
+        lo = (n - L) // 2
+        x = torch.nn.functional.pad(x, (lo, n - L - lo)).view(R, n // w, w)
+        acc = torch.zeros(x.shape[:2], dtype=torch.float32, device=x.device)
+        for j in range(w):
+            acc = acc + x[:, :, j]
+        x = acc
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def arrival_rows(lines: np.ndarray, model: DramModel, issue_interval_cycles: float,
+                 start_cycle: float) -> dict:
+    """The reference's host preparation of the per-access scan: FR-FCFS
+    order, each channel's accesses in service order padded to the longest
+    channel's length ``L``, arrivals ``start + i * interval`` in f32 (two
+    roundings, as numpy computes them). Returns the ``(C, L)`` arrays
+    ``bk_m``, ``row_m`` (int32), ``ar_m`` (f32) and ``va_m`` (bool)."""
+    n = lines.size
+    ch, bk, row = model.decompose(lines)
+    arrive = start_cycle + np.arange(n, dtype=np.float32) * issue_interval_cycles
+    C = model.channels
+    blk = lines // model.lines_per_block
+    order = _frfcfs_order(ch, bk, blk, model.banks_per_channel, C)
+    ch_s = ch[order]
+    bounds = np.searchsorted(ch_s, np.arange(C + 1))
+    L = max(1, int(np.max(bounds[1:] - bounds[:-1])))
+    pos = np.arange(n) - bounds[ch_s]
+    out = {"bk_m": np.zeros((C, L), dtype=np.int32), "row_m": np.zeros((C, L), dtype=np.int32),
+           "ar_m": np.zeros((C, L), dtype=np.float32), "va_m": np.zeros((C, L), dtype=bool)}
+    out["bk_m"][ch_s, pos] = bk[order]
+    out["row_m"][ch_s, pos] = row[order]
+    out["ar_m"][ch_s, pos] = arrive[order]
+    out["va_m"][ch_s, pos] = True
+    return out
+
+
+def _simulate_dram_arrivals(lines, model, issue_interval_cycles, start_cycle, dev):
+    n = lines.size
+    with stage("dram"):
+        st = arrival_rows(lines, model, issue_interval_cycles, start_cycle)
+        args = [torch.from_numpy(st[k]).to(dev) for k in ("bk_m", "row_m", "ar_m", "va_m")]
+        done, lat, hits = dram_scan_full(
+            *args, model.banks_per_channel, float(model.t_cas),
+            float(model.t_rp + model.t_rcd), float(model.line_bytes / model.chan_bytes_per_cycle))
+        lat_rows = xla_row_sum(lat).cpu().numpy()
+        done_max = float(done.max())
+        row_hits = int(hits.sum())
+    return DramResult(
+        finish_cycle=done_max + model.base_latency,          # done incl. CAS
+        total_latency_cycles=float(lat_rows.sum()) + model.base_latency * n,
+        row_hits=row_hits,
+        row_misses=n - row_hits,
+        accesses=n,
+    )
 
 
 def simulate_dram_segmented(

@@ -5,6 +5,7 @@
 | K1 cache scan | ``cache_scan.cache_scan_groups`` | ``kernels/cache_scan.py:_cache_scan_kernel`` |
 | K2 stack distance | ``stack_distance.stack_distance_groups`` | ``kernels/stack_distance.py:_stack_distance_kernel`` |
 | D1 DRAM event scan | ``dram_scan.dram_scan_chunked`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_chunked`` |
+| D3 DRAM scan with arrivals | ``dram_scan.dram_scan_full`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_full`` |
 | D2 FIFO / SRRIP row scans | ``rrip_scan.rrip_scan_flat`` | the ``lax.scan`` s of ``core/memory/rrip.py:_fifo_scan_rows`` and ``_srrip_scan_rows`` |
 | K3 embedding bag | ``embedding_bag.embedding_bag_kernel`` | ``kernels/embedding_bag.py:_bag_kernel`` |
 | K4 row gather | ``embedding_bag.embedding_gather_kernel`` | ``kernels/embedding_bag.py:_gather_kernel`` |
@@ -30,7 +31,7 @@ from ._build import COUNT_LOCK
 
 from .cache_scan import cache_scan_groups
 from .decode_attention import decode_attention_kernel
-from .dram_scan import dram_scan_chunked
+from .dram_scan import dram_scan_chunked, dram_scan_full
 from .embedding_bag import (
     embedding_bag_kernel,
     embedding_gather_kernel,
@@ -45,6 +46,7 @@ KERNELS = {
     "cache_scan": cache_scan_groups,
     "stack_distance": stack_distance_groups,
     "dram_scan": dram_scan_chunked,
+    "dram_scan_full": dram_scan_full,
     "rrip_scan": rrip_scan_flat,
     "embedding_bag": embedding_bag_kernel,
     "embedding_gather": embedding_gather_kernel,

@@ -1,4 +1,4 @@
-"""D1: the chunked DRAM event-scan kernel and its plain torch version.
+"""D1 and D3: the DRAM event-scan kernels and their plain torch versions.
 
 Replaces the ``lax.scan`` of ``_scan_channel_chunked`` in
 ``repro/core/memory/dram.py``. That is a scan, not a Pallas kernel, but it
@@ -16,6 +16,15 @@ kernel is bound by latency (Lc dependent steps per row), not bytes; its
 source says how it keeps each step short: loader warps stage tiles of
 every row in shared memory ahead of the one compute warp, whose lanes walk
 the rows.
+
+D3 (``dram_scan_full``, ``csrc/dram_scan_full.cu``) replaces the
+``lax.scan`` of ``_scan_channel_full``: the per-access scan with an arrival
+time per access, which ``simulate_dram`` takes when its issue interval or
+start cycle is non-zero. One row is one channel's service-ordered slots,
+one access a step; per slot it emits the completion (``done + t_cas``),
+the latency (that minus the arrival) and the row hit. D1's layout, one
+access a step and ``max(arrival, bank_free)`` where D1 has ``max(0, .)``;
+``dram_scan_full_plain`` is its CPU version.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ from ._build import check_launch, check_tensors, count_launch, load_library, on_
 # caps k_max at 8).
 MAX_BANKS = 192
 MAX_K = 8
+# D3's stages hold five words a slot (D1's four), so fewer banks fit.
+FULL_MAX_BANKS = 160
 
 
 def _f32(x: float) -> float:
@@ -152,3 +163,111 @@ def dram_scan_chunked(bkc, rowc, kc, valid, banks: int, k_max: int,
 
 
 dram_scan_chunked.launches = 0
+
+
+def dram_scan_full_plain(bk, row, arrive, valid, banks: int, t_cas: float,
+                         t_row_act: float, bus_cycles_per_line: float):
+    """Plain torch per-access scan, a loop over L vectorised over the R rows.
+
+    Per row ``banks + 2`` bank entries: the banks, then two spares that
+    stand in for the kernel's checks. A bank outside ``[0, banks)`` reads
+    the first, never written (an open row no int32 row equals, a bank-free
+    cycle of -inf): it never hits and sees no bank-free cycle. Steps that
+    change nothing (an invalid slot, such a bank) write the second. What
+    does not depend on the state (the slots read and written, the outputs'
+    masks and the latency subtraction) is computed for all steps at once.
+    Returns ``(done, lat, hit)`` of shape ``(R, L)``, in the reference's
+    exact op order.
+    """
+    R, L = bk.shape
+    dev = bk.device
+    if L == 0:
+        empty = torch.zeros((R, 0), dtype=torch.float32, device=dev)
+        return empty, empty.clone(), torch.zeros((R, 0), dtype=torch.bool, device=dev)
+
+    def scalar(x):
+        return torch.tensor(_f32(x), dtype=torch.float32, device=dev)
+
+    cas, t_row, bus = scalar(t_cas), scalar(t_row_act), scalar(bus_cycles_per_line)
+    zero = scalar(0.0)
+    inb = (bk >= 0) & (bk < banks)
+    read = torch.where(inb, bk.long(), banks)
+    write = torch.where(valid & inb, read, banks + 1)
+    # step-major copies: one contiguous (R, 1) column a step
+    read_t, write_t = read.t().unsqueeze(2).contiguous(), write.t().unsqueeze(2).contiguous()
+    row_t = row.t().unsqueeze(2).to(torch.int64).contiguous()
+    arrive_t, valid_t = arrive.t().contiguous(), valid.t().contiguous()
+    open_row = torch.full((R, banks + 2), -1, dtype=torch.int64, device=dev)
+    open_row[:, banks] = -(1 << 40)
+    bank_free = torch.zeros((R, banks + 2), dtype=torch.float32, device=dev)
+    bank_free[:, banks] = float("-inf")
+    bus_free = torch.zeros(R, dtype=torch.float32, device=dev)
+    done_steps, hit_steps = [], []
+    for i in range(L):
+        s, w = read_t[i], write_t[i]
+        row_hit = open_row.gather(1, s)[:, 0] == row_t[i, :, 0]
+        occ = torch.where(row_hit, zero, t_row)
+        bank_avail = torch.maximum(arrive_t[i], bank_free.gather(1, s)[:, 0]) + occ
+        done = torch.maximum(bank_avail, bus_free) + bus
+        open_row.scatter_(1, w, row_t[i])
+        bank_free.scatter_(1, w, done[:, None])
+        bus_free = torch.where(valid_t[i], done, bus_free)
+        done_steps.append(done)
+        hit_steps.append(row_hit)
+    out = torch.stack(done_steps, dim=1) + cas
+    return (torch.where(valid, out, zero), torch.where(valid, out - arrive, zero),
+            torch.stack(hit_steps, dim=1) & valid)
+
+
+def _full_launcher():
+    fn = load_library("dram_scan_full").dram_scan_full_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
+        + [ctypes.c_void_p] * 4
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dram_scan_full(bk, row, arrive, valid, banks: int, t_cas: float, t_row_act: float,
+                   bus_cycles_per_line: float):
+    """Per-channel scan over service-ordered accesses with arrival times.
+
+    ``bk``/``row`` are int32 ``(R, L)`` (each slot's bank and row),
+    ``arrive`` f32 ``(R, L)``, ``valid`` bool ``(R, L)``; the arguments of
+    the reference's ``_scan_channel_full``. The scalar timings are rounded
+    to f32 once here. Returns ``(done, lat, hit)`` ``(R, L)`` (f32, f32,
+    bool) on the inputs' device: the CUDA kernel for CUDA tensors,
+    ``dram_scan_full_plain`` for CPU tensors. The kernel takes
+    ``1 <= banks <= FULL_MAX_BANKS``; a CUDA call outside it, or a failed
+    build or launch, raises.
+    """
+    if bk.dim() != 2 or not (bk.shape == row.shape == arrive.shape == valid.shape):
+        raise ValueError("dram_scan_full: bk, row, arrive and valid must share one (R, L) shape")
+    check_tensors("dram_scan_full", (bk, torch.int32), (row, torch.int32),
+                  (arrive, torch.float32), (valid, torch.bool))
+    if bk.device.type == "cpu":
+        return dram_scan_full_plain(bk, row, arrive, valid, banks, t_cas, t_row_act,
+                                    bus_cycles_per_line)
+    if not 1 <= banks <= FULL_MAX_BANKS:
+        raise ValueError(f"dram_scan_full takes 1 <= banks <= {FULL_MAX_BANKS}; got {banks}")
+    R, L = bk.shape
+    dev = bk.device
+    done = torch.empty((R, L), dtype=torch.float32, device=dev)
+    lat = torch.empty((R, L), dtype=torch.float32, device=dev)
+    hit = torch.empty((R, L), dtype=torch.bool, device=dev)
+    if R == 0 or L == 0:
+        return done, lat, hit
+    with on_device(dev):
+        err = _full_launcher()(
+            bk.data_ptr(), row.data_ptr(), arrive.data_ptr(), valid.data_ptr(), R, L,
+            int(banks), _f32(t_cas), _f32(t_row_act), _f32(bus_cycles_per_line),
+            done.data_ptr(), lat.data_ptr(), hit.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    check_launch("dram_scan_full", err)
+    count_launch(dram_scan_full)
+    return done, lat, hit
+
+
+dram_scan_full.launches = 0

@@ -19,7 +19,8 @@ differentiates. The products the reference computes outside Pallas stay
 plain torch on every device: a cached step of several new tokens, MLA's
 absorbed decode and the MoE's router, dispatch, expert FFNs and combine.
 The reference's sharding hints (``shard_attention_q``, ``constrain``) do
-nothing on one device and are dropped.
+nothing on one device and are not called here: ``distributed.sharding``
+ports them, and the dry run over the production meshes is to wire them in.
 """
 from __future__ import annotations
 

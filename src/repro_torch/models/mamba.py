@@ -4,7 +4,8 @@ A port of ``repro/models/mamba.py``. The prompt pass runs every layer's
 chunked SSD scan through K8 and takes each layer's state from the closed
 form, so decode continues with O(1) state per layer. The reference's
 sharding calls (``activation_constraint``, ``fsdp_unshard``) do nothing on
-one device and are dropped. ``final_hidden`` and ``forward`` take
+one device and are not called here (``distributed.sharding`` ports them;
+the dry run is to wire them in). ``final_hidden`` and ``forward`` take
 ``use_pallas`` and ``remat`` as ``transformer``'s do. The state caches are
 updated in place.
 """

@@ -6,7 +6,8 @@ A port of ``repro/models/transformer.py``. An early-fusion VLM (chameleon)
 is this model: its image tokens are vocabulary entries. MLA keeps one
 latent cache ``(L, B, S_max, r + rope)`` instead of per-head k and v. The
 reference's sharding calls (``activation_constraint``, ``fsdp_unshard``) do
-nothing on one device and are dropped. ``final_hidden`` and ``forward``
+nothing on one device and are not called here (``distributed.sharding``
+ports them; the dry run is to wire them in). ``final_hidden`` and ``forward``
 take the reference's ``use_pallas`` (default True here: the kernels) and
 ``remat`` (each layer recomputed in the backward; nothing to do without
 gradients). Caches are updated in place.

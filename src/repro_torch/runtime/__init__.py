@@ -1,7 +1,7 @@
 """Runtime policies of training: failure detection, elastic replanning and
 straggler mitigation (a port of ``repro/runtime``)."""
 from .fault import FailureDetector, FaultConfig
-from .elastic import plan_mesh_shape, ElasticPlan, plan_elastic
+from .elastic import plan_mesh_shape, ElasticPlan, build_mesh, plan_elastic
 from .straggler import StragglerPolicy, StragglerReport
 
 __all__ = [
@@ -9,6 +9,7 @@ __all__ = [
     "FaultConfig",
     "plan_mesh_shape",
     "ElasticPlan",
+    "build_mesh",
     "plan_elastic",
     "StragglerPolicy",
     "StragglerReport",

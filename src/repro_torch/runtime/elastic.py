@@ -1,11 +1,12 @@
-"""Elastic scaling: replan the mesh for a changed device count (a port of
-``repro/runtime/elastic.py``: the pure planning).
+"""Elastic scaling: replan the mesh for a changed device count and reshard
+(a port of ``repro/runtime/elastic.py``).
 
 Policy: preserve the model axis (TP degree is baked into per-layer math and
 memory footprints); shrink/grow the data axis to the largest multiple that
-fits the surviving devices. The reference's ``build_mesh`` (a
-``jax.sharding.Mesh`` of the plan) and the restore onto it wait for the
-port's device mesh.
+fits the surviving devices. ``build_mesh`` lays the plan out as a
+``DeviceMesh`` over the surviving ranks; restore flows through
+``CheckpointManager.restore`` with the new mesh's shardings, so parameters
+land sharded for the new topology without a full re-init.
 """
 from __future__ import annotations
 
@@ -69,3 +70,24 @@ def plan_elastic(
             )
     raise RuntimeError("no viable mesh for surviving devices")
 
+
+
+def build_mesh(plan: ElasticPlan, ranks=None, *, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of the plan's shape and axis names over the first
+    ``prod(mesh_shape)`` of ``ranks`` (default: the default process group's
+    ranks in order); ranks past them are dropped."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if ranks is None:
+        if not dist.is_initialized():
+            raise RuntimeError("build_mesh needs the default process group: call "
+                               "torch.distributed.init_process_group first")
+        ranks = range(dist.get_world_size())
+    ranks = list(ranks)
+    n = int(np.prod(plan.mesh_shape))
+    if n > len(ranks):
+        raise ValueError(f"plan {plan.mesh_shape} needs {n} ranks; {len(ranks)} given")
+    grid = torch.tensor(ranks[:n], dtype=torch.int64).reshape(plan.mesh_shape)
+    return DeviceMesh(device_type, grid, mesh_dim_names=tuple(plan.axis_names))

@@ -26,27 +26,29 @@ def _is_node(x) -> bool:
     return isinstance(x, (dict, tuple, list))
 
 
-def flatten_with_paths(tree: Any) -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` for every leaf, in the reference's order."""
-    if not _is_node(tree):
+def flatten_with_paths(tree: Any, is_leaf: Callable = None) -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` for every leaf, in the reference's order; a node for
+    which ``is_leaf`` is true is a leaf too (JAX's ``is_leaf``)."""
+    if not _is_node(tree) or (is_leaf is not None and is_leaf(tree)):
         return [("", tree)]
     out = []
     for name, child in _children(tree):
-        out.extend((f"{name}/{p}" if p else name, leaf) for p, leaf in flatten_with_paths(child))
+        out.extend((f"{name}/{p}" if p else name, leaf)
+                   for p, leaf in flatten_with_paths(child, is_leaf))
     return out
 
 
-def leaves(tree: Any) -> List[Any]:
-    return [leaf for _, leaf in flatten_with_paths(tree)]
+def leaves(tree: Any, is_leaf: Callable = None) -> List[Any]:
+    return [leaf for _, leaf in flatten_with_paths(tree, is_leaf)]
 
 
-def unflatten(like: Any, new_leaves) -> Any:
+def unflatten(like: Any, new_leaves, is_leaf: Callable = None) -> Any:
     """``like``'s structure with its leaves replaced, in order, by
-    ``new_leaves``."""
+    ``new_leaves`` (``is_leaf`` as for ``flatten_with_paths``)."""
     it: Iterator = iter(new_leaves)
 
     def build(node):
-        if not _is_node(node):
+        if not _is_node(node) or (is_leaf is not None and is_leaf(node)):
             return next(it)
         if isinstance(node, dict):
             out = {k: None for k in node}              # keep the caller's key order

@@ -1,12 +1,14 @@
 """The port's checkpoint manager and runtime policies, on the CPU.
 
-Every case of ``tests/test_checkpoint_runtime.py`` runs through the port
-but ``test_elastic_restore_across_topology``, which needs the reference's
-sharding layer (not ported yet). Besides: checkpoints cross between the
-packages both ways, leaf for leaf (bf16 parameters, int8 moments, error
-feedback); the port's MessagePack bytes equal ``msgpack.packb``'s (this
-test may import ``msgpack``; the port may not); and the launcher's resume
-after a SIGTERM equals a straight run, bitwise.
+Every case of ``tests/test_checkpoint_runtime.py`` runs through the port,
+``test_elastic_restore_across_topology`` on a one-rank ``gloo`` group and
+on a fake group of 256 ranks (the (16, 16) production mesh). Besides:
+checkpoints cross between the packages both ways, leaf for leaf (bf16
+parameters, int8 moments, error feedback), the reference's also restored
+with ``shardings=`` in the port; the port's MessagePack bytes equal
+``msgpack.packb``'s (this test may import ``msgpack``; the port may not);
+and the launcher's resume after a SIGTERM equals a straight run, bitwise.
+A test that starts a default process group destroys it in its fixture.
 """
 import os
 import signal
@@ -19,6 +21,7 @@ import msgpack
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.checkpoint import CheckpointConfig as JCheckpointConfig
 from repro.checkpoint import CheckpointManager as JCheckpointManager
@@ -30,6 +33,8 @@ from repro.training import init_state as jinit_state
 from repro_torch import tree as T
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
 from repro_torch.checkpoint.messagepack import packb, unpackb
+from repro_torch.distributed import PartitionSpec, param_specs, tree_shardings
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.data import LMDataConfig, lm_batch
 from repro_torch.models import get_smoke_config
 from repro_torch.runtime import (
@@ -210,6 +215,79 @@ def test_plan_elastic_preserves_model_axis():
     assert plan2.mesh_shape[-1] == 16
 
 
+@pytest.fixture
+def one_rank_group(tmp_path):
+    """A ``gloo`` default process group of one rank."""
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.fixture
+def fake_group_256():
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=37, world_size=256)
+    yield 37
+    dist.destroy_process_group()
+
+
+def _dtensor_leaves(tree):
+    from torch.distributed.tensor import DTensor
+
+    leaves = T.leaves(tree)
+    assert all(isinstance(t, DTensor) for t in leaves)
+    return leaves
+
+
+def test_elastic_restore_across_topology(tmp_path, one_rank_group):
+    """Checkpoint written under one topology restores onto another (the
+    elastic-scaling path; a one-rank mesh, shardings still exercised):
+    every leaf a DTensor on the mesh, equal to what was saved."""
+    cfg, tcfg, state = _state()
+    mgr = CheckpointManager(CheckpointConfig(directory=str(tmp_path / "ck"), async_save=False))
+    mgr.save(3, state)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    sh = tree_shardings(mesh, param_specs(state, mesh))
+    step, _, restored = mgr.restore(target_tree=state, shardings=sh)
+    assert step == 3
+    leaves = _dtensor_leaves(restored)
+    assert leaves[0].device_mesh is mesh
+    for a, b in zip(leaves, T.leaves(state)):
+        assert _equal(a.full_tensor(), b)
+    with pytest.raises(ValueError, match="not both"):
+        mgr.restore(target_tree=state, shardings=sh, device="cpu")
+    with pytest.raises(ValueError, match="needs target_tree"):
+        mgr.restore(shardings=sh)
+
+
+def test_restore_onto_the_production_mesh(tmp_path, fake_group_256):
+    """The smoke state restored onto the (16, 16) mesh of a fake group of
+    256: rank 37 holds each leaf's block at its coordinate (2, 5), sharded
+    as ``param_specs`` says (the smoke widths mostly replicate)."""
+    cfg, tcfg, state = _state()
+    mgr = CheckpointManager(CheckpointConfig(directory=str(tmp_path), async_save=False))
+    mgr.save(4, state)
+    mesh = make_production_mesh(device_type="cpu")
+    specs = param_specs(state, mesh)
+    _, _, restored = mgr.restore(target_tree=state, shardings=tree_shardings(mesh, specs))
+    assert tuple(mesh.get_coordinate()) == (2, 5)
+    sharded = 0
+    for got, want, spec in zip(_dtensor_leaves(restored), T.leaves(state),
+                               T.leaves(specs, is_leaf=lambda x: isinstance(x, PartitionSpec))):
+        block = want
+        for d, ax in enumerate(spec):
+            if ax is not None:
+                i, n = {"data": (2, 16), "model": (5, 16)}[ax]
+                size = want.shape[d] // n
+                block = block.narrow(d, i * size, size)
+                sharded += 1
+        assert tuple(got.shape) == tuple(want.shape)
+        assert _equal(got.to_local(), block.contiguous())
+    assert sharded > 0
+
+
 def test_straggler_policy_rebalances():
     pol = StragglerPolicy(threshold=1.5, window=4)
     rep = None
@@ -285,6 +363,25 @@ def test_reference_checkpoint_restores_in_the_port(tmp_path):
             assert np.array_equal(a.view(torch.int16).numpy().view(np.uint16), _np(b)), name
         else:
             assert np.array_equal(a.numpy(), _np(b)), name
+
+
+def test_reference_checkpoint_restores_with_shardings_in_the_port(tmp_path, one_rank_group):
+    """A checkpoint of the JAX package restored with ``shardings=`` from the
+    port's ``param_specs``: every leaf a DTensor, bitwise the reference's."""
+    jstate, state = _both_states()
+    jm = JCheckpointManager(JCheckpointConfig(directory=str(tmp_path / "ck"), async_save=False))
+    jm.save(6, jstate)
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    step, _, restored = CheckpointManager(CheckpointConfig(directory=str(tmp_path / "ck"))).restore(
+        target_tree=state, shardings=tree_shardings(mesh, param_specs(state, mesh)))
+    assert step == 6
+    got = _dtensor_leaves(restored)
+    want = jax.tree_util.tree_leaves(jstate)
+    assert len(got) == len(want) == 74
+    for a, b in zip(got, want):
+        a = a.full_tensor()
+        a = a.view(torch.int16).numpy().view(np.uint16) if a.dtype == torch.bfloat16 else a.numpy()
+        assert np.array_equal(a, _np(b))
 
 
 def test_port_checkpoint_restores_in_the_reference(tmp_path):

@@ -1,8 +1,11 @@
 """The PyTorch port's DRAM model, held bitwise against the JAX package: the
 plain chunked event scan (D1's CPU version) vs the reference ``lax.scan``,
-the contended timing in both aggregate modes, and the FR-FCFS ordering."""
+the contended timing in both aggregate modes, the FR-FCFS ordering, and
+the per-access scan with arrival times (D3's CPU version, ``simulate_dram``
+and ``dram_timing`` with a non-zero issue interval or start cycle)."""
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -12,7 +15,7 @@ from repro.core.hardware import tpuv6e as r_tpuv6e
 from repro.core.memory import dram as rdram
 from repro_torch.core.hardware import tpuv6e
 from repro_torch.core.memory import dram as tdram
-from repro_torch.kernels.dram_scan import dram_scan_chunked
+from repro_torch.kernels.dram_scan import dram_scan_chunked, dram_scan_full
 
 
 def _models():
@@ -207,12 +210,103 @@ def test_dram_timing_switches_to_the_estimate_past_the_detailed_limit(monkeypatc
                                  [dataclasses.asdict(r) for r in ref])
 
 
-@pytest.mark.parametrize("kw", [dict(issue_interval_cycles=2.0), dict(start_cycle=10.0)])
-def test_simulate_dram_with_arrivals_raises_naming_d3(kw):
-    """Non-zero arrivals need the per-access scan with arrival times (D3),
-    which the port has not ported yet."""
+def _full_inputs(rng, R, L, banks, interval, start):
+    bk = rng.integers(0, banks, size=(R, L)).astype(np.int32)
+    row = rng.integers(0, 3, size=(R, L)).astype(np.int32)
+    arrive = (start + np.arange(R * L, dtype=np.float32).reshape(R, L) * interval).astype(np.float32)
+    valid = rng.random((R, L)) < 0.85
+    valid[:, L - L // 4:] = False            # padded tail, as simulate_dram pads
+    return bk, row, arrive, valid
+
+
+@pytest.mark.parametrize("R,L,banks,interval,start,seed", [
+    (4, 64, 8, 0.5, 0.0, 0), (7, 100, 4, 2.0, 1000.0, 1), (1, 1, 8, 0.0, 3.25, 2),
+    (16, 257, 16, 0.37, 13.3, 3), (3, 96, 1, 1.0, 0.0, 4),
+])
+def test_plain_full_scan_equals_jax_scan_bitwise(R, L, banks, interval, start, seed):
+    """D3's plain version against the reference's ``_scan_channel_full``:
+    every per-access completion, latency and hit."""
+    rng = np.random.default_rng(seed)
+    bk, row, arrive, valid = _full_inputs(rng, R, L, banks, interval, start)
+    bus = 64 / (1600.0 / 0.94 / 16)
+    ref = rdram._scan_channel_full(bk, row, arrive, valid, banks, 22.0, 44.0, bus)
+    ours = dram_scan_full(*(torch.from_numpy(a) for a in (bk, row, arrive, valid)),
+                          banks, 22.0, 44.0, bus)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(np.asarray(b)))
+
+
+@pytest.mark.parametrize("L", [1, 20, 32, 33, 100, 1000, 1025, 4096, 100_003])
+def test_xla_row_sum_is_the_reference_reduction_bitwise(L):
+    """``xla_row_sum`` adds in the order of XLA's CPU row sum (windows of
+    32, zero-padded half in front), the sum the reference takes of each
+    channel's latencies."""
+    x = (np.random.default_rng(L).random((3, L)) * 3e3 + 1e3).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: a.sum(axis=-1))(x))
+    got = tdram.xla_row_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+_ARRIVALS = {
+    "interval": dict(issue_interval_cycles=2.0),
+    "start": dict(start_cycle=10.0),
+    "both": dict(issue_interval_cycles=2.0, start_cycle=1000.0),
+    "fractional": dict(issue_interval_cycles=0.37, start_cycle=13.3),
+    "fast_issue": dict(issue_interval_cycles=0.125),
+}
+
+
+@pytest.mark.parametrize("entry", ["simulate_dram", "dram_timing"])
+@pytest.mark.parametrize("arrivals", sorted(_ARRIVALS))
+def test_simulate_dram_with_arrivals_equals_reference(entry, arrivals):
+    """The per-access route (D3) against the reference, every field bitwise,
+    ``total_latency_cycles`` included (latencies non-integer: 0.6016 bus
+    cycles a line)."""
+    rng = np.random.default_rng(len(arrivals))
+    lines = _vec_trace(rng, 700, 40_000)
+    rm, tm = _models()
+    ours = getattr(tdram, entry)(lines, tm, device="cpu", **_ARRIVALS[arrivals])
+    ref = getattr(rdram, entry)(lines, rm, **_ARRIVALS[arrivals])
+    assert_bitwise_equal_results(dataclasses.asdict(ours), dataclasses.asdict(ref))
+
+
+@pytest.mark.parametrize("case", ["one_channel", "empty", "one_line", "line_trace"])
+def test_simulate_dram_with_arrivals_edges(case):
+    """One channel (a single row of L = n), an empty trace (the start cycle
+    back, no scan), one access, and a line-granular (not vector) trace."""
+    rng = np.random.default_rng(5)
+    rm, tm = _models()
+    lines = {"one_channel": _vec_trace(rng, 60, 5_000), "empty": np.zeros(0, np.int64),
+             "one_line": np.array([12345]),
+             "line_trace": rng.integers(0, 1 << 20, size=1_500)}[case]
+    if case == "one_channel":
+        rm, tm = dataclasses.replace(rm, channels=1), dataclasses.replace(tm, channels=1)
+    kw = dict(issue_interval_cycles=1.5, start_cycle=7.0)
+    for entry in ("simulate_dram", "dram_timing"):
+        ours = getattr(tdram, entry)(lines, tm, device="cpu", **kw)
+        ref = getattr(rdram, entry)(lines, rm, **kw)
+        assert_bitwise_equal_results(dataclasses.asdict(ours), dataclasses.asdict(ref))
+
+
+def test_dram_timing_above_detailed_max_ignores_arrivals(monkeypatch):
+    """Above ``DETAILED_DRAM_MAX`` ``dram_timing`` takes the closed-form
+    estimate, which ignores the arrival arguments, as the reference does."""
+    rng = np.random.default_rng(6)
+    lines = _vec_trace(rng, 300, 40_000)
+    rm, tm = _models()
+    monkeypatch.setattr(tdram, "DETAILED_DRAM_MAX", 1000)
+    monkeypatch.setattr(rdram, "DETAILED_DRAM_MAX", 1000)
+    kw = dict(issue_interval_cycles=2.0, start_cycle=50.0)
+    ours, ref = tdram.dram_timing(lines, tm, device="cpu", **kw), rdram.dram_timing(lines, rm, **kw)
+    assert not ours.detailed
+    assert_bitwise_equal_results(dataclasses.asdict(ours), dataclasses.asdict(ref))
+    assert dataclasses.asdict(ours) == dataclasses.asdict(tdram.estimate_dram_fast(lines, tm))
+
+
+def test_simulate_dram_with_arrivals_needs_a_card_by_default():
+    """No silent CPU fallback on the arrival route either."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
     _, tm = _models()
-    with pytest.raises(NotImplementedError, match="D3"):
-        tdram.simulate_dram(np.arange(100), tm, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="D3"):
-        tdram.dram_timing(np.arange(100), tm, device="cpu", **kw)
+    with pytest.raises(RuntimeError):
+        tdram.simulate_dram(np.arange(100), tm, issue_interval_cycles=2.0)

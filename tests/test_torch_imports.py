@@ -69,7 +69,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "training.losses", "training.optimizer", "training.compression",
                 "training.train_step", "checkpoint", "checkpoint.manager",
                 "checkpoint.messagepack", "runtime", "runtime.fault", "runtime.elastic",
-                "runtime.straggler", "launch.train"):
+                "runtime.straggler", "launch.train", "distributed.sharding",
+                "distributed.collective_matmul", "launch.mesh"):
         assert f"repro_torch.{sub}" in names, sub
 
 

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
-from repro_torch.kernels.dram_scan import dram_scan_chunked, dram_scan_plain
+from repro_torch.kernels.dram_scan import (
+    dram_scan_chunked, dram_scan_full, dram_scan_full_plain, dram_scan_plain)
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_kernel,
     embedding_bag_plain,
@@ -177,6 +178,93 @@ def test_dram_scan_kernel_tiles_and_blocks(cuda, R, Lc, banks, k_max, offset):
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b)
     assert float(got[0][0][R // 2]) == 0.0 and not bool(got[1][1][R // 2].any())
+
+
+# ---------------------------------------------------------------------------
+# D3 (the per-access DRAM scan with arrival times)
+# ---------------------------------------------------------------------------
+
+def _full_args(cuda, R, L, banks, interval, start, seed, offset=0, lo=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.integers(lo, banks + (1 if lo < 0 else 0), size=(R, L)).astype(np.int32),
+              rng.integers(0, 3, size=(R, L)).astype(np.int32),
+              (start + np.arange(R * L, dtype=np.float32).reshape(R, L) * interval
+               ).astype(np.float32),
+              rng.random((R, L)) < 0.85]
+    arrays[3][:, L - L // 4:] = False
+    arrays[3][R // 2] = False
+    args = []
+    for a in arrays:
+        flat = torch.zeros(a.size + offset, dtype=torch.from_numpy(a).dtype, device=cuda)
+        flat[offset:] = torch.from_numpy(a).reshape(-1).to(cuda)
+        args.append(flat[offset:].view(R, L))
+    return args
+
+
+def _assert_bitwise(got, want):
+    for a, b in zip(got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("interval,start", [(0.5, 0.0), (0.0, 1000.0), (2.0, 1000.0),
+                                            (0.37, 13.3)])
+@pytest.mark.parametrize("R,L", [(4, 1), (16, 100), (32, 2048), (40, 100)])
+def test_dram_scan_full_kernel_equals_plain_bitwise(cuda, R, L, interval, start):
+    """D3 against its plain version: 4, 16, 32 and 40 rows (two blocks), L
+    of 1, 100 (not a multiple of 16: copied slot by slot) and 2,048 (16
+    full tiles), non-zero interval, start, both and fractional values."""
+    args = _full_args(cuda, R, L, 8, interval, start, seed=R * 7 + L)
+    reset_launch_counts()
+    got = dram_scan_full(*args, 8, 22.0, 44.0, 0.6016)
+    assert launch_counts()["dram_scan_full"] == 1 and launch_counts()["dram_scan"] == 0
+    _assert_bitwise(got, dram_scan_full_plain(*args, 8, 22.0, 44.0, 0.6016))
+    assert not bool(got[2][R // 2].any()) and float(got[0][R // 2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("R,L,banks,offset,lo", [
+    (5, 256, 1, 0, 0), (33, 300, 160, 0, 0), (33, 256, 8, 1, 0), (7, 512, 8, 0, -1),
+])
+def test_dram_scan_full_kernel_edges(cuda, R, L, banks, offset, lo):
+    """Banks 1 and 160 (the most the shared memory holds), inputs one
+    element off 16 bytes (copied slot by slot), banks out of range (never a
+    hit, no bank state)."""
+    args = _full_args(cuda, R, L, banks, 0.75, 5.0, seed=R + L + banks, offset=offset, lo=lo)
+    got = dram_scan_full(*args, banks, 22.0, 44.0, 0.6016)
+    _assert_bitwise(got, dram_scan_full_plain(*args, banks, 22.0, 44.0, 0.6016))
+
+
+def test_dram_scan_full_refuses_what_it_cannot_launch(cuda):
+    s = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
+    a = torch.zeros((2, 8), dtype=torch.float32, device=cuda)
+    v = torch.ones((2, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="banks <= 160"):
+        dram_scan_full(s, s, a, v, 161, 22.0, 44.0, 0.6016)
+    with pytest.raises(TypeError):
+        dram_scan_full(s, s, s, v, 8, 22.0, 44.0, 0.6016)
+    assert dram_scan_full(s, s, a, v, 160, 22.0, 44.0, 0.6016)[0].shape == (2, 8)
+
+
+@pytest.mark.parametrize("kw", [dict(issue_interval_cycles=0.5),
+                                dict(issue_interval_cycles=2.0, start_cycle=1000.0),
+                                dict(start_cycle=3.3)])
+def test_simulate_dram_with_arrivals_on_the_card_equals_cpu(cuda, kw):
+    """The arrival route of ``simulate_dram`` and ``dram_timing``: one D3
+    launch a call on the card, no D1, every field equal to the CPU's."""
+    import dataclasses
+
+    from repro_torch.core.hardware import tpuv6e
+    from repro_torch.core.memory.dram import DramModel, dram_timing, simulate_dram
+
+    rng = np.random.default_rng(3)
+    lines = ((rng.integers(0, 40_000, size=900) * 8)[:, None] + np.arange(8)).reshape(-1)
+    dm = DramModel.from_hardware(tpuv6e())
+    for fn in (simulate_dram, dram_timing):
+        reset_launch_counts()
+        got = fn(lines, dm, **kw)
+        assert launch_counts()["dram_scan_full"] == 1 and launch_counts()["dram_scan"] == 0
+        assert dataclasses.asdict(got) == dataclasses.asdict(fn(lines, dm, device="cpu", **kw))
 
 
 # ---------------------------------------------------------------------------
