@@ -10,8 +10,8 @@ passed over):
   2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
      all at once), timed, with ptxas's registers and spills per kernel of
      ``cache_scan.cu``, ``stack_distance.cu``, ``dram_scan.cu``,
-     ``rrip_scan.cu``, ``flash_attention.cu``, ``mamba2_ssd.cu`` and
-     ``embedding_bag.cu``;
+     ``dram_scan_full.cu``, ``rrip_scan.cu``, ``flash_attention.cu``,
+     ``mamba2_ssd.cu`` and ``embedding_bag.cu``;
   3. the latency of one dependent step, timed by the probes of
      ``csrc/latency_probe.cu``; then each kernel against its plain torch
      version on the card: K1 cache scan and K2 stack distance on the
@@ -45,8 +45,11 @@ passed over):
      chunk's end / one past it / mid-block / S_max, f32 and bf16, causal or
      not, chunk 16/64/128, N = 128, a ragged last chunk), against their
      plain versions at the reference's tolerances, with kernel, plain and
-     library-call times; K6's and K8's routes (bf16: tensor cores, f32:
-     scalar) are checked on every call, K6's TFLOP/s and K7's and K8's TB/s
+     library-call times (the library call's kernels named from the
+     profiler: SDPA's backend); K6's routes (bf16: ``wgmma``, f32: 3xTF32)
+     and K8's (bf16: tensor cores, f32: scalar) are checked on every call,
+     K6's TFLOP/s (f32 also beside its f32-accurate product bound at the
+     dense TF32 rate) and K7's and K8's TB/s
      printed beside their bounds (K8 with its P-slice and resident blocks
      per SM, K5 with its share of the bound and F.embedding_bag's time), K7
      held bitwise equal across two calls with NaN past valid_len; then K6
@@ -190,12 +193,16 @@ passed over):
      zamba2; f32 and bf16) on the card against the CPU;
  13. the last slice on the card: (a) D3, the per-access DRAM scan with
      arrival times, bitwise against its plain version at 4, 16 and 32 rows
-     x L of 1, 100 and 2,048 (8 banks; a non-zero interval, start, both,
-     fractional values), then ``simulate_dram`` with (interval 0.5) and
-     (interval 2.0, start 1,000) over phase 4's lru/stack miss trace (both
-     batches, 3,254,576 lines), one D3 launch each and no other kernel,
-     equal to the JAX package's ``REF_D3``; D3 at that width against its
-     plain version, timed (warm and L2 flushed) beside its chain bound;
+     x L of 1, 100 and 2,048 (8 banks, the registers route with its
+     pre-pass's codes and hits held too, and 17, the shared route; a
+     non-zero interval, start, both, fractional values), then
+     ``simulate_dram`` with (interval 0.5) and (interval 2.0, start 1,000)
+     over phase 4's lru/stack miss trace (both batches, 3,254,576 lines),
+     one launch of D3 and one of its pre-pass each and no other kernel,
+     equal to the JAX package's ``REF_D3``, and its host stages timed one
+     by one; D3 at that width against its plain version, the scan and the
+     pre-pass timed apart (warm and L2 flushed), the scan beside its chain
+     bound;
      (b) ``ring_matmul`` and ``psum_matmul`` on a one-rank NCCL group at
      stablelm-3b's MLP down projection (x 8,192 x 6,912 @ w 6,912 x 2,560,
      f32 and bf16) against ``x @ w`` at 1e-5 / 8e-2, timed beside
@@ -215,7 +222,8 @@ launches in the phase-9 runs of ``CLUSTER_RUNS``, D1's in every run on
 ``dram_scan[spm 4 cores]`` only, ``cluster_launches``; K1, K2, D1 and D2
 with their launches in each phase-10 run, ``serving_launches``, on
 ``cache_scan[lru]``, ``stack_distance[lru]``, ``dram_scan[spm]`` and
-``rrip_scan[srrip]``; D3's launches in phase 13's first ``simulate_dram``)
+``rrip_scan[srrip]``; D3's and its pre-pass's launches in phase 13's first
+``simulate_dram``; K6 f32's in phase 7's f32 teacher-forced check)
 and, last,
 ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
@@ -246,6 +254,9 @@ SCALAR_OPS_PER_S = 67e12
 # Dense bf16 tensor-core rate: the matrix products of the LM kernels (K6,
 # K7, K8) could run there, so their FLOPs are counted against it.
 TENSOR_FLOPS_PER_S = 989e12
+# Dense TF32 tensor-core rate: K6's f32 route runs 3 TF32 products for each
+# of its products (3xTF32), the least it could take at f32 accuracy.
+TF32_FLOPS_PER_S = 494.7e12
 # The kernels are chains of dependent steps, so their operations also bound
 # them through latency: longest chain x one step's latency, measured in this
 # run by the probes of csrc/latency_probe.cu. ``bound_ms`` is the largest of
@@ -401,6 +412,9 @@ REF_D3 = {(0.5, 0.0): (1637923.0, 94614490752.0, 2847804, 406772, 3254576),
 D3_SMALL_ROWS = (4, 16, 32)
 D3_SMALL_L = (1, 100, 2048)
 D3_SMALL_ARRIVALS = ((0.5, 0.0), (0.0, 1000.0), (2.0, 1000.0), (0.37, 13.3))
+# D3's routes by banks: at most 16 the registers route (the pre-pass, then
+# the scan), 17 the shared route.
+D3_SMALL_BANKS = (8, 17)
 # Phase 13 (b): stablelm-3b's MLP down projection, x (tokens, d_ff) @ w
 # (d_ff, d_model), for a batch of 8 x 1,024 tokens.
 CMM_SHAPE = (8 * 1024, 6912, 2560)
@@ -419,6 +433,8 @@ KERNEL_SOURCES = {
     "dram_scan": ("src/repro_torch/csrc/dram_scan.cu", "src/repro/core/memory/dram.py:315"),
     "dram_scan_full": ("src/repro_torch/csrc/dram_scan_full.cu",
                        "src/repro/core/memory/dram.py:259"),
+    "dram_prepass": ("src/repro_torch/csrc/dram_scan_full.cu",
+                     "src/repro/core/memory/dram.py:259"),
     "rrip_scan": ("src/repro_torch/csrc/rrip_scan.cu", "src/repro/core/memory/rrip.py:137"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag.py:36"),
@@ -555,6 +571,26 @@ def device_busy(events, wall: float, kernels=(), top: int = 6) -> str:
             f"{f'; device time (us) of {json.dumps(named)}' if kernels else ''}")
 
 
+def device_kernels(fn, top: int = 3) -> str:
+    """The device kernels one call of ``fn`` runs (a library call's backend,
+    read from the profiler), by device time, longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            times[e.name] = times.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    if not times:
+        return "kernels not measured: the profiler recorded no device events"
+    names = sorted(times, key=lambda n: -times[n])[:top]
+    return "kernels " + "; ".join(n[:90] for n in names)
+
+
 def probe_step_ms(launch, inp, out, want) -> float:
     """Device ms per step of a latency probe: two chain lengths, timed with
     CUDA events, differenced (launch overhead cancels)."""
@@ -578,9 +614,10 @@ def ptxas_report(log: str):
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for word in ("flash_wgmma_kernel", "flash_kernel", "ssd_mma_kernel", "ssd_cumsum_kernel",
-                         "ssd_kernel", "pool_kernel", "bag_kernel", "gather_kernel",
+            for word in ("flash_wgmma_kernel", "flash_tf32_kernel", "ssd_mma_kernel",
+                         "ssd_cumsum_kernel", "ssd_kernel", "pool_kernel", "bag_kernel", "gather_kernel",
                          "cache_scan_kernel", "stack_distance_kernel", "dram_scan_kernel",
+                         "dram_scan_full_kernel", "dram_scan_regs_kernel", "dram_prepass_kernel",
                          "rrip_scan_walk_kernel", "rrip_scan_fixup_kernel"):
                 if word in name:
                     name = word + name.split(word, 1)[1][:24]
@@ -691,9 +728,9 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         got, want = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         if name == "flash_attention":
-            # the dtype picks K6's route: bf16 the tensor cores, f32 the scalar kernel
-            route = "wgmma" if dtype == torch.bfloat16 else "scalar"
-            if flash_attention_kernel.routes != {"wgmma": 0, "scalar": 0, route: 1}:
+            # the dtype picks K6's route: bf16 wgmma, f32 3xTF32 mma.sync
+            route = "wgmma" if dtype == torch.bfloat16 else "tf32"
+            if flash_attention_kernel.routes != {"wgmma": 0, "tf32": 0, route: 1}:
                 fail(f"{label}: routes {flash_attention_kernel.routes}, expected one {route}")
             label += f" [{route} route]"
         if name == "mamba2_ssd":
@@ -706,17 +743,18 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         err = max_abs_err(got, want)
         if not torch.allclose(got.float(), want.float(), **tol):
             fail(f"{label} differs from its plain version (max abs err {err!r}, tolerance {tol})")
-        lib_ms = None
+        lib_ms, backend = None, ""
         if library is not None:
             if not torch.allclose(library().reshape(want.shape).float(), want.float(), **tol):
                 fail(f"{label}: the library call does not compute the kernel's function")
             lib_ms = time_cold_ms(library, reps, flush)
+            backend = f" ({device_kernels(library)})"
         k_ms = time_cold_ms(lambda: kernel(*args), reps, flush)
         p_ms = time_cold_ms(lambda: plain(*args), 2, flush)
         print(f"[3] {label}: allclose {tol} to plain, max abs err {err!r}; kernel {k_ms!r} ms, "
-              f"plain {p_ms!r} ms, library {lib_ms!r} ms (L2 flushed before each launch)",
-              flush=True)
-        return err, k_ms, p_ms, lib_ms
+              f"plain {p_ms!r} ms, library {lib_ms!r} ms{backend} (L2 flushed before each "
+              f"launch)", flush=True)
+        return err, k_ms, p_ms, lib_ms, backend
 
     def sdpa(q, k, v, causal):
         def call():
@@ -749,8 +787,9 @@ def check_lm_kernels(dev, flush, f32_op_ms):
 
     entries = {}
     # K6, the prefill of the shared attention block: causal, GQA-free at Zamba2.
-    # The bf16 rows go through the tensor-core route, the f32 rows through
-    # the scalar kernel; the f32 main shape is timed as fully as the bf16 one.
+    # The bf16 rows go through the wgmma route, the f32 rows through 3xTF32;
+    # the f32 main shape is timed as fully as the bf16 one. Every row is
+    # timed beside SDPA in its dtype, and SDPA's kernels are named.
     for B, Hq, Hkv, S, d, causal, dtype, main in (
             (LM_BATCH, 32, 32, LM_PROMPT, 80, True, torch.bfloat16, True),
             (LM_BATCH, 32, 32, LM_PROMPT, 80, True, torch.float32, False),
@@ -774,8 +813,18 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         if full:
             pairs = S * (S + 1) // 2 if causal else S * S
             nbytes = (2 * B * Hq * S * d + 2 * B * Hkv * S * d) * q.element_size()
-            rates(f"K6 {dtype} at the main shape, {'tensor-core' if main else 'scalar'} route",
+            rates(f"K6 {dtype} at the main shape, {'wgmma' if main else '3xTF32'} route",
                   e, nbytes, 4 * B * Hq * pairs * d, e[3])
+        if full and not main:
+            tf32_ms = 3 * 4 * B * Hq * pairs * d / TF32_FLOPS_PER_S * 1e3
+            print(f"[3] K6 f32 at the main shape: {e[1] / tf32_ms!r} x its f32-accurate product "
+                  f"bound {tf32_ms!r} ms (3 x {4 * B * Hq * pairs * d / 1e9!r} GFLOP at "
+                  f"{TF32_FLOPS_PER_S / 1e12} TFLOP/s dense TF32), {e[1] / e[3]!r} x SDPA f32"
+                  f"{e[4]}", flush=True)
+            entries["flash_attention[f32 zamba2]"] = dict(
+                kind="flash_attention", err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
+                nbytes=nbytes, mm_flops=4 * B * Hq * pairs * d, ops=5 * B * Hq * pairs,
+                lat_ms=(log2c(S) + log2c(d)) * f32_op_ms, shapes=[(B, Hq, Hkv, S, d), "f32"])
         if main:
             entries["flash_attention"] = dict(
                 kind="flash_attention", err=e[0], ms=e[1], plain_ms=e[2], library_ms=e[3],
@@ -994,7 +1043,8 @@ def teacher_forced(engine_a, engine_b, prompts, forced, dev_a, dev_b, kv_a=None,
 
 def serve_zamba2(dev, K):
     """Phase 7: Zamba2-2.7B served at full width. Returns (the launch counts
-    of the main run, K4's report entry at the prompt's shapes)."""
+    of the main run, K4's report entry at the prompt's shapes, the launch
+    counts of the f32 teacher-forced check)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import LMDataConfig, lm_batch
     from repro_torch.kernels.embedding_bag import embedding_gather_kernel, embedding_gather_plain
@@ -1037,9 +1087,9 @@ def serve_zamba2(dev, K):
               "decode_attention": LM_NEW * groups, "embedding_gather": 1 + LM_NEW}
     if main_counts != {k: expect.get(k, 0) for k in main_counts}:
         fail(f"Zamba2 generate: launches {main_counts}; expected {expect} and no other kernel")
-    if K.flash_attention_kernel.routes != {"wgmma": groups, "scalar": 0}:
+    if K.flash_attention_kernel.routes != {"wgmma": groups, "tf32": 0}:
         fail(f"Zamba2 generate: K6 routes {K.flash_attention_kernel.routes}; expected every "
-             "launch on the tensor-core route")
+             "launch on the bf16 (wgmma) route")
     if K.mamba2_ssd_kernel.routes != {"mma": cfg.n_layers, "scalar": 0}:
         fail(f"Zamba2 generate: K8 routes {K.mamba2_ssd_kernel.routes}; expected every "
              "launch on the tensor-core route")
@@ -1205,7 +1255,7 @@ def serve_zamba2(dev, K):
             fail(f"smoke Zamba2 {dtype} on the card differs from the CPU by {worst!r} ({tol})")
         print(f"[7] smoke Zamba2 {dtype} on the card vs the CPU, teacher-forced (prefill of 64 + "
               f"6 steps): max abs diff {worst!r} (allclose {tol})", flush=True)
-    return main_counts, k4
+    return main_counts, k4, counts32
 
 
 def serve_model(K, label, cfg, params, prompts, new, per_prefill, per_step, enc_out=None,
@@ -1237,9 +1287,9 @@ def serve_model(K, label, cfg, params, prompts, new, per_prefill, per_step, enc_
     want = {k: per_prefill.get(k, 0) + new * per_step.get(k, 0) for k in main}
     if main != want:
         fail(f"{label} generate: launches {main}; expected {want}")
-    if K.flash_attention_kernel.routes["scalar"] != 0:
+    if K.flash_attention_kernel.routes["tf32"] != 0:
         fail(f"{label} generate: K6 routes {K.flash_attention_kernel.routes}; expected every "
-             "launch on the tensor-core route")
+             "launch on the bf16 (wgmma) route")
     if out.shape != (B, new) or out.min() < 0 or out.max() >= cfg.vocab:
         fail(f"{label} generate: tokens of shape {out.shape} in [{out.min()}, {out.max()}]")
     again = engine.generate(prompts, max_new_tokens=new, **kw)
@@ -2500,13 +2550,49 @@ def d3_chain(bk_m: np.ndarray, va_m: np.ndarray) -> int:
     return int((2 * va_m.sum(axis=1) + same.sum(axis=1)).max())
 
 
-def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
+def d3_host_split(lines, dm, interval, start, dev) -> dict:
+    """``simulate_dram``'s arrival route stage by stage, host clock in ms:
+    the address decomposition, the FR-FCFS order, ``arrival_rows`` whole
+    (both of those and the padded rows), the copies to the card, D3 (the
+    pre-pass and the scan), and the row sums and reductions copied back."""
+    from repro_torch.core.memory.dram import _frfcfs_order, arrival_rows, xla_row_sum
+    from repro_torch.kernels.dram_scan import dram_scan_full
+
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return r
+    ch, bk, _ = timed("decompose", lambda: dm.decompose(lines))
+    timed("FR-FCFS order", lambda: _frfcfs_order(ch, bk, lines // dm.lines_per_block,
+                                                   dm.banks_per_channel, dm.channels))
+    st = timed("arrival_rows (decompose, order, rows)",
+               lambda: arrival_rows(lines, dm, interval, start))
+    args = timed("copies to the card", lambda: [torch.from_numpy(st[k]).to(dev)
+                                                for k in ("bk_m", "row_m", "ar_m", "va_m")])
+    done, lat, hits = timed("D3 (pre-pass + scan)", lambda: dram_scan_full(
+        *args, dm.banks_per_channel, float(dm.t_cas), float(dm.t_rp + dm.t_rcd),
+        float(dm.line_bytes / dm.chan_bytes_per_cycle)))
+    timed("row sums, max, hit count, copies back",
+          lambda: (xla_row_sum(lat).cpu().numpy(), float(done.max()), int(hits.sum())))
+    # decompose and the order are inside arrival_rows: count them once
+    out["arrival_rows (decompose, order, rows)"] -= out["decompose"] + out["FR-FCFS order"]
+    out["arrival_rows: the padded rows"] = out.pop("arrival_rows (decompose, order, rows)")
+    return out
+
+
+def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms):
     """Phase 13: (a) D3 against its plain version, small and at full width,
     then ``simulate_dram`` with arrivals over phase 4's lru/stack miss trace
     against the JAX package's ``REF_D3``; (b) the collective matmul on a
     one-rank NCCL group at stablelm-3b's MLP down projection; (c) the smoke
     stablelm-3b train state saved and restored with ``shardings=`` onto a
-    (1, 1) mesh of the card. Returns D3's report entry."""
+    (1, 1) mesh of the card. Returns the report entries of D3 and its
+    pre-pass."""
     import tempfile
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -2516,32 +2602,41 @@ def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
     from repro_torch.core.memory.system import MemorySystem
     from repro_torch.distributed import param_specs, tree_shardings
     from repro_torch.distributed.collective_matmul import psum_matmul, ring_matmul
-    from repro_torch.kernels.dram_scan import dram_scan_full, dram_scan_full_plain
+    from repro_torch.kernels.dram_scan import (
+        REG_MAX_BANKS, _f32, _regs_launcher, dram_prepass, dram_prepass_plain, dram_scan_full,
+        dram_scan_full_plain)
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import get_smoke_config
     from repro_torch.training import TrainConfig, init_state
 
     print(f"[13] {name_power}", flush=True)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)     # > the 50 MB L2
-    # (a) D3, small: every (rows, slots) x arrival form, bitwise
+    # (a) D3, small: every (rows, slots) x arrival form x route, bitwise
     rng = np.random.default_rng(13)
-    for R in D3_SMALL_ROWS:
-        for L in D3_SMALL_L:
-            for interval, start in D3_SMALL_ARRIVALS:
-                valid = rng.random((R, L)) < 0.85
-                valid[:, L - L // 4:] = False
-                args = [torch.from_numpy(a).to(dev) for a in (
-                    rng.integers(0, 8, size=(R, L)).astype(np.int32),
-                    rng.integers(0, 3, size=(R, L)).astype(np.int32),
-                    (start + np.arange(R * L, dtype=np.float32).reshape(R, L) * interval
-                     ).astype(np.float32), valid)]
-                got = dram_scan_full(*args, 8, 22.0, 44.0, 0.6016)
-                want = dram_scan_full_plain(*args, 8, 22.0, 44.0, 0.6016)
-                if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
-                    fail(f"dram_scan_full differs from its plain version at (R, L)={(R, L)}, "
-                         f"interval {interval}, start {start}")
+    for banks in D3_SMALL_BANKS:
+        for R in D3_SMALL_ROWS:
+            for L in D3_SMALL_L:
+                for interval, start in D3_SMALL_ARRIVALS:
+                    valid = rng.random((R, L)) < 0.85
+                    valid[:, L - L // 4:] = False
+                    bk = np.repeat(rng.integers(0, banks, size=(R, L // 8 + 1)), 8, axis=1)[:, :L]
+                    args = [torch.from_numpy(a).to(dev) for a in (
+                        bk.astype(np.int32), rng.integers(0, 3, size=(R, L)).astype(np.int32),
+                        (start + np.arange(R * L, dtype=np.float32).reshape(R, L) * interval
+                         ).astype(np.float32), valid)]
+                    got = dram_scan_full(*args, banks, 22.0, 44.0, 0.6016)
+                    want = dram_scan_full_plain(*args, banks, 22.0, 44.0, 0.6016)
+                    if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
+                        fail(f"dram_scan_full differs from its plain version at (R, L)={(R, L)}, "
+                             f"{banks} banks, interval {interval}, start {start}")
+                    if banks <= REG_MAX_BANKS and not all(bitwise_equal(a, b) for a, b in zip(
+                            dram_prepass(args[0], args[1], args[3], banks),
+                            dram_prepass_plain(args[0], args[1], args[3], banks))):
+                        fail(f"dram_prepass differs from its plain version at (R, L)={(R, L)}")
     print(f"[13] dram_scan_full: bitwise equal to plain at rows {D3_SMALL_ROWS} x L "
-          f"{D3_SMALL_L}, 8 banks, (interval, start) {D3_SMALL_ARRIVALS}", flush=True)
+          f"{D3_SMALL_L}, banks {D3_SMALL_BANKS} (the registers route, its pre-pass's codes "
+          f"and hits bitwise too, and the shared route), (interval, start) "
+          f"{D3_SMALL_ARRIVALS}", flush=True)
 
     # (a) D3 at full width: the main path, then its kernel apart
     t0 = time.perf_counter()
@@ -2559,9 +2654,12 @@ def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-        launches[(interval, start)] = counts["dram_scan_full"]
-        if counts != {k: int(k == "dram_scan_full") for k in counts}:
-            fail(f"simulate_dram({interval}, {start}): launches {counts}; expected one of D3")
+        launches[(interval, start)] = counts
+        if (counts != {k: int(k in ("dram_scan_full", "dram_prepass")) for k in counts}
+                or dram_scan_full.routes != {"registers": 1, "shared": 0}):
+            fail(f"simulate_dram({interval}, {start}): launches {counts}, D3's routes "
+                 f"{dram_scan_full.routes}; expected one of D3's registers route and one of "
+                 f"its pre-pass")
         got = (res.finish_cycle, res.total_latency_cycles, res.row_hits, res.row_misses,
                res.accesses)
         if got != REF_D3[(interval, start)]:
@@ -2569,7 +2667,11 @@ def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
                  f"{REF_D3[(interval, start)]}")
         print(f"[13] simulate_dram(interval {interval}, start {start}): "
               f"{dataclasses.asdict(res)} equal to REF_D3; wall {wall!r} s; launches "
-              f"{counts['dram_scan_full']} of D3", flush=True)
+              f"{counts['dram_scan_full']} of D3 (registers route), {counts['dram_prepass']} of "
+              f"its pre-pass", flush=True)
+        split = d3_host_split(lines, dm, interval, start, dev)
+        print(f"[13] simulate_dram({interval}, {start}) stage by stage (host clock, ms): "
+              f"{json.dumps(split)}; {sum(split.values())!r} ms in all", flush=True)
     st = arrival_rows(lines, dm, *D3_ARRIVALS[0])
     args = [torch.from_numpy(st[k]).to(dev) for k in ("bk_m", "row_m", "ar_m", "va_m")]
     scal = (dm.banks_per_channel, float(dm.t_cas), float(dm.t_rp + dm.t_rcd),
@@ -2583,22 +2685,58 @@ def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
     if not all(bitwise_equal(a, b) for a, b in zip(got, want)):
         fail("dram_scan_full differs bitwise from its plain version at full width")
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
-    k_ms = time_ms(lambda: dram_scan_full(*args, *scal), 10)
-    cold_ms = time_cold_ms(lambda: dram_scan_full(*args, *scal), 10, flush)
-    R, L = args[0].shape
+    bk, row, ar, va = args
+    code, hit = dram_prepass(bk, row, va, scal[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pcode, phit = dram_prepass_plain(bk, row, va, scal[0])
+    torch.cuda.synchronize()
+    pre_plain_ms = (time.perf_counter() - t1) * 1e3
+    if not (bitwise_equal(code, pcode) and bitwise_equal(hit, phit)):
+        fail("dram_prepass differs bitwise from its plain version at full width")
+    R, L = bk.shape
+    done, lat = torch.empty_like(ar), torch.empty_like(ar)
+    regs = _regs_launcher()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def scan_alone():
+        e = regs(code.data_ptr(), ar.data_ptr(), R, L, *(_f32(x) for x in scal[1:]),
+                 done.data_ptr(), lat.data_ptr(), stream)
+        if e:
+            fail(f"dram_scan_regs launch failed with CUDA error {e}")
+    scan_alone()
+    torch.cuda.synchronize()
+    if not (bitwise_equal(done, want[0]) and bitwise_equal(lat, want[1])):
+        fail("D3's scan alone differs bitwise from the plain version at full width")
+    k_ms = time_ms(scan_alone, 10)
+    cold_ms = time_cold_ms(scan_alone, 10, flush)
+    pre_ms = time_ms(lambda: dram_prepass(bk, row, va, scal[0]), 10)
+    pre_cold = time_cold_ms(lambda: dram_prepass(bk, row, va, scal[0]), 10, flush)
+    both_ms = time_ms(lambda: dram_scan_full(*args, *scal), 10)
     chain = d3_chain(st["bk_m"], st["va_m"])
     n_valid = int(st["va_m"].sum())
-    print(f"[13] dram_scan_full: bitwise equal to plain at (R, L)={(R, L)} (longest channel "
-          f"{L} accesses, {n_valid} in all); kernel {k_ms!r} ms ({cold_ms!r} L2 flushed), "
-          f"{k_ms * 1e6 / L!r} ns per access, {chain * f32_op_ms / k_ms!r} of its chain bound "
-          f"{chain * f32_op_ms!r} ms ({chain} dependent f32 ops x {f32_op_ms * 1e6:.4f} ns); "
-          f"plain {plain_ms:.1f} ms", flush=True)
+    print(f"[13] dram_scan_full, registers route: bitwise equal to plain at (R, L)={(R, L)} "
+          f"(longest channel {L} accesses, {n_valid} in all); the scan {k_ms!r} ms ({cold_ms!r} "
+          f"L2 flushed), {k_ms * 1e6 / L!r} ns per access, {chain * f32_op_ms / k_ms!r} of its "
+          f"chain bound {chain * f32_op_ms!r} ms ({chain} dependent f32 ops x "
+          f"{f32_op_ms * 1e6:.4f} ns); the pre-pass apart {pre_ms!r} ms ({pre_cold!r} L2 "
+          f"flushed), codes and hits bitwise its plain version's ({pre_plain_ms:.1f} ms); the "
+          f"wrapper, both launches, {both_ms!r} ms; plain {plain_ms:.1f} ms", flush=True)
     entry = dict(kind="dram_scan_full", err=err, ms=k_ms, plain_ms=plain_ms,
                  nbytes=R * L * (4 + 4 + 4 + 1) + R * L * (4 + 4 + 1),
                  ops=8 * n_valid, lat_ms=chain * f32_op_ms, shapes=[(R, L)],
-                 launches=launches[D3_ARRIVALS[0]],
+                 launches=launches[D3_ARRIVALS[0]]["dram_scan_full"],
                  library_none="no one PyTorch call computes it")
-    del flush, args, got, want
+    # The pre-pass: bank, row, valid in, codes and hits out; a warp's walk of
+    # its segment carries the bank's last update from one chunk of 32 to the
+    # next (a shared store and load).
+    seg = -(-L // (32 * 128)) * 128
+    pre_entry = dict(kind="dram_prepass", err=0.0, ms=pre_ms, plain_ms=pre_plain_ms,
+                     nbytes=R * L * (4 + 4 + 1) + R * L * (4 + 1), ops=24 * R * L,
+                     lat_ms=2 * (seg // 32) * f32_op_ms, shapes=[(R, L)],
+                     launches=launches[D3_ARRIVALS[0]]["dram_prepass"],
+                     library_none="no one PyTorch call computes it")
+    del flush, args, got, want, code, hit, pcode, phit, done, lat
 
     # (b) the collective matmul on a one-rank NCCL group
     store_dir = tempfile.TemporaryDirectory()
@@ -2658,7 +2796,7 @@ def distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms) -> dict:
     finally:
         dist.destroy_process_group()
         store_dir.cleanup()
-    return entry
+    return entry, pre_entry
 
 
 def main() -> None:
@@ -3495,7 +3633,7 @@ def main() -> None:
           f"{max_abs_err(*[logits[w][1] for w in ('cuda', 'cpu')])!r}", flush=True)
 
     # ---- 7. Zamba2-2.7B serving at full width ---------------------------
-    lm_counts, k4_lm = serve_zamba2(dev, K)
+    lm_counts, k4_lm, lm32_counts = serve_zamba2(dev, K)
 
     # ---- 8. the DSE sweep at full width ------------------------------------
     sweep_launches = sweep_phase(dev, K, wl)
@@ -3520,8 +3658,8 @@ def main() -> None:
 
     # ---- 13. D3, the collective matmul and the sharded restore ---------------
     t0 = time.perf_counter()
-    entries["dram_scan_full[lru arrivals]"] = distributed_phase(
-        dev, K, name_power, hw, etrace, f32_op_ms)
+    entries["dram_scan_full[lru arrivals]"], entries["dram_prepass[lru arrivals]"] = (
+        distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms))
     print(f"[13] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- report ----------------------------------------------------------
@@ -3547,7 +3685,9 @@ def main() -> None:
             e["serving_launches"] = {run: c[e["kind"]] for run, c in serving_launches.items()}
     for name, e in lm_entries.items():
         run = PHASE11_RUN.get(name)
-        e["launches"] = (serve_runs[run] if run else lm_counts)[e["kind"]]
+        # K6's f32 route: its launches in phase 7's f32 teacher-forced check
+        counts = lm32_counts if name == "flash_attention[f32 zamba2]" else lm_counts
+        e["launches"] = (serve_runs[run] if run else counts)[e["kind"]]
         if e["launches"] == 0:
             fail(f"{name}: no launch in its main run")
     entries.update(lm_entries)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Ablation of the port's simulator scan kernels, D1, K1, K2 and D2, on one NVIDIA GPU.
+"""Ablation of the port's simulator scan kernels, D1, K1, K2, D2 and D3, on one NVIDIA GPU.
 
     python3 scripts/scan_ablation.py [KERNEL ...]
 
-KERNEL is any of dram_scan, cache_scan, stack_distance and rrip_scan; with
-none given, all four run.
+KERNEL is any of dram_scan, cache_scan, stack_distance, rrip_scan and
+dram_scan_full; with none given, all five run.
 
 All run on the full-size inputs of ``simulate`` on DLRM-RMC2 x ``tpuv6e()``
 (``dlrm_rmc2_small(num_batches=2)``): D1 (``src/repro_torch/csrc/dram_scan.cu``)
@@ -85,15 +85,37 @@ of one power-of-two length (the buckets of a launch per bucket) and
 against every row on the chunked route, the launches alone and the whole
 call with its copies (``core/memory/rrip.py`` ``scan_rows``, host clock).
 
+D3 (``src/repro_torch/csrc/dram_scan_full.cu``) on the lru/stack miss trace
+of the same workload (both batches, 3,254,576 lines) laid out by
+``arrival_rows`` at interval 0.5, 16 channels x 207,184 slots, 8 banks, as
+``chip_smoke.py`` phase 13 runs it. Its shared route (the bank state in
+shared memory, the route of 17 to 160 banks) forced at 8 banks, and
+  no-state       its bank state's shared-memory loads and stores left out
+                 (wrong output: what the state traffic costs);
+then the registers route's pre-pass alone, its scan alone and the wrapper
+(both), and
+  depth-N        the lanes' bank state read N steps behind the chain (the
+                 kernel's kDepth; 3, 5, 6), the nearer updates forwarded
+                 from registers;
+  role-by-thread the warp's role chosen by threadIdx.x, not by a
+                 warp-uniform value (every shfl then a collective sequence);
+  no-bank-read   no bank-free cycle read (wrong output: the chain and the
+                 staging alone).
+Each D3 line gives the SASS instructions of the kernel's largest innermost
+loop (``cuobjdump``), per step of 16, and writes that kernel's SASS to
+``build/ablation/sass_d3_<variant>.txt``.
+
 Builds into ``build/ablation/``. Last, the card's name and power limit.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -106,7 +128,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import dlrm_rmc2_small, tpuv6e  # noqa: E402
 from repro_torch.core.engine import build_embedding_traces  # noqa: E402
 from repro_torch.core.memory.cache import bucket_rows  # noqa: E402
-from repro_torch.core.memory.dram import chunk_rows  # noqa: E402
+from repro_torch.core.memory.dram import DramModel, arrival_rows, chunk_rows  # noqa: E402
 from repro_torch.core.memory.system import MemorySystem, lane_geometry  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_scan as k1  # noqa: E402
@@ -273,6 +295,21 @@ VARIANTS["rrip_scan"] = {
                 ("!Row::same(end + (c - 1) * S, start + c * S, a.ways);",
                  "!Row::same(end + (c - 1) * S, start + c * S, a.ways) && a.ways < 0;")],
 }
+# D3's variants: of the shared-state walk (the route of more than 16 banks)
+# and of the registers route.
+VARIANTS["dram_scan_full"] = {
+    "no-state": [
+        ("    f = free_[b * kRows + lane];\n    o = open[b * kRows + lane];\n",
+         "    f = __int_as_float(b);\n    o = b;\n"),
+        ("    open[b * kRows + lane] = o;\n    free_[b * kRows + lane] = f;\n", "")],
+    **{f"depth-{d}": [("constexpr int kDepth = 4;", f"constexpr int kDepth = {d};")]
+       for d in (3, 5, 6)},
+    "role-by-thread": [("  if (warp == 1) {\n", "  if (threadIdx.x >= 32) {\n")],
+    "no-bank-read": [("        const float bp = (c & kNear) ? near : far;\n",
+                      "        const float bp = -INFINITY;\n")],
+}
+# Which of D3's variants change the shared route (the rest, the registers one).
+D3_SHARED = ("no-state",)
 VARIANTS["cache_scan"] = dict(WALK, **{
     "no-min": [("  if (ln.team_log2 == 5) return __reduce_min_sync(kFull, key);",
                 "  if (ln.team_log2 >= 4) return key;")]})
@@ -323,6 +360,122 @@ def build(job) -> Path:
     if proc.returncode:
         raise SystemExit(f"nvcc failed on {kernel} {name}:\n{proc.stdout}{proc.stderr}")
     return lib
+
+
+def sass_loop(lib: Path, kernel: str, label: str):
+    """The SASS of ``kernel`` (a substring of its symbol) in ``lib``: the
+    instructions of its largest innermost loop (the region between a
+    backward branch and its target that holds no other such region), and
+    their opcodes. The function's SASS is written to
+    ``build/ablation/sass_<label>.txt``."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        if kernel not in func.split("\n", 1)[0]:
+            continue
+        (OUT / f"sass_{label}.txt").write_text(func)
+        ins = [(int(m.group(1), 16), m.group(2).strip())
+               for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        loops = []
+        for addr, t in ins:
+            b = re.search(r"\bBRA(?:\.\w+)*\s+(?:`\(?)?(0x[0-9a-f]+)", t)
+            if b and int(b.group(1), 16) <= addr:
+                loops.append((int(b.group(1), 16), addr))
+        inner = [lp for lp in loops
+                 if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+        if not inner:
+            return len(ins), Counter()
+        lo, hi = max(inner, key=lambda lp: lp[1] - lp[0])
+        body = [t for a, t in ins if lo <= a <= hi]
+        ops = Counter(re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for t in body)
+        return len(body), ops
+    raise SystemExit(f"no kernel {kernel!r} in {lib}")
+
+
+def d3_ablation(etrace, hw, dev, stream, flush, libs) -> None:
+    """D3 at full width: the lru/stack miss trace of ``simulate`` (both
+    batches, 3,254,576 lines) laid out by ``arrival_rows`` at interval 0.5,
+    as phase 13 of ``chip_smoke.py`` runs it (16 x 207,184, 8 banks)."""
+    lines = MemorySystem.from_hardware(hw.with_policy("lru"), "cuda").prepare_embedding(
+        etrace).request.lines
+    dm = DramModel.from_hardware(hw)
+    st = arrival_rows(lines, dm, 0.5, 0.0)
+    args = [torch.from_numpy(st[k]).to(dev) for k in ("bk_m", "row_m", "ar_m", "va_m")]
+    R, L = args[0].shape
+    banks = dm.banks_per_channel
+    scal = [d1._f32(x) for x in (dm.t_cas, dm.t_rp + dm.t_rcd,
+                                 dm.line_bytes / dm.chan_bytes_per_cycle)]
+    outs = [torch.empty((R, L), device=dev), torch.empty((R, L), device=dev),
+            torch.empty((R, L), dtype=torch.bool, device=dev)]
+    want = [o.clone() for o in outs]
+    print(f"D3 at (R, L)=({R}, {L}), {banks} banks, {int(st['va_m'].sum())} accesses",
+          flush=True)
+
+    def shared_run(fn, into):
+        def run():
+            err = fn(*(a.data_ptr() for a in args), R, L, banks, *scal,
+                     *(o.data_ptr() for o in into), stream)
+            if err:
+                raise SystemExit(f"dram_scan_full launch failed with CUDA error {err}")
+        return run
+
+    ref_fn = d1._full_launcher()
+    shared_run(ref_fn, want)()
+    package = _build.build_all()["dram_scan_full"]
+
+    def report(name, run, into, lib, kernel, extra=""):
+        run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                               b.view(torch.int32) if b.dtype == torch.float32 else b)
+                   for a, b in zip(into, want))
+        ms, cold = time_ms(run, 20), time_cold_ms(run, 20, flush)
+        n, ops = sass_loop(lib or package, kernel, f"d3_{name}")
+        print(f"D3 {name}: {ms!r} ms ({cold!r} L2 flushed), {ms * 1e6 / L!r} ns per access, "
+              f"bitwise equal to the shared route: {same}{extra}; compute loop {n} SASS "
+              f"instructions, {n / 16!r} a step of 16 ({dict(ops.most_common(12))})",
+              flush=True)
+
+    # The shared route (the bank state in shared memory) at 8 banks
+    for name in ["shared", *D3_SHARED, "shared"]:
+        lib = libs.get(("dram_scan_full", name))
+        fn = ref_fn
+        if lib is not None:
+            fn = getattr(ctypes.CDLL(str(lib)), "dram_scan_full_launch")
+            fn.argtypes, fn.restype = ref_fn.argtypes, ref_fn.restype
+        report(name, shared_run(fn, outs), outs, lib, "dram_scan_full_kernel")
+
+    # The registers route: the pre-pass, then the scan
+    bk, row, ar, va = args
+    code, hit = d1.dram_prepass(bk, row, va, banks)
+    torch.cuda.synchronize()
+    pcode, phit = d1.dram_prepass_plain(bk, row, va, banks)
+    pre_ms = time_ms(lambda: d1.dram_prepass(bk, row, va, banks), 20)
+    pre_cold = time_cold_ms(lambda: d1.dram_prepass(bk, row, va, banks), 20, flush)
+    print(f"D3 pre-pass: {pre_ms!r} ms ({pre_cold!r} L2 flushed); codes and hits bitwise the "
+          f"plain pre-pass's: {torch.equal(code, pcode) and torch.equal(hit, phit)}", flush=True)
+    regs_ref = d1._regs_launcher()
+    reg_outs = [torch.empty((R, L), device=dev), torch.empty((R, L), device=dev), hit]
+    for name in ["registers", *(v for v in VARIANTS["dram_scan_full"] if v not in D3_SHARED),
+                 "registers"]:
+        lib = libs.get(("dram_scan_full", name))
+        fn = regs_ref
+        if lib is not None:
+            fn = getattr(ctypes.CDLL(str(lib)), "dram_scan_regs_launch")
+            fn.argtypes, fn.restype = regs_ref.argtypes, regs_ref.restype
+
+        def run(fn=fn):
+            err = fn(code.data_ptr(), ar.data_ptr(), R, L, *scal,
+                     reg_outs[0].data_ptr(), reg_outs[1].data_ptr(), stream)
+            if err:
+                raise SystemExit(f"dram_scan_regs launch failed with CUDA error {err}")
+        report(name, run, reg_outs, lib, "dram_scan_regs_kernel")
+    whole = d1.dram_scan_full(*args, banks, *scal)
+    same = all(torch.equal(a, b) for a, b in zip(whole, want))
+    report("registers, the wrapper (pre-pass + scan)",
+           lambda: d1.dram_scan_full(*args, banks, *scal), reg_outs, None,
+           "dram_scan_regs_kernel", f" (the wrapper's own outputs: {same})")
 
 
 def launcher(module, lib: Path | None):
@@ -626,6 +779,8 @@ def main() -> None:
                   f"bucket {', '.join(per_bucket)}), equal to the kernel as it is: {same}", flush=True)
     if "rrip_scan" in wanted:
         rrip_ablation(etrace, hw, lane, dev, stream, flush, libs)
+    if "dram_scan_full" in wanted:
+        d3_ablation(etrace, hw, dev, stream, flush, libs)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
 

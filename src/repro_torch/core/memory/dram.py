@@ -29,7 +29,8 @@ occupancy vs per-bank row-op serialization) used for very long traces.
 ``simulate_dram`` with a non-zero issue interval or start cycle keeps the
 per-access scan with an arrival time per access (chunk compression assumes
 the bus is the only arrival constraint): ``dram_scan_full`` (D3), one
-kernel launch per call on the card, its plain torch version on the CPU,
+kernel launch per call on the card (and one of its pre-pass, up to 16
+banks a channel), its plain torch version on the CPU,
 over each channel's FR-FCFS-ordered accesses padded to the longest
 channel. Its per-channel latency sums are added in the order XLA's CPU
 backend adds the reference's (``xla_row_sum``), so every field of the
@@ -282,8 +283,9 @@ def simulate_dram(
     embedding gathers. That default (zero issue interval, zero start cycle)
     routes through the chunked one-segment engine, the same code path as the
     segmented/contended timing. Non-zero arrivals keep the per-access scan
-    (D3, ``dram_scan_full``: one launch on ``device="cuda"``), bitwise the
-    reference's ``_scan_channel_full`` route.
+    (D3, ``dram_scan_full``: on ``device="cuda"`` one launch, and one of its
+    pre-pass up to 16 banks a channel), bitwise the reference's
+    ``_scan_channel_full`` route.
     """
     lines = np.asarray(lines, dtype=np.int64).reshape(-1)
     n = lines.size

@@ -4,26 +4,54 @@
 // Replaces the `lax.scan` of `_scan_channel_full` in
 // src/repro/core/memory/dram.py (reached through `_scan_channel`, vmapped
 // over channels; a scan, not a Pallas kernel). `simulate_dram` takes it
-// when the issue interval or the start cycle is non-zero. One lane walks
-// one channel row over its L service-ordered slots, carrying the per-bank
-// open row and bank-free cycle and the bus-free cycle. Per slot it writes
-// the completion (done + t_cas), the latency (that minus the arrival) and
-// whether the access hit the open row; an invalid slot writes 0 / 0 / 0
-// and leaves the state as it is.
+// when the issue interval or the start cycle is non-zero. A row is one
+// channel's L service-ordered slots; the reference walks it carrying the
+// per-bank open row and bank-free cycle and the bus-free cycle, and writes
+// per slot the completion (done + t_cas), the latency (that minus the
+// arrival) and whether the access hit the open row; an invalid slot writes
+// 0 / 0 / 0 and leaves the state as it is.
 //
-// What bounds it: latency. A row is L dependent steps; consecutive slots
-// of one block share a bank, so a step's chain is the bank-free cycle
-// forwarded from the step before, a max with the arrival, the row
-// activation add, a max with the bus-free cycle and the bus add: four
-// dependent f32 operations as written, three at least (after a valid
-// access to the same bank the bus-free cycle is that access's done, which
-// the first max already bounds, so the second max is exact and could be
-// left out; a select in its place would cost as much on the chain). Where
-// the bank differs, two (the max with the bus-free cycle and the bus add).
-// There are as many lanes as channels (16 on
-// `simulate_dram`'s path), so the card's bandwidth and FLOP rate do not
-// enter. The layout is D1's (csrc/dram_scan.cu), which keeps device
-// memory off the chain:
+// What bounds it: latency. A row is L dependent steps, one f32 chain
+//     done = max(max(a, bank_free[b]) + occ, bus_free) + bus,
+// and there are as many rows as channels (16 on `simulate_dram`'s path), so
+// the card's bandwidth and FLOP rate do not enter. Two routes, chosen by
+// `banks` alone; each launches or fails.
+//
+// Registers (banks <= 16; tpuv6e() has 8): two kernels.
+//   * The pre-pass (`dram_prepass_kernel`) takes everything that does not
+//     depend on time off the chain. Which row a bank has open depends only
+//     on the order of the valid in-range accesses to it, so the row hit,
+//     and with it occ (0 or t_row_act), is known before the scan. It also
+//     finds each access's previous update of its bank (j) and the previous
+//     valid access (pv), and packs per slot one int32 code: the bank's lane
+//     (31 for a bank out of range), valid, hit, same (j == pv: the bank's
+//     free cycle is the bus-free cycle), a one-hot distance i - j of 2..5,
+//     and the bank as a one-hot write mask in bits 16..31. A block of 32
+//     warps per row: each warp a segment, first the last update of each
+//     bank and the last valid slot per segment, then each warp's start
+//     state from the segments before it, then a walk of 32 slots at a time
+//     (`__match_any_sync` finds the previous lane of the same bank). It
+//     writes the hit output and the codes.
+//   * The scan (`dram_scan_regs_kernel`), a block per row: a loader warp
+//     stages each tile of codes and arrivals with cp.async and turns them
+//     into four f32 terms a slot (ao = a + occ, or -inf if invalid; occ;
+//     cc = occ where `same`, else 0; bus, or 0 if invalid), and turns the
+//     raw completions back into the outputs; the compute warp walks the row
+//     on the staged terms. Every lane runs the same chain; lane k holds bank
+//     k's free cycle (lane 31 holds -inf). Because fl(max(x, y) + z) =
+//     max(fl(x + z), fl(y + z)) (rounding is monotone) and bank_free <=
+//     bus_free, a step is
+//         done = max(max(ao, bp + occ), bus_free + cc) + bus,
+//     three dependent f32 ops on the chain (the add of cc, the max, the
+//     add of bus); where `same`, any bp <= bus_free gives the same bits,
+//     and an invalid slot gives done = bus_free. bp, the bank's free cycle,
+//     comes off the chain: a `shfl` of the lanes' state as it was kDepth
+//     steps back, or the completion of step i - 2 .. i - kDepth + 1 held in
+//     registers where the code's distance names it. No memory operation
+//     sits between two dependent steps.
+// Shared (16 < banks <= 160): one kernel (`dram_scan_full_kernel`), the
+// route of every width before the registers route. D1's layout
+// (csrc/dram_scan.cu):
 //   * a block is one compute warp (lane = row) and three loader warps. The
 //     loaders bring tiles of kTile slots of all 32 rows (bank, row,
 //     arrival, valid) into shared memory with 16-byte cp.async, kStages
@@ -34,24 +62,23 @@
 //   * the compute warp reads 16 slots of its row at a time with 16-byte
 //     shared loads (row strides of an odd number of 16-byte units: no bank
 //     conflicts) and writes 16 outputs the same way;
-//   * the bank state stays [bank][lane] in shared memory; each step reads
-//     the next slot's bank entry before it writes its own and forwards its
-//     own result when the two slots share the bank, so no shared-memory
-//     round trip sits on the chain;
+//   * the bank state (open row, bank-free cycle) stays [bank][lane] in
+//     shared memory; each step reads the next slot's bank entry before it
+//     writes its own and forwards its own result when the two slots share
+//     the bank. That shared-memory round trip and the state's selects and
+//     stores make a step several times its chain: what the register route
+//     takes off (scripts/scan_ablation.py times both; PERF.md has it);
 //   * a step is straight-line code: selects, and a store to a spare bank
 //     row where the reference changes nothing.
-// The differences from D1: one access a step (no run of k accesses), an
-// arrival per slot, and max(arrival, bank-free) where D1 has max(0, ·).
-// A tile whose rows are not 16-byte aligned (L not a multiple of 16, or a
-// pointer off 16 bytes) is copied element by element, and the slots past L
-// in its last group of 16 are marked invalid.
+// Either route copies a tile whose rows are not 16-byte aligned element by
+// element, and marks the slots past L in its last group of 16 invalid.
 //
 // The f32 chain is bitwise equal to the reference's: every add is
-// __fadd_rn and the latency __fsub_rn, in the reference's order (done =
-// max(max(a, bank_free) + occ, bus_free) + bus; out = done + t_cas;
-// lat = out - a), and the library is built with -fmad=false. The scalar
-// timings arrive already rounded to f32 by the caller, as JAX rounds them.
-// A bank outside [0, banks) never hits, sees no bank-free cycle and
+// __fadd_rn and the latency __fsub_rn (out = done + t_cas; lat = out - a),
+// and the library is built with -fmad=false. The scalar timings arrive
+// already rounded to f32 by the caller, as JAX rounds them; the register
+// route's algebra needs t_row_act >= 0 and bus >= 0, which the wrapper
+// checks. A bank outside [0, banks) never hits, sees no bank-free cycle and
 // changes no bank (the plain version does the same; simulate_dram never
 // sends one).
 #include <cuda_runtime.h>
@@ -324,6 +351,338 @@ cudaError_t opt_in(int banks) {
                               (int)shared_bytes(banks));
 }
 
+// ---------------------------------------------------------------------------
+// Registers route (banks <= 16): the pre-pass, then the scan
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRegMaxBanks = 16;
+constexpr int kLaneOut = 31;           // the lane that holds -inf: a bank out of range
+// A slot's code: bits 0-4 the lane to read (the bank, or kLaneOut), then
+// these flags, the one-hot distance to the bank's previous update (2..5
+// steps back) and the one-hot bank it updates (bits 16 + b).
+constexpr unsigned kValid = 1u << 5, kHit = 1u << 6, kSame = 1u << 7;
+constexpr int kDistShift = 8, kMaxDist = 5, kWriteShift = 16;
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+__device__ __forceinline__ unsigned lanemask_gt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_gt;" : "=r"(m));
+  return m;
+}
+
+constexpr int kPreWarps = 32;          // segments of a row, one a warp
+constexpr int kPreThreads = 32 * kPreWarps;
+constexpr int kPreUnroll = 4;          // 32-slot chunks whose inputs are loaded at once
+
+struct PrepassArgs {
+  const int* bk;
+  const int* row;
+  const uint8_t* valid;
+  int* code;
+  uint8_t* hit;
+  int L, banks;
+};
+
+// One block per row. Each warp owns a segment of seg slots: (1) its last
+// update of each bank and its last valid slot; (2) from the segments before
+// it, the bank's last update (and the row it opened) and the last valid slot
+// as its walk starts; (3) the walk, 32 slots at a time.
+__global__ void __launch_bounds__(kPreThreads) dram_prepass_kernel(PrepassArgs a) {
+  __shared__ int last_upd[kPreWarps][kRegMaxBanks];
+  __shared__ int last_valid[kPreWarps];
+  __shared__ int carry_idx[kPreWarps][kRegMaxBanks];
+  __shared__ int carry_row[kPreWarps][kRegMaxBanks];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t off = (size_t)blockIdx.x * a.L;
+  const int* bk = a.bk + off;
+  const int* row = a.row + off;
+  const uint8_t* valid = a.valid + off;
+  constexpr int kSpan = 32 * kPreUnroll;
+  const int seg = (a.L + kPreWarps * kSpan - 1) / (kPreWarps * kSpan) * kSpan;
+  const int s0 = min(w * seg, a.L), s1 = min(s0 + seg, a.L);
+  const unsigned banks = (unsigned)a.banks;
+  if (lane < kRegMaxBanks) last_upd[w][lane] = -1;
+  __syncwarp();
+
+  // Each span's inputs are loaded while the span before is processed.
+  const auto fetch = [&](int c, int (&b)[kPreUnroll], int (&rw)[kPreUnroll],
+                         bool (&v)[kPreUnroll], bool rows) {
+#pragma unroll
+    for (int k = 0; k < kPreUnroll; ++k) {
+      const int i = c + 32 * k + lane;
+      b[k] = i < s1 ? bk[i] : -1;
+      rw[k] = rows && i < s1 ? row[i] : 0;
+      v[k] = i < s1 && valid[i] != 0;
+    }
+  };
+  int b[kPreUnroll], rw[kPreUnroll];
+  bool v[kPreUnroll];
+  int lastv = -1;
+  fetch(s0, b, rw, v, false);
+  for (int c = s0; c < s1; c += kSpan) {
+    int nb[kPreUnroll], nrw[kPreUnroll];
+    bool nv[kPreUnroll];
+    fetch(c + kSpan, nb, nrw, nv, false);
+#pragma unroll
+    for (int k = 0; k < kPreUnroll; ++k) {
+      if (v[k] && (unsigned)b[k] < banks) atomicMax(&last_upd[w][b[k]], c + 32 * k + lane);
+      const unsigned vb = __ballot_sync(kFull, v[k]);
+      if (vb) lastv = c + 32 * k + 31 - __clz(vb);
+    }
+#pragma unroll
+    for (int k = 0; k < kPreUnroll; ++k) b[k] = nb[k], v[k] = nv[k];
+  }
+  if (lane == 0) last_valid[w] = lastv;
+  __syncthreads();
+
+  if (lane < kRegMaxBanks) {
+    int j = -1;
+    for (int u = 0; u < w; ++u) j = max(j, last_upd[u][lane]);
+    carry_idx[w][lane] = j;
+    carry_row[w][lane] = j >= 0 ? row[j] : -1;
+  }
+  int pv = -1;
+  for (int u = 0; u < w; ++u) pv = max(pv, last_valid[u]);
+  __syncwarp();
+
+  const unsigned lt = lanemask_lt(), gt = lanemask_gt();
+  fetch(s0, b, rw, v, true);
+  for (int c = s0; c < s1; c += kSpan) {
+    int nb[kPreUnroll], nrw[kPreUnroll];
+    bool nv[kPreUnroll];
+    fetch(c + kSpan, nb, nrw, nv, true);
+#pragma unroll
+    for (int k = 0; k < kPreUnroll; ++k) {
+      const int i = c + 32 * k + lane;
+      const bool inb = (unsigned)b[k] < banks;
+      const bool upd = v[k] && inb;
+      // the lanes before this one that update its bank; the last of them
+      // opened the row this access finds
+      const unsigned grp = __match_any_sync(kFull, upd ? b[k] : 32 + lane);
+      const unsigned before = grp & lt;
+      const int jl = before ? 31 - __clz(before) : lane;
+      const int open_here = __shfl_sync(kFull, rw[k], jl);
+      const int slot = inb ? b[k] : 0;
+      const int j = before ? c + 32 * k + jl : carry_idx[w][slot];
+      const int open = before ? open_here : carry_row[w][slot];
+      const bool hit = upd && open == rw[k];
+      const unsigned vb = __ballot_sync(kFull, v[k]);
+      const unsigned vbefore = vb & lt;
+      const int pvi = vbefore ? c + 32 * k + 31 - __clz(vbefore) : pv;
+      const bool has = upd && j >= 0;
+      const int dist = i - j;
+      unsigned code = (inb ? (unsigned)b[k] : (unsigned)kLaneOut) | (v[k] ? kValid : 0u) |
+                      (hit ? kHit : 0u) | (has && j == pvi ? kSame : 0u);
+      if (has && dist >= 2 && dist <= kMaxDist) code |= 1u << (kDistShift + dist - 2);
+      if (upd) code |= 1u << (kWriteShift + b[k]);
+      if (i < s1) {
+        a.code[off + i] = (int)code;
+        a.hit[off + i] = hit ? 1 : 0;
+      }
+      __syncwarp();  // every lane has read the carry before its last writers change it
+      if (upd && !(grp & gt)) {
+        carry_idx[w][b[k]] = i;
+        carry_row[w][b[k]] = rw[k];
+      }
+      if (vb) pv = c + 32 * k + 31 - __clz(vb);
+      __syncwarp();
+    }
+#pragma unroll
+    for (int k = 0; k < kPreUnroll; ++k) b[k] = nb[k], rw[k] = nrw[k], v[k] = nv[k];
+  }
+}
+
+constexpr int kRegTile = 512;          // slots of the row per stage
+constexpr int kRegStages = 2;
+constexpr int kRegThreads = 64;        // the compute warp and a loader warp
+// The lanes' bank state is read kDepth steps behind the chain; the banks
+// updated in between come from the completions held in registers.
+constexpr int kDepth = 4;
+static_assert(kDepth >= 3 && kDepth - 1 <= kMaxDist, "forwarded distances are 2..kMaxDist");
+// The code's distance bits the registers forward: 2 .. kDepth - 1.
+constexpr unsigned kNear = ((1u << (kDepth - 2)) - 1u) << kDistShift;
+
+struct RegStage {
+  int code[kRegTile];
+  float arrive[kRegTile];
+  float ao[kRegTile];    // a + occ, -inf for an invalid slot
+  float occ[kRegTile];   // 0 or t_row_act (0 for an invalid slot)
+  float cc[kRegTile];    // occ where the bank's free cycle is the bus-free cycle, else 0
+  float bus[kRegTile];   // bus, 0 for an invalid slot
+  float done[kRegTile];  // the compute warp's raw completions
+};
+
+struct RegArgs {
+  const int* code;
+  const float* arrive;
+  float* done;
+  float* lat;
+  int L;
+  bool vec;  // 16-byte copies: L % 4 == 0 and code, arrive 16-byte aligned
+  float t_cas, t_row, bus;
+};
+
+__device__ __forceinline__ void reg_bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kRegThreads) : "memory");
+}
+__device__ __forceinline__ void reg_bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kRegThreads) : "memory");
+}
+
+// Loader: codes and arrivals of n slots at `g` into st, then each slot's
+// terms; the slots from n to the next multiple of 16 are invalid.
+__device__ void reg_load_tile(RegStage& st, const RegArgs& a, size_t g, int n, int lane) {
+  if (a.vec) {  // n is a multiple of 4
+    for (int q = 4 * lane; q < n; q += 128) {
+      cp_async16(st.code + q, a.code + g + q);
+      cp_async16(st.arrive + q, a.arrive + g + q);
+    }
+    cp_async_wait_all();
+  } else {
+    for (int q = lane; q < n; q += 32) {
+      st.code[q] = a.code[g + q];
+      st.arrive[q] = a.arrive[g + q];
+    }
+  }
+  __syncwarp();
+  const int n16 = (n + kGroup - 1) / kGroup * kGroup;
+  for (int q = lane; q < n16; q += 32) {
+    const unsigned c = q < n ? (unsigned)st.code[q] : 0u;
+    const bool v = (c & kValid) != 0u;
+    const float occ = v && !(c & kHit) ? a.t_row : 0.0f;
+    st.code[q] = (int)c;
+    st.ao[q] = v ? __fadd_rn(st.arrive[q], occ) : -INFINITY;
+    st.occ[q] = occ;
+    st.cc[q] = (c & kSame) ? occ : 0.0f;
+    st.bus[q] = v ? a.bus : 0.0f;
+  }
+}
+
+// Loader: the outputs of n slots from st to device memory at `g`.
+__device__ void reg_store_tile(const RegStage& st, const RegArgs& a, size_t g, int n, int lane) {
+  for (int q = lane; q < n; q += 32) {
+    const bool v = ((unsigned)st.code[q] & kValid) != 0u;
+    const float out = __fadd_rn(st.done[q], a.t_cas);
+    a.done[g + q] = v ? out : 0.0f;
+    a.lat[g + q] = v ? __fsub_rn(out, st.arrive[q]) : 0.0f;
+  }
+}
+
+// The terms of 16 slots.
+struct RegGroup {
+  unsigned code[kGroup];
+  float ao[kGroup], occ[kGroup], cc[kGroup], bus[kGroup];
+};
+
+__device__ __forceinline__ void reg_load_group(RegGroup& g, const RegStage& st, int g0) {
+#pragma unroll
+  for (int j = 0; j < kGroup; j += 4) {
+    const uint4 c = *(const uint4*)(st.code + g0 + j);
+    const float4 x = *(const float4*)(st.ao + g0 + j);
+    const float4 o = *(const float4*)(st.occ + g0 + j);
+    const float4 y = *(const float4*)(st.cc + g0 + j);
+    const float4 u = *(const float4*)(st.bus + g0 + j);
+    g.code[j] = c.x, g.code[j + 1] = c.y, g.code[j + 2] = c.z, g.code[j + 3] = c.w;
+    g.ao[j] = x.x, g.ao[j + 1] = x.y, g.ao[j + 2] = x.z, g.ao[j + 3] = x.w;
+    g.occ[j] = o.x, g.occ[j + 1] = o.y, g.occ[j + 2] = o.z, g.occ[j + 3] = o.w;
+    g.cc[j] = y.x, g.cc[j + 1] = y.y, g.cc[j + 2] = y.z, g.cc[j + 3] = y.w;
+    g.bus[j] = u.x, g.bus[j + 1] = u.y, g.bus[j + 2] = u.z, g.bus[j + 3] = u.w;
+  }
+}
+
+// One block per row: warp 0 walks the chain, warp 1 stages the tiles and
+// writes the outputs.
+__global__ void __launch_bounds__(kRegThreads, 1) dram_scan_regs_kernel(RegArgs a) {
+  __shared__ __align__(16) RegStage stages[kRegStages];
+  const int lane = threadIdx.x % 32;
+  // The role by a warp-uniform value (lane 0's warp index), so that the
+  // compiler knows the compute warp converged: a branch on threadIdx.x
+  // alone leaves it unproven, and every shfl then compiles to a collective
+  // sequence of six instructions.
+  const int warp = __shfl_sync(kFull, (int)threadIdx.x / 32, 0);
+  const size_t off = (size_t)blockIdx.x * a.L;
+  const int ntiles = (a.L + kRegTile - 1) / kRegTile;
+
+  if (warp == 1) {
+    for (int it = 0; it < ntiles + kRegStages; ++it) {
+      const int s = it % kRegStages;
+      if (it >= kRegStages) {
+        reg_bar_sync(1 + kRegStages + s);
+        const int i0 = (it - kRegStages) * kRegTile;
+        reg_store_tile(stages[s], a, off + i0, min(kRegTile, a.L - i0), lane);
+        __syncwarp();
+      }
+      if (it < ntiles) {
+        const int i0 = it * kRegTile;
+        reg_load_tile(stages[s], a, off + i0, min(kRegTile, a.L - i0), lane);
+        __syncwarp();
+        reg_bar_arrive(1 + s);
+      }
+    }
+    return;
+  }
+
+  // The compute warp. Every lane runs the chain; lane k < 16 holds bank k's
+  // free cycle as it was kDepth steps back, lane kLaneOut -inf.
+  const unsigned lanebit = lane < kRegMaxBanks ? 1u << (kWriteShift + lane) : 0u;
+  float lag = lane == kLaneOut ? -INFINITY : 0.0f;
+  float f[kDepth - 1];      // f[k]: the bus-free cycle after step i - 1 - k
+  unsigned wc[kDepth - 1];  // wc[k]: the code of step i - 1 - k
+#pragma unroll
+  for (int k = 0; k < kDepth - 1; ++k) {
+    f[k] = 0.0f;
+    wc[k] = 0u;
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    RegStage& st = stages[it % kRegStages];
+    const int n16 = (min(kRegTile, a.L - it * kRegTile) + kGroup - 1) / kGroup * kGroup;
+    reg_bar_sync(1 + it % kRegStages);
+    RegGroup g;
+    reg_load_group(g, st, 0);
+    for (int g0 = 0; g0 < n16; g0 += kGroup) {
+      float dn[kGroup];
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const unsigned c = g.code[j];
+        // the bank's free cycle: the lanes' state (shfl reads the lane in
+        // the code's low 5 bits), or a completion still in registers (the
+        // code's distance); where `same`, any value <= f[0]. The
+        // completions are selected first, so the shfl's result passes one
+        // select only; every lane runs the shfl on every step (a shfl
+        // under a condition is a branch a step).
+        const float far = __shfl_sync(kFull, lag, (int)c);
+        float near = f[kDepth - 2];
+#pragma unroll
+        for (int d = kDepth - 2; d >= 2; --d)
+          near = (c & (1u << (kDistShift + d - 2))) ? f[d - 1] : near;
+        const float bp = (c & kNear) ? near : far;
+        const float y = fmaxf(g.ao[j], __fadd_rn(bp, g.occ[j]));
+        const float done = __fadd_rn(fmaxf(y, __fadd_rn(f[0], g.cc[j])), g.bus[j]);
+        // the state catches up with step i - kDepth + 1
+        lag = (wc[kDepth - 2] & lanebit) ? f[kDepth - 2] : lag;
+#pragma unroll
+        for (int k = kDepth - 2; k > 0; --k) {
+          f[k] = f[k - 1];
+          wc[k] = wc[k - 1];
+        }
+        f[0] = done;
+        wc[0] = c;
+        dn[j] = done;
+      }
+#pragma unroll
+      for (int j = 0; j < kGroup; j += 4)
+        *(float4*)(st.done + g0 + j) = make_float4(dn[j], dn[j + 1], dn[j + 2], dn[j + 3]);
+      if (g0 + kGroup < n16) reg_load_group(g, st, g0 + kGroup);
+    }
+    reg_bar_arrive(1 + kRegStages + it % kRegStages);
+  }
+}
+
 }  // namespace
 
 extern "C" int dram_scan_full_launch(const int* bk, const int* row, const float* arrive,
@@ -340,5 +699,28 @@ extern "C" int dram_scan_full_launch(const int* bk, const int* row, const float*
   if (err != cudaSuccess) return (int)err;
   dram_scan_full_kernel<<<grid, kThreads, shared_bytes(banks), (cudaStream_t)stream>>>(
       a, banks, t_cas, t_row_act, bus);
+  return (int)cudaGetLastError();
+}
+
+// The registers route's pre-pass: (R, L) bank, row and valid in, each
+// slot's code (int32) and hit (uint8) out. 1 <= banks <= 16.
+extern "C" int dram_prepass_launch(const int* bk, const int* row, const uint8_t* valid, int R,
+                                   int L, int banks, int* code, uint8_t* hit, void* stream) {
+  if (banks < 1 || banks > kRegMaxBanks || R < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  dram_prepass_kernel<<<R, kPreThreads, 0, (cudaStream_t)stream>>>(
+      PrepassArgs{bk, row, valid, code, hit, L, banks});
+  return (int)cudaGetLastError();
+}
+
+// The registers route's scan: (R, L) codes of the pre-pass and arrivals in,
+// done and lat (f32) out. t_row_act >= 0 and bus >= 0.
+extern "C" int dram_scan_regs_launch(const int* code, const float* arrive, int R, int L,
+                                     float t_cas, float t_row_act, float bus, float* done,
+                                     float* lat, void* stream) {
+  if (R < 1 || L < 1 || !(t_row_act >= 0.0f) || !(bus >= 0.0f)) return (int)cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) { return ((uintptr_t)p & 15u) == 0; };
+  const RegArgs a{code, arrive, done, lat, L, L % 4 == 0 && aligned(code) && aligned(arrive),
+                  t_cas, t_row_act, bus};
+  dram_scan_regs_kernel<<<R, kRegThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

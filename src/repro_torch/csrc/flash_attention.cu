@@ -13,7 +13,8 @@
 // skip the k/v tiles past the q tile's last row (the reference's skip of
 // blocks with ik*bk > (iq+1)*bq - 1) and mask the columns past each row.
 //
-// Two routes, chosen by dtype alone; each launches or fails.
+// Two routes, chosen by dtype alone, both on the tensor cores; each
+// launches or fails.
 //
 // bf16: the tensor-core kernel (flash_wgmma_kernel). The two products are
 // 4 S^2/2 d flops per head when causal: at Zamba2's prefill (8 x 32 heads,
@@ -63,10 +64,33 @@
 // libcuda; it is taken through cudaGetDriverEntryPoint, so the library
 // links against the runtime alone.
 //
-// f32: the scalar kernel (flash_kernel), kept as it was first written: one
-// block per (b, h, 64-row q tile), K^T and V tiles widened into shared
-// memory, scores and p.v as scalar f32 FMAs. Its tolerance against the
-// reference is 2e-5, which TF32 tensor cores (about 1e-3) would break.
+// f32: 3xTF32 (flash_tf32_kernel). One TF32 product keeps about three
+// decimal digits, far from the 2e-5 that the reference holds f32 to; the
+// split x = hi + lo into two TF32 values and the three products lo.hi +
+// hi.lo + hi.hi, summed in f32, keep x.y to about 2^-21 relative, on
+// `mma.sync m16n8k8 .tf32` (f32 operands in 32-bit registers). At Zamba2's
+// prefill the products are 3 x 42.9 GFLOP, 0.260 ms at the card's 494.7
+// TFLOP/s dense TF32 rate, against 336 MB of f32 q, k, v and out, 0.100 ms
+// at 3.35 TB/s. One block per (b, h, BQ-row q tile), the longest causal tile
+// first; a warp per strip of 16 q rows, so the online softmax runs on the
+// accumulator fragment in registers. All threads copy each K/V tile (BK
+// positions x d, f32) into a 2-stage ring with cp.async (16-byte copies when
+// d and the strides allow, else 4-byte), zero-filled past Sk and d; the tile
+// is split once, in shared memory, for every warp: the tensor cores read a
+// .tf32 operand's top 19 bits, so the tile as it landed is hi, and only lo
+// is written beside it. q stays as it landed and each warp makes the lo of
+// its own A fragments per k-step. ldmatrix reads q and K (8 x 4 f32 matrices as 8 x 8 b16 ones);
+// the accumulator's columns (2t, 2t + 1 of each 8) are not the A fragment's
+// (t, t + 4), so the P.V product reads V's positions 2t and 2t + 1 in their
+// place and P, split in registers, feeds it without a trip through shared
+// memory. Rows of DP + 4 floats (an odd number of 16-byte units) keep
+// ldmatrix and the V fragments' loads free of bank conflicts. What bounds
+// it on this card is not device memory: scripts/attention_ablation.py
+// times one product in place of three at -25%, the split pass at -11%, V's
+// fragment loads at -5%, the exponentials at nothing, and K's fragments
+// loaded a k-step ahead gained nothing; PERF.md has the readings.
+// (BQ, BK): (128, 64) to d 80, (128, 32) to 128, (64, 32) to 192, (64, 16)
+// to 256, as the shared memory holds them.
 //
 // The output is contiguous (B,Hq,S,d) in q's dtype.
 #include <cuda.h>
@@ -79,192 +103,318 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// f32: the scalar kernel
+// f32: 3xTF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 256;  // 16 (rows) x 16 (columns)
-constexpr int kBQ = 64;        // q rows of a block: 16 x kRows
-constexpr int kBK = 64;        // k/v rows of a tile: 16 x kCols
-constexpr int kRows = kBQ / 16;
-constexpr int kCols = kBK / 16;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  // element strides (b, h, s) of q, k, v
-  int64_t qs_b, qs_h, qs_s, ks_b, ks_h, ks_s, vs_b, vs_h, vs_s;
-  int B, Hq, Hkv, S, Sk, d, causal;
-  float scale;
+// A block's layout: BQ q rows (a strip of 16 a warp), BK k/v rows a tile, d
+// padded to DP (a multiple of 8). Rows of kStride = DP + 4 floats, an odd
+// number of 16-byte units, so ldmatrix and the V fragments' scalar loads
+// meet no bank conflicts. Floats: q [BQ], K [2 stages][BK] and V [2][BK] as
+// they land (their own hi halves), K lo and V lo [BK].
+template <int DP, int BQ, int BK>
+struct TfLayout {
+  static_assert(DP % 8 == 0 && BQ % 16 == 0 && BK % 8 == 0, "tile shapes");
+  static constexpr int kWarps = BQ / 16;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kStride = DP + 4;
+  static constexpr int kK = BQ * kStride;
+  static constexpr int kV = kK + 2 * BK * kStride;
+  static constexpr int kKlo = kV + 2 * BK * kStride;
+  static constexpr int kVlo = kKlo + BK * kStride;
+  static constexpr int kBytes = (kVlo + BK * kStride) * 4;
 };
 
-// Shared floats: q (BQ, d+1), K^T (d, BK+1), V (BK, d), p (BQ, BK+1).
-__host__ __device__ inline int smem_floats(int d) {
-  return kBQ * (d + 1) + d * (kBK + 1) + kBK * d + kBQ * (kBK + 1);
+struct TfArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  // element strides (b, h, s) of q, k, v
+  int64_t qs_b, qs_h, qs_s, ks_b, ks_h, ks_s, vs_b, vs_h, vs_s;
+  int S, Sk, d, Hq, group, causal;
+  int vec;           // 16-byte copies: d and every stride a multiple of 4, bases 16-byte aligned
+  float scale_log2;  // sm_scale * log2(e): p = exp2(s * scale_log2 - m)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Max and sum over the 16 threads (one half-warp) that share a query row.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// 16 (or 4) bytes global -> shared, zero-filled when !full (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Four 8 x 4 f32 matrices (as 8 x 8 b16 ones): lanes 8m..8m+7 give the rows
+// of matrix m; thread (g = lane / 4, t = lane % 4) receives row g, column t
+// of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
-// CC = column tiles of the accumulator: thread column tx covers d columns
-// tx + 16 * cc for cc < CC, so d <= 16 * CC.
-template <typename T, int CC>
-__global__ void __launch_bounds__(kThreads) flash_kernel(FlashArgs a) {
-  extern __shared__ float smem[];
-  const int d = a.d, S = a.S, Sk = a.Sk;
-  float* qs = smem;                    // [BQ][d+1]
-  float* kT = qs + kBQ * (d + 1);      // [d][BK+1]
-  float* vs = kT + d * (kBK + 1);      // [BK][d]
-  float* ps = vs + kBK * d;            // [BQ][BK+1]
+// x = hi + lo in two tf32 values. The tensor cores read a .tf32 operand's
+// top 19 bits and ignore the low 13, so x's own bits serve as hi (x
+// truncated to tf32) and need no instruction; lo = x - hi (exact) rounded
+// to tf32 (nearest, ties away). hi + lo is x to about 2^-21 relative.
+__device__ __forceinline__ uint32_t tf32_lo(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = tf32_lo(x);
+}
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (a.Hq / a.Hkv);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const T* qb = (const T*)a.q + b * a.qs_b + h * a.qs_h;
-  const T* kb = (const T*)a.k + b * a.ks_b + kvh * a.ks_h;
-  const T* vb = (const T*)a.v + b * a.vs_b + kvh * a.vs_h;
+// d += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// The three products that keep f32 accuracy: lo.hi + hi.lo + hi.hi.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
 
-  for (int e = tid; e < kBQ * d; e += kThreads) {
-    const int r = e / d, c = e % d;
-    qs[r * (d + 1) + c] = q0 + r < S ? to_f32(qb[(q0 + r) * a.qs_s + c]) : 0.f;
-  }
+// 2^x by the MUFU unit alone (relative error ~2^-22; denormal results
+// flush to 0, which p = 2^(s - max) <= 1 can afford).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  float m[kRows], l[kRows], acc[kRows][CC];
-#pragma unroll
-  for (int ii = 0; ii < kRows; ++ii) {
-    m[ii] = kNegInf;
-    l[ii] = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < CC; ++cc) acc[ii][cc] = 0.f;
-  }
-
-  // Causal: tiles past the q tile's last row are fully masked; skip them.
-  const int k_end = a.causal ? min(S, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and p are no longer read
-    for (int e = tid; e < kBK * d; e += kThreads) {
-      const int r = e / d, c = e % d;
-      const bool in = k0 + r < Sk;
-      kT[c * (kBK + 1) + r] = in ? to_f32(kb[(k0 + r) * a.ks_s + c]) : 0.f;
-      vs[e] = in ? to_f32(vb[(k0 + r) * a.vs_s + c]) : 0.f;
+// Rows [r0, r0 + ROWS) of one (b, head) slice into dst [ROWS][DP + 4],
+// zero-filled past `limit` rows and past d columns.
+template <int DP, int ROWS, int NT>
+__device__ __forceinline__ void tf_load(float* dst, const float* src, int64_t ss, int r0, int limit,
+                                        int d, bool vec, int tid) {
+  constexpr int kS = DP + 4;
+  if (vec) {
+    constexpr int C = DP / 4;
+    for (int e = tid; e < ROWS * C; e += NT) {
+      const int r = e / C, c = (e - r * C) * 4;
+      const bool full = r0 + r < limit && c < d;
+      cp_async16(dst + r * kS + c, full ? src + (int64_t)(r0 + r) * ss + c : src, full);
     }
+  } else {
+    for (int e = tid; e < ROWS * DP; e += NT) {
+      const int r = e / DP, c = e - r * DP;
+      const bool full = r0 + r < limit && c < d;
+      cp_async4(dst + r * kS + c, full ? src + (int64_t)(r0 + r) * ss + c : src, full);
+    }
+  }
+}
+
+// A landed tile [ROWS][DP + 4] split once for every warp: the tile as it
+// landed is hi, lo goes beside it.
+template <int DP, int ROWS, int NT>
+__device__ __forceinline__ void tf_split(const float* hi, float* lo, int tid) {
+  constexpr int kS = DP + 4, C = DP / 4;
+  for (int e = tid; e < ROWS * C; e += NT) {
+    const int r = e / C, c = (e - r * C) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(hi + r * kS + c);
+    *reinterpret_cast<uint4*>(lo + r * kS + c) =
+        make_uint4(tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+  }
+}
+
+template <int DP, int BQ, int BK>
+__global__ void __launch_bounds__(TfLayout<DP, BQ, BK>::kThreads, 1)
+    flash_tf32_kernel(const TfArgs a) {
+  using L = TfLayout<DP, BQ, BK>;
+  constexpr int NT = L::kThreads, kS = L::kStride;
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;
+  float* ks = sm + L::kK;
+  float* vs = sm + L::kV;
+  float* klo = sm + L::kKlo;
+  float* vlo = sm + L::kVlo;
+
+  // Longest causal q tile first within each head.
+  const int iq = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = iq * BQ, S = a.S, Sk = a.Sk;
+  const int k_end = a.causal ? min(S, q0 + BQ) : Sk;
+  const int nk = (k_end + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kvh = h / a.group;
+  const float* qg = a.q + b * a.qs_b + h * a.qs_h;
+  const float* kg = a.k + b * a.ks_b + kvh * a.ks_h;
+  const float* vg = a.v + b * a.vs_b + kvh * a.vs_h;
+  const bool vec = a.vec != 0;
+
+  tf_load<DP, BQ, NT>(qs, qg, a.qs_s, q0, S, a.d, vec, tid);
+  tf_load<DP, BK, NT>(ks, kg, a.ks_s, 0, Sk, a.d, vec, tid);
+  tf_load<DP, BK, NT>(vs, vg, a.vs_s, 0, Sk, a.d, vec, tid);
+  cp_async_commit();
+
+  // This warp's strip: rows wr0 .. wr0 + 15; this thread's rows row0 and
+  // row1 of the accumulator fragments, columns 2t and 2t + 1 of each 8.
+  const int wr0 = q0 + warp * 16, row0 = wr0 + g, row1 = row0 + 8;
+  // ldmatrix: matrix m = lane / 8, its row lane % 8. q's A fragment (rows
+  // 0-7 / 8-15 x columns 0-3 / 4-7 of a k-step); K's B fragment (hi
+  // columns 0-3, 4-7, lo 0-3, 4-7 of 8 positions).
+  const int lm = lane / 8, lr = lane % 8;
+  const float* qa = qs + (warp * 16 + (lm & 1) * 8 + lr) * kS + (lm >> 1) * 4;
+  const int kb_off = lr * kS + (lm & 1) * 4;
+
+  float o[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float sc = a.scale_log2;
+
+  for (int j = 0; j < nk; ++j) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j (and q) landed; every warp is done with tile j - 1
+    const int st = j & 1;
+    float* kt = ks + st * BK * kS;
+    float* vt = vs + st * BK * kS;
+    if (j + 1 < nk) {
+      tf_load<DP, BK, NT>(ks + (st ^ 1) * BK * kS, kg, a.ks_s, (j + 1) * BK, Sk, a.d, vec, tid);
+      tf_load<DP, BK, NT>(vs + (st ^ 1) * BK * kS, vg, a.vs_s, (j + 1) * BK, Sk, a.d, vec, tid);
+      cp_async_commit();
+    }
+    tf_split<DP, BK, NT>(kt, klo, tid);
+    tf_split<DP, BK, NT>(vt, vlo, tid);
     __syncthreads();
+    const int k0 = j * BK;
+    if (a.causal && k0 > wr0 + 15) continue;  // every score of the strip is masked
 
-    // Scores of rows ty*kRows + ii, columns tx + 16*jj.
-    float s[kRows][kCols];
+    // S = Q K^T: q split into hi and lo per k-step, K's halves from the tile.
+    float s[BK / 8][4];
 #pragma unroll
-    for (int ii = 0; ii < kRows; ++ii)
+    for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+    const float* kb = (lm < 2 ? kt : klo) + kb_off;
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) s[ii][jj] = 0.f;
-    for (int c = 0; c < d; ++c) {
-      float qv[kRows], kv[kCols];
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      uint32_t qr[4], ah[4], al[4];
+      ldsm_x4(qr, qa + 8 * kk);
 #pragma unroll
-      for (int ii = 0; ii < kRows; ++ii) qv[ii] = qs[(ty * kRows + ii) * (d + 1) + c];
+      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(qr[e]), ah[e], al[e]);
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) kv[jj] = kT[c * (kBK + 1) + tx + 16 * jj];
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < kCols; ++jj) s[ii][jj] += qv[ii] * kv[jj];
+      for (int jj = 0; jj < BK / 8; ++jj) {
+        uint32_t kf[4];  // hi b0, hi b1, lo b0, lo b1
+        ldsm_x4(kf, kb + jj * 8 * kS + 8 * kk);
+        mma_3xtf32(s[jj], ah, al, kf[0], kf[1], kf[2], kf[3]);
+      }
     }
 
+    // Online softmax on the fragment: s[jj][e] is row (e < 2 ? row0 : row1),
+    // column k0 + 8 jj + 2t + (e & 1). Masked scores become -1e30 before
+    // scaling (sm_scale > 0 keeps the order); p = 2^(s * scale_log2 - m).
+    if (k0 + BK > Sk || (a.causal && k0 + BK - 1 > wr0)) {
 #pragma unroll
-    for (int ii = 0; ii < kRows; ++ii) {
-      const int row = q0 + ty * kRows + ii;
-      float mx = kNegInf;
+      for (int jj = 0; jj < BK / 8; ++jj)
 #pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const int col = k0 + tx + 16 * jj;
-        float x = s[ii][jj] * a.scale;
-        if (col >= Sk || (a.causal && col > row)) x = kNegInf;
-        s[ii][jj] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[ii], row_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kCols; ++jj) {
-        const float p = expf(s[ii][jj] - m_new);
-        ps[(ty * kRows + ii) * (kBK + 1) + tx + 16 * jj] = p;
-        sum += p;
-      }
-      const float alpha = expf(m[ii] - m_new);
-      l[ii] = alpha * l[ii] + row_sum(sum);
-      m[ii] = m_new;
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) acc[ii][cc] *= alpha;
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * jj + 2 * t + (e & 1);
+          if (col >= Sk || (a.causal && col > (e < 2 ? row0 : row1))) s[jj][e] = kNegInf;
+        }
     }
-    __syncthreads();
+    float mx0 = s[0][0], mx1 = s[0][2];
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      mx0 = fmaxf(mx0, fmaxf(s[jj][0], s[jj][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[jj][2], s[jj][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * sc), mn1 = fmaxf(m1, mx1 * sc);
+    const float al0 = fast_exp2(m0 - mn0), al1 = fast_exp2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      s[jj][0] = fast_exp2(fmaf(s[jj][0], sc, -mn0));
+      s[jj][1] = fast_exp2(fmaf(s[jj][1], sc, -mn0));
+      s[jj][2] = fast_exp2(fmaf(s[jj][2], sc, -mn1));
+      s[jj][3] = fast_exp2(fmaf(s[jj][3], sc, -mn1));
+      sum0 += s[jj][0] + s[jj][1];
+      sum1 += s[jj][2] + s[jj][3];
+    }
+    l0 = al0 * l0 + sum0;  // this lane's share of the row sum
+    l1 = al1 * l1 + sum1;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      o[i][0] *= al0;
+      o[i][1] *= al0;
+      o[i][2] *= al1;
+      o[i][3] *= al1;
+    }
 
-    // acc[i][c] += sum_j p[i][j] v[j][c], columns c = tx + 16*cc.
-    for (int j = 0; j < kBK; ++j) {
-      float vv[CC], pv[kRows];
+    // O += P V. The accumulator holds columns 2t, 2t + 1 of each 8 where the
+    // A fragment wants columns t, t + 4: the k-step reads positions 2t and
+    // 2t + 1 of V in their place (the sum over positions does not care), so
+    // P feeds the product from its registers.
+    const float* vh = vt + 2 * t * kS + g;
+    const float* vl = vlo + 2 * t * kS + g;
 #pragma unroll
-      for (int cc = 0; cc < CC; ++cc) {
-        const int c = tx + 16 * cc;
-        vv[cc] = c < d ? vs[j * d + c] : 0.f;
+    for (int jj = 0; jj < BK / 8; ++jj) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[jj][0], ph[0], pl[0]);
+      split_tf32(s[jj][2], ph[1], pl[1]);
+      split_tf32(s[jj][1], ph[2], pl[2]);
+      split_tf32(s[jj][3], ph[3], pl[3]);
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        const int off = 8 * jj * kS + 8 * i;
+        mma_3xtf32(o[i], ph, pl, __float_as_uint(vh[off]), __float_as_uint(vh[off + kS]),
+                   __float_as_uint(vl[off]), __float_as_uint(vl[off + kS]));
       }
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii) pv[ii] = ps[(ty * kRows + ii) * (kBK + 1) + j];
-#pragma unroll
-      for (int ii = 0; ii < kRows; ++ii)
-#pragma unroll
-        for (int cc = 0; cc < CC; ++cc) acc[ii][cc] += pv[ii] * vv[cc];
     }
   }
 
-  T* ob = (T*)a.o + ((int64_t)b * a.Hq + h) * S * d;
 #pragma unroll
-  for (int ii = 0; ii < kRows; ++ii) {
-    const int row = q0 + ty * kRows + ii;
-    if (row < S) {
-      const float inv_l = 1.f / fmaxf(l[ii], 1e-30f);
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) {
-        const int c = tx + 16 * cc;
-        if (c < d) ob[(int64_t)row * d + c] = from_f32<T>(acc[ii][cc] * inv_l);
-      }
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  float* ob = a.o + ((int64_t)b * a.Hq + h) * S * a.d;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * i + 2 * t + (e & 1), row = e < 2 ? row0 : row1;
+      if (col < a.d && row < S) ob[(int64_t)row * a.d + col] = o[i][e] * (e < 2 ? inv0 : inv1);
+    }
 }
 
-template <typename T, int CC>
-int launch_flash(const FlashArgs& a, cudaStream_t st) {
-  const size_t bytes = (size_t)smem_floats(a.d) * sizeof(float);
+template <int DP, int BQ, int BK>
+int launch_tf32(const TfArgs& a, int B, cudaStream_t st) {
+  constexpr int bytes = TfLayout<DP, BQ, BK>::kBytes;
   static SmemOptIn opt_in;
-  const cudaError_t opted = opt_in.ensure((const void*)flash_kernel<T, CC>, bytes);
+  const cudaError_t opted = opt_in.ensure((const void*)flash_tf32_kernel<DP, BQ, BK>, bytes);
   if (opted != cudaSuccess) return (int)opted;
-  dim3 grid((a.S + kBQ - 1) / kBQ, a.Hq, a.B);
-  flash_kernel<T, CC><<<grid, kThreads, bytes, st>>>(a);
+  const dim3 grid((a.S + BQ - 1) / BQ, a.Hq, B);
+  flash_tf32_kernel<DP, BQ, BK><<<grid, TfLayout<DP, BQ, BK>::kThreads, bytes, st>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_by_width(const FlashArgs& a, cudaStream_t st) {
-  if (a.d <= 16) return launch_flash<T, 1>(a, st);
-  if (a.d <= 32) return launch_flash<T, 2>(a, st);
-  if (a.d <= 64) return launch_flash<T, 4>(a, st);
-  if (a.d <= 80) return launch_flash<T, 5>(a, st);
-  if (a.d <= 128) return launch_flash<T, 8>(a, st);
-  return launch_flash<T, 16>(a, st);
 }
 
 
@@ -303,10 +453,6 @@ struct WgArgs {
   int S, Sk, d, Hq, group, causal;
   float scale_log2;  // sm_scale * log2(e): p = exp2(s * scale_log2 - m)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
@@ -399,14 +545,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
-}
-
-// 2^x by the MUFU unit alone (relative error ~2^-22; denormal results
-// flush to 0, which p = 2^(s - max) <= 1 can afford).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // D(64 x N, f32) (+)= A(64 x 16) B(16 x N), A and B bf16 in shared memory,
@@ -748,9 +886,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int64_t* st,
 
 }  // namespace
 
-// f32 (the scalar kernel): q (B,Hq,S,d), k and v (B,Hkv,Sk,d), each with
-// the element strides (b, h, s) in `strides` (q's three, then k's, then
-// v's); out contiguous (B,Hq,S,d). Causal needs Sk == S.
+// f32 (3xTF32 on the tensor cores): q (B,Hq,S,d), k and v (B,Hkv,Sk,d),
+// each with the element strides (b, h, s) in `strides` (q's three, then
+// k's, then v's), d contiguous; out contiguous (B,Hq,S,d). Causal needs
+// Sk == S.
 extern "C" int flash_attention_f32_launch(const void* q, const void* k, const void* v, void* out,
                                           const int64_t* strides, int B, int Hq, int Hkv, int S,
                                           int Sk, int d, int causal, float scale, void* stream) {
@@ -758,10 +897,20 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k, const vo
       Sk < 1 || (causal && Sk != S) || d < 1 || d > 256) {
     return (int)cudaErrorInvalidValue;
   }
-  FlashArgs a{q, k, v, out,
-              strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-              strides[6], strides[7], strides[8], B, Hq, Hkv, S, Sk, d, causal ? 1 : 0, scale};
-  return launch_by_width<float>(a, (cudaStream_t)stream);
+  bool vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 4 == 0;
+  const TfArgs a{(const float*)q, (const float*)k, (const float*)v, (float*)out,
+                 strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+                 strides[6], strides[7], strides[8], S, Sk, d, Hq, Hq / Hkv, causal ? 1 : 0,
+                 vec ? 1 : 0, scale * 1.4426950408889634f};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (d <= 16) return launch_tf32<16, 128, 64>(a, B, st);
+  if (d <= 32) return launch_tf32<32, 128, 64>(a, B, st);
+  if (d <= 64) return launch_tf32<64, 128, 64>(a, B, st);
+  if (d <= 80) return launch_tf32<80, 128, 64>(a, B, st);
+  if (d <= 128) return launch_tf32<128, 128, 32>(a, B, st);
+  if (d <= 192) return launch_tf32<192, 64, 32>(a, B, st);
+  return launch_tf32<256, 64, 16>(a, B, st);
 }
 
 // bf16 (the tensor-core kernel): as above, with d a multiple of 8, every

@@ -6,6 +6,7 @@
 | K2 stack distance | ``stack_distance.stack_distance_groups`` | ``kernels/stack_distance.py:_stack_distance_kernel`` |
 | D1 DRAM event scan | ``dram_scan.dram_scan_chunked`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_chunked`` |
 | D3 DRAM scan with arrivals | ``dram_scan.dram_scan_full`` | the ``lax.scan`` of ``core/memory/dram.py:_scan_channel_full`` |
+| D3's pre-pass (row hits, codes) | ``dram_scan.dram_prepass`` | the same scan's open-row carry, taken off its chain |
 | D2 FIFO / SRRIP row scans | ``rrip_scan.rrip_scan_flat`` | the ``lax.scan`` s of ``core/memory/rrip.py:_fifo_scan_rows`` and ``_srrip_scan_rows`` |
 | K3 embedding bag | ``embedding_bag.embedding_bag_kernel`` | ``kernels/embedding_bag.py:_bag_kernel`` |
 | K4 row gather | ``embedding_bag.embedding_gather_kernel`` | ``kernels/embedding_bag.py:_gather_kernel`` |
@@ -15,9 +16,9 @@
 | K8 Mamba2 SSD scan | ``mamba2_ssd.mamba2_ssd_kernel`` | ``kernels/mamba2_ssd.py:_ssd_kernel`` |
 
 Each wrapper counts its launches in a ``launches`` attribute, incremented
-only where it launches its CUDA kernel; K6, K8 and D2 also count them by route
-(``flash_attention_kernel.routes``: the bf16 tensor-core kernel, "wgmma",
-and the f32 scalar kernel, "scalar"; ``mamba2_ssd_kernel.routes``: the bf16
+only where it launches its CUDA kernel; K6, K8, D2 and D3 also count them by route
+(``flash_attention_kernel.routes``: the bf16 kernel, "wgmma", and the f32
+3xTF32 kernel, "tf32"; ``mamba2_ssd_kernel.routes``: the bf16
 tensor-core kernel, "mma", and the f32 scalar kernel, "scalar"; and
 ``rrip_scan_flat.routes``: "short" and "chunked"). K8's bf16 route is two
 CUDA kernels (a cumsum pre-pass and the scan) under one count; D2's chunked
@@ -31,7 +32,7 @@ from ._build import COUNT_LOCK
 
 from .cache_scan import cache_scan_groups
 from .decode_attention import decode_attention_kernel
-from .dram_scan import dram_scan_chunked, dram_scan_full
+from .dram_scan import dram_prepass, dram_scan_chunked, dram_scan_full
 from .embedding_bag import (
     embedding_bag_kernel,
     embedding_gather_kernel,
@@ -47,6 +48,7 @@ KERNELS = {
     "stack_distance": stack_distance_groups,
     "dram_scan": dram_scan_chunked,
     "dram_scan_full": dram_scan_full,
+    "dram_prepass": dram_prepass,
     "rrip_scan": rrip_scan_flat,
     "embedding_bag": embedding_bag_kernel,
     "embedding_gather": embedding_gather_kernel,
@@ -69,3 +71,4 @@ def reset_launch_counts() -> None:
         flash_attention_kernel.routes = dict.fromkeys(flash_attention_kernel.routes, 0)
         mamba2_ssd_kernel.routes = dict.fromkeys(mamba2_ssd_kernel.routes, 0)
         rrip_scan_flat.routes = dict.fromkeys(rrip_scan_flat.routes, 0)
+        dram_scan_full.routes = dict.fromkeys(dram_scan_full.routes, 0)

@@ -22,9 +22,13 @@ D3 (``dram_scan_full``, ``csrc/dram_scan_full.cu``) replaces the
 time per access, which ``simulate_dram`` takes when its issue interval or
 start cycle is non-zero. One row is one channel's service-ordered slots,
 one access a step; per slot it emits the completion (``done + t_cas``),
-the latency (that minus the arrival) and the row hit. D1's layout, one
-access a step and ``max(arrival, bank_free)`` where D1 has ``max(0, .)``;
-``dram_scan_full_plain`` is its CPU version.
+the latency (that minus the arrival) and the row hit. Up to
+``REG_MAX_BANKS`` banks it runs a pre-pass (``dram_prepass``: the row hits
+and a code a slot, which depend only on the order of the accesses) and
+then a scan whose lanes hold the banks' free cycles in registers, three
+dependent f32 ops a step at most; wider channels take D1's layout with one
+access a step. ``dram_prepass_plain`` and ``dram_scan_full_plain`` are the
+same algorithm on the CPU.
 """
 from __future__ import annotations
 
@@ -165,68 +169,171 @@ def dram_scan_chunked(bkc, rowc, kc, valid, banks: int, k_max: int,
 dram_scan_chunked.launches = 0
 
 
+# The registers route: banks <= REG_MAX_BANKS, a pre-pass then the scan.
+REG_MAX_BANKS = 16
+# The pre-pass's code: bits 0-4 the lane to read (the bank, or LANE_OUT for
+# a bank out of range), then the flags, the one-hot distance d = 2..MAX_DIST
+# to the bank's previous update (bit DIST_SHIFT + d - 2) and the one-hot
+# bank the slot updates (bit WRITE_SHIFT + b). The lane and write fields
+# are filled for banks <= REG_MAX_BANKS only; the flags always.
+LANE_OUT = 31
+VALID, HIT, SAME = 1 << 5, 1 << 6, 1 << 7
+DIST_SHIFT, MAX_DIST, WRITE_SHIFT = 8, 5, 16
+
+
+def dram_prepass_plain(bk, row, valid, banks: int):
+    """What D3's scan needs to know before it runs, per slot, vectorised.
+
+    An access's previous update of its bank ``j`` (the last valid access to
+    the same bank before it, -1 if none) gives the open row it finds (the
+    row ``j`` wrote, -1 at first), so the row hit; with the previous valid
+    access ``pv``, ``same`` (``j == pv``: the bank-free cycle it reads is
+    the bus-free cycle). Returns ``(code, hit)``: int32 codes (see
+    ``VALID``, ``HIT``, ``SAME``, ``DIST_SHIFT``, ``WRITE_SHIFT``) and the
+    hit output (``row_hit & valid``), both ``(R, L)``.
+    """
+    R, L = bk.shape
+    dev = bk.device
+    idx = torch.arange(L, dtype=torch.int64, device=dev).expand(R, L)
+    none = torch.full((R, 1), -1, dtype=torch.int64, device=dev)
+
+    def before(x):
+        """Per slot, the largest of ``x`` at the slots before it (-1)."""
+        return torch.cat([none, x.cummax(dim=1).values[:, :-1]], dim=1)
+
+    inb = (bk >= 0) & (bk < banks)
+    upd = valid & inb
+    j = torch.full((R, L), -1, dtype=torch.int64, device=dev)
+    for b in range(banks):
+        mine = bk == b
+        j = torch.where(mine & inb, before(torch.where(upd & mine, idx, -1)), j)
+    open_row = torch.where(j >= 0, row.gather(1, j.clamp(min=0)), -1)
+    hit = upd & (open_row == row)
+    has = upd & (j >= 0)
+    same = has & (j == before(torch.where(valid, idx, -1)))
+    code = (valid.long() * VALID) | (hit.long() * HIT) | (same.long() * SAME)
+    dist = idx - j
+    for d in range(2, MAX_DIST + 1):
+        code |= (has & (dist == d)).long() << (DIST_SHIFT + d - 2)
+    if banks <= REG_MAX_BANKS:
+        code |= torch.where(inb, bk.long(), LANE_OUT)
+        code |= torch.where(upd, torch.ones_like(code) << (WRITE_SHIFT + bk.long().clamp(0, 15)), 0)
+    return code.to(torch.int32), hit
+
+
+def _full_terms(code, arrive, t_row_act: float, bus_cycles_per_line: float):
+    """The scan's four f32 terms a slot from the pre-pass's codes, as D3's
+    loader warp stages them: ``ao`` (a + occ; -inf if invalid), ``occ`` (0
+    or t_row_act; 0 if invalid), ``cc`` (occ where ``same``, else 0) and
+    ``bus`` (0 if invalid)."""
+    dev = arrive.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    v = (code & VALID) != 0
+    occ = torch.where(v & ((code & HIT) == 0),
+                      torch.tensor(_f32(t_row_act), dtype=torch.float32, device=dev), zero)
+    ao = torch.where(v, arrive + occ, torch.tensor(float("-inf"), device=dev))
+    cc = torch.where((code & SAME) != 0, occ, zero)
+    bus = torch.where(v, torch.tensor(_f32(bus_cycles_per_line), dtype=torch.float32,
+                                      device=dev), zero)
+    return ao, occ, cc, bus
+
+
 def dram_scan_full_plain(bk, row, arrive, valid, banks: int, t_cas: float,
                          t_row_act: float, bus_cycles_per_line: float):
-    """Plain torch per-access scan, a loop over L vectorised over the R rows.
+    """Plain torch per-access scan: the pre-pass (``dram_prepass_plain``),
+    then a loop over L vectorised over the R rows.
 
-    Per row ``banks + 2`` bank entries: the banks, then two spares that
-    stand in for the kernel's checks. A bank outside ``[0, banks)`` reads
-    the first, never written (an open row no int32 row equals, a bank-free
-    cycle of -inf): it never hits and sees no bank-free cycle. Steps that
-    change nothing (an invalid slot, such a bank) write the second. What
-    does not depend on the state (the slots read and written, the outputs'
-    masks and the latency subtraction) is computed for all steps at once.
-    Returns ``(done, lat, hit)`` of shape ``(R, L)``, in the reference's
-    exact op order.
+    With the row hits known, a step is ``done = max(max(ao, bp + occ),
+    bus_free + cc) + bus``, bitwise the reference's ``max(max(a, bp) + occ,
+    bus_free) + bus`` (rounding is monotone, and bp <= bus_free, with
+    equality where ``cc`` is ``occ``); an invalid slot leaves the bus-free
+    cycle as it was. ``bp`` is the slot's bank-free cycle, from ``banks + 2``
+    entries a row: the banks, one never written (-inf: a bank out of range)
+    and a spare for the steps that update no bank. Returns ``(done, lat,
+    hit)`` of shape ``(R, L)``. Needs ``t_row_act >= 0`` and
+    ``bus_cycles_per_line >= 0``.
     """
     R, L = bk.shape
     dev = bk.device
     if L == 0:
         empty = torch.zeros((R, 0), dtype=torch.float32, device=dev)
         return empty, empty.clone(), torch.zeros((R, 0), dtype=torch.bool, device=dev)
-
-    def scalar(x):
-        return torch.tensor(_f32(x), dtype=torch.float32, device=dev)
-
-    cas, t_row, bus = scalar(t_cas), scalar(t_row_act), scalar(bus_cycles_per_line)
-    zero = scalar(0.0)
+    code, hit = dram_prepass_plain(bk, row, valid, banks)
+    ao, occ, cc, bus = (t.t().contiguous() for t in _full_terms(
+        code, arrive, t_row_act, bus_cycles_per_line))
     inb = (bk >= 0) & (bk < banks)
     read = torch.where(inb, bk.long(), banks)
     write = torch.where(valid & inb, read, banks + 1)
     # step-major copies: one contiguous (R, 1) column a step
     read_t, write_t = read.t().unsqueeze(2).contiguous(), write.t().unsqueeze(2).contiguous()
-    row_t = row.t().unsqueeze(2).to(torch.int64).contiguous()
-    arrive_t, valid_t = arrive.t().contiguous(), valid.t().contiguous()
-    open_row = torch.full((R, banks + 2), -1, dtype=torch.int64, device=dev)
-    open_row[:, banks] = -(1 << 40)
     bank_free = torch.zeros((R, banks + 2), dtype=torch.float32, device=dev)
     bank_free[:, banks] = float("-inf")
     bus_free = torch.zeros(R, dtype=torch.float32, device=dev)
-    done_steps, hit_steps = [], []
+    done_steps = []
     for i in range(L):
-        s, w = read_t[i], write_t[i]
-        row_hit = open_row.gather(1, s)[:, 0] == row_t[i, :, 0]
-        occ = torch.where(row_hit, zero, t_row)
-        bank_avail = torch.maximum(arrive_t[i], bank_free.gather(1, s)[:, 0]) + occ
-        done = torch.maximum(bank_avail, bus_free) + bus
-        open_row.scatter_(1, w, row_t[i])
-        bank_free.scatter_(1, w, done[:, None])
-        bus_free = torch.where(valid_t[i], done, bus_free)
-        done_steps.append(done)
-        hit_steps.append(row_hit)
-    out = torch.stack(done_steps, dim=1) + cas
-    return (torch.where(valid, out, zero), torch.where(valid, out - arrive, zero),
-            torch.stack(hit_steps, dim=1) & valid)
+        bp = bank_free.gather(1, read_t[i])[:, 0]
+        y = torch.maximum(ao[i], bp + occ[i])
+        bus_free = torch.maximum(y, bus_free + cc[i]) + bus[i]
+        bank_free.scatter_(1, write_t[i], bus_free[:, None])
+        done_steps.append(bus_free)
+    out = torch.stack(done_steps, dim=1) + _f32(t_cas)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    return torch.where(valid, out, zero), torch.where(valid, out - arrive, zero), hit
+
+
+def _launch_fn(name: str, argtypes):
+    fn = getattr(load_library("dram_scan_full"), name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
 
 
 def _full_launcher():
-    fn = load_library("dram_scan_full").dram_scan_full_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3
-        + [ctypes.c_void_p] * 4
-    )
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch_fn("dram_scan_full_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
+
+
+def _prepass_launcher():
+    return _launch_fn("dram_prepass_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p] * 3)
+
+
+def _regs_launcher():
+    return _launch_fn("dram_scan_regs_launch", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
+
+
+def _check_full(name, bk, row, valid, *more):
+    if bk.dim() != 2 or not all(t.shape == bk.shape for t in (row, valid, *more)):
+        raise ValueError(f"{name}: bk, row, arrive and valid must share one (R, L) shape")
+
+
+def dram_prepass(bk, row, valid, banks: int):
+    """D3's pre-pass (see ``dram_prepass_plain``): ``(code, hit)`` for the
+    int32 ``(R, L)`` bank and row and bool valid. The CUDA kernel
+    (``dram_prepass_kernel``, 1 <= banks <= ``REG_MAX_BANKS``) for CUDA
+    tensors, ``dram_prepass_plain`` for CPU tensors; a CUDA call outside the
+    banks it takes, or a failed build or launch, raises."""
+    _check_full("dram_prepass", bk, row, valid)
+    check_tensors("dram_prepass", (bk, torch.int32), (row, torch.int32), (valid, torch.bool))
+    if bk.device.type == "cpu":
+        return dram_prepass_plain(bk, row, valid, banks)
+    if not 1 <= banks <= REG_MAX_BANKS:
+        raise ValueError(f"dram_prepass takes 1 <= banks <= {REG_MAX_BANKS}; got {banks}")
+    R, L = bk.shape
+    code = torch.empty((R, L), dtype=torch.int32, device=bk.device)
+    hit = torch.empty((R, L), dtype=torch.bool, device=bk.device)
+    if R == 0 or L == 0:
+        return code, hit
+    with on_device(bk.device):
+        err = _prepass_launcher()(bk.data_ptr(), row.data_ptr(), valid.data_ptr(), R, L,
+                                  int(banks), code.data_ptr(), hit.data_ptr(),
+                                  torch.cuda.current_stream(bk.device).cuda_stream)
+    check_launch("dram_prepass", err)
+    count_launch(dram_prepass)
+    return code, hit
+
+
+dram_prepass.launches = 0
 
 
 def dram_scan_full(bk, row, arrive, valid, banks: int, t_cas: float, t_row_act: float,
@@ -236,16 +343,22 @@ def dram_scan_full(bk, row, arrive, valid, banks: int, t_cas: float, t_row_act: 
     ``bk``/``row`` are int32 ``(R, L)`` (each slot's bank and row),
     ``arrive`` f32 ``(R, L)``, ``valid`` bool ``(R, L)``; the arguments of
     the reference's ``_scan_channel_full``. The scalar timings are rounded
-    to f32 once here. Returns ``(done, lat, hit)`` ``(R, L)`` (f32, f32,
-    bool) on the inputs' device: the CUDA kernel for CUDA tensors,
-    ``dram_scan_full_plain`` for CPU tensors. The kernel takes
-    ``1 <= banks <= FULL_MAX_BANKS``; a CUDA call outside it, or a failed
-    build or launch, raises.
+    to f32 once here; ``t_row_act`` and ``bus_cycles_per_line`` must not be
+    negative. Returns ``(done, lat, hit)`` ``(R, L)`` (f32, f32, bool) on
+    the inputs' device: for CUDA tensors, with ``banks <=
+    REG_MAX_BANKS`` the registers route (``dram_prepass``, then
+    ``dram_scan_regs_kernel``; one launch of each), else the shared route
+    (``dram_scan_full_kernel``, banks <= ``FULL_MAX_BANKS``);
+    ``dram_scan_full_plain`` for CPU tensors. ``dram_scan_full.routes``
+    counts each route's launches. A CUDA call outside the banks, or a
+    failed build or launch, raises.
     """
-    if bk.dim() != 2 or not (bk.shape == row.shape == arrive.shape == valid.shape):
-        raise ValueError("dram_scan_full: bk, row, arrive and valid must share one (R, L) shape")
+    _check_full("dram_scan_full", bk, row, valid, arrive)
     check_tensors("dram_scan_full", (bk, torch.int32), (row, torch.int32),
                   (arrive, torch.float32), (valid, torch.bool))
+    if not (_f32(t_row_act) >= 0 and _f32(bus_cycles_per_line) >= 0):
+        raise ValueError(f"dram_scan_full needs t_row_act >= 0 and bus_cycles_per_line >= 0; "
+                         f"got {t_row_act}, {bus_cycles_per_line}")
     if bk.device.type == "cpu":
         return dram_scan_full_plain(bk, row, arrive, valid, banks, t_cas, t_row_act,
                                     bus_cycles_per_line)
@@ -255,19 +368,28 @@ def dram_scan_full(bk, row, arrive, valid, banks: int, t_cas: float, t_row_act: 
     dev = bk.device
     done = torch.empty((R, L), dtype=torch.float32, device=dev)
     lat = torch.empty((R, L), dtype=torch.float32, device=dev)
-    hit = torch.empty((R, L), dtype=torch.bool, device=dev)
     if R == 0 or L == 0:
-        return done, lat, hit
-    with on_device(dev):
-        err = _full_launcher()(
-            bk.data_ptr(), row.data_ptr(), arrive.data_ptr(), valid.data_ptr(), R, L,
-            int(banks), _f32(t_cas), _f32(t_row_act), _f32(bus_cycles_per_line),
-            done.data_ptr(), lat.data_ptr(), hit.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        return done, lat, torch.empty((R, L), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if banks <= REG_MAX_BANKS:
+        code, hit = dram_prepass(bk, row, valid, banks)
+        with on_device(dev):
+            err = _regs_launcher()(code.data_ptr(), arrive.data_ptr(), R, L, _f32(t_cas),
+                                   _f32(t_row_act), _f32(bus_cycles_per_line),
+                                   done.data_ptr(), lat.data_ptr(), stream)
+        route = "registers"
+    else:
+        hit = torch.empty((R, L), dtype=torch.bool, device=dev)
+        with on_device(dev):
+            err = _full_launcher()(
+                bk.data_ptr(), row.data_ptr(), arrive.data_ptr(), valid.data_ptr(), R, L,
+                int(banks), _f32(t_cas), _f32(t_row_act), _f32(bus_cycles_per_line),
+                done.data_ptr(), lat.data_ptr(), hit.data_ptr(), stream)
+        route = "shared"
     check_launch("dram_scan_full", err)
-    count_launch(dram_scan_full)
+    count_launch(dram_scan_full, route=route)
     return done, lat, hit
 
 
 dram_scan_full.launches = 0
+dram_scan_full.routes = {"registers": 0, "shared": 0}

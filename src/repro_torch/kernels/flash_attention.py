@@ -11,16 +11,18 @@ over an encoder's states), as in the reference's oracle.
 ``flash_attention_kernel`` launches ``csrc/flash_attention.cu`` for CUDA
 tensors and runs ``flash_attention_plain`` (the reference's oracle,
 ``ref.flash_attention_ref``) for CPU tensors. On the card the dtype picks
-the route: bf16 goes to the tensor-core kernel (``wgmma``, TMA loads; P is
-rounded to bf16 before p.v, as ``flash_attention_bf16p_plain`` does), f32
-to the scalar kernel, which keeps the reference's 2e-5. Each route launches
-or raises; ``flash_attention_kernel.routes`` counts the launches of each
-(``launches`` is their sum). Both take any S (the reference sends
+the route, both on the tensor cores: bf16 goes to ``wgmma`` (TMA loads; P
+is rounded to bf16 before p.v, as ``flash_attention_bf16p_plain`` does),
+f32 to 3xTF32 ``mma.sync`` (each operand split into two TF32 halves and
+three products summed in f32: the reference's 2e-5 holds). Each route
+launches or raises; ``flash_attention_kernel.routes`` counts the launches of
+each (``launches`` is their sum). Both take any S (the reference sends
 S % 128 != 0 to its oracle; the kernels mask the ragged tile themselves),
 any d up to 256 and strided q, k, v whose last dimension is contiguous. The
-tensor-core route reads through TMA, which needs 16-byte strides: the
-wrapper copies an operand whose strides are not, and pads d to a multiple
-of 8 when it is not one.
+bf16 route reads through TMA, which needs 16-byte strides: the wrapper
+copies an operand whose strides are not, and pads d to a multiple of 8 when
+it is not one. The f32 route copies with cp.async, 16 bytes at a time where
+d and the strides allow it, else 4.
 """
 from __future__ import annotations
 
@@ -129,7 +131,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            round_p: bool = False) -> torch.Tensor:
     """Attention ``(B, Hq, S, d)`` of q over k, v (see the module docstring).
 
-    On the card, the tensor-core kernel for bf16 and the scalar kernel for
+    On the card, the ``wgmma`` kernel for bf16 and the 3xTF32 kernel for
     f32; ``flash_attention_plain`` for CPU tensors, or with ``round_p`` (a
     caller whose reference is the JAX package's chunked oracle, which rounds
     p to v's dtype before p.v) ``flash_attention_bf16p_plain`` for bf16 ones,
@@ -146,7 +148,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.numel() == 0:
         return torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    route = "wgmma" if q.dtype == torch.bfloat16 else "scalar"
+    route = "wgmma" if q.dtype == torch.bfloat16 else "tf32"
     d = q.shape[-1]
     if route == "wgmma" and d % 8:
         q, k, v = (F.pad(t, (0, 8 - d % 8)) for t in (q, k, v))
@@ -162,4 +164,4 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_kernel.launches = 0
-flash_attention_kernel.routes = {"wgmma": 0, "scalar": 0}
+flash_attention_kernel.routes = {"wgmma": 0, "tf32": 0}

@@ -15,7 +15,9 @@ from repro.core.hardware import tpuv6e as r_tpuv6e
 from repro.core.memory import dram as rdram
 from repro_torch.core.hardware import tpuv6e
 from repro_torch.core.memory import dram as tdram
-from repro_torch.kernels.dram_scan import dram_scan_chunked, dram_scan_full
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.dram_scan import (
+    dram_prepass, dram_prepass_plain, dram_scan_chunked, dram_scan_full)
 
 
 def _models():
@@ -234,6 +236,84 @@ def test_plain_full_scan_equals_jax_scan_bitwise(R, L, banks, interval, start, s
                           banks, 22.0, 44.0, bus)
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(_bits(a.numpy()), _bits(np.asarray(b)))
+
+
+def _frfcfs_rows(rng, R, L, banks, lo=0):
+    """Bank rows in runs of 8 slots (a vector's lines, as FR-FCFS orders
+    them) with single slots between, rows 0..3, some banks out of range
+    when ``lo`` is negative."""
+    bk = rng.integers(lo, banks + (1 if lo < 0 else 0), size=(R, L)).astype(np.int32)
+    runs = np.repeat(bk[:, ::8], 8, axis=1)[:, :L]
+    keep = rng.random((R, L)) < 0.7
+    return np.where(keep, runs, bk).astype(np.int32), rng.integers(0, 4, size=(R, L)).astype(np.int32)
+
+
+@pytest.mark.parametrize("banks", [1, 8, 16, 17])
+@pytest.mark.parametrize("interval,start", [(0.5, 0.0), (2.0, 1000.0), (0.37, 13.3)])
+def test_prepass_and_scan_equal_jax_scan_bitwise(banks, interval, start):
+    """D3's plain pre-pass plus scan (the kernels' algorithm: row hits,
+    codes, then the three-op chain) against the reference's
+    ``_scan_channel_full`` on seeded FR-FCFS-like traces, invalid slots in
+    the rows and a padded tail: every completion, latency and hit."""
+    rng = np.random.default_rng(banks * 100 + int(interval * 10))
+    R, L = 5, 700
+    bk, row = _frfcfs_rows(rng, R, L, banks)
+    arrive = (start + np.arange(R * L, dtype=np.float32).reshape(R, L) * interval).astype(np.float32)
+    valid = rng.random((R, L)) < 0.9
+    valid[:, L - 37:] = False
+    bus = 64 / (1600.0 / 0.94 / 16)
+    ref = rdram._scan_channel_full(bk, row, arrive, valid, banks, 22.0, 44.0, bus)
+    ours = dram_scan_full(*(torch.from_numpy(a) for a in (bk, row, arrive, valid)),
+                          banks, 22.0, 44.0, bus)
+    for a, b in zip(ours, ref):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(np.asarray(b)))
+
+
+@pytest.mark.parametrize("banks,lo", [(8, 0), (8, -1), (16, 0), (3, -1)])
+def test_prepass_codes_follow_the_serial_walk(banks, lo):
+    """The plain pre-pass's codes against a serial walk of the reference's
+    carry: per slot the lane it reads, valid, the row hit, whether the
+    bank's previous update is the previous valid access, the distance back
+    to it (2..5) and the bank it updates; the hit output; on the CPU no
+    launch counted."""
+    rng = np.random.default_rng(banks - lo)
+    R, L = 3, 300
+    bk, row = _frfcfs_rows(rng, R, L, banks, lo)
+    valid = rng.random((R, L)) < 0.8
+    reset_launch_counts()
+    code, hit = dram_prepass(*(torch.from_numpy(a) for a in (bk, row, valid)), banks)
+    assert launch_counts()["dram_prepass"] == 0
+    want = np.zeros((R, L), np.int64)
+    for r in range(R):
+        last, open_row, pv = {}, {}, -1
+        for i in range(L):
+            b, inb, v = int(bk[r, i]), 0 <= bk[r, i] < banks, bool(valid[r, i])
+            j = last.get(b, -1) if inb else -1
+            h = v and inb and open_row.get(b, -1) == row[r, i]
+            c = (b if inb else 31) | (32 if v else 0) | (64 if h else 0)
+            if v and inb and j >= 0:
+                c |= 128 if j == pv else 0
+                c |= (1 << (8 + i - j - 2)) if 2 <= i - j <= 5 else 0
+            if v and inb:
+                c |= 1 << (16 + b)
+                last[b], open_row[b] = i, row[r, i]
+            pv = i if v else pv
+            want[r, i] = c
+    np.testing.assert_array_equal(code.numpy(), want.astype(np.int32))
+    assert torch.equal(hit, torch.from_numpy((want & 64) != 0))
+    np.testing.assert_array_equal(code.numpy(), dram_prepass_plain(
+        *(torch.from_numpy(a) for a in (bk, row, valid)), banks)[0].numpy())
+
+
+def test_full_scan_refuses_negative_timings():
+    """The three-op chain needs t_row_act >= 0 and a bus time >= 0 (the
+    DRAM model's are positive)."""
+    z = torch.zeros((1, 4), dtype=torch.int32)
+    a, v = torch.zeros((1, 4)), torch.ones((1, 4), dtype=torch.bool)
+    with pytest.raises(ValueError, match="t_row_act >= 0"):
+        dram_scan_full(z, z, a, v, 8, 22.0, -44.0, 0.6)
+    with pytest.raises(ValueError, match="bus_cycles_per_line >= 0"):
+        dram_scan_full(z, z, a, v, 8, 22.0, 44.0, -0.6)
 
 
 @pytest.mark.parametrize("L", [1, 20, 32, 33, 100, 1000, 1025, 4096, 100_003])

@@ -16,7 +16,8 @@ import torch
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.cache_scan import cache_scan_groups, cache_scan_plain
 from repro_torch.kernels.dram_scan import (
-    dram_scan_chunked, dram_scan_full, dram_scan_full_plain, dram_scan_plain)
+    dram_prepass, dram_prepass_plain, dram_scan_chunked, dram_scan_full, dram_scan_full_plain,
+    dram_scan_plain)
 from repro_torch.kernels.embedding_bag import (
     embedding_bag_kernel,
     embedding_bag_plain,
@@ -218,7 +219,9 @@ def test_dram_scan_full_kernel_equals_plain_bitwise(cuda, R, L, interval, start)
     args = _full_args(cuda, R, L, 8, interval, start, seed=R * 7 + L)
     reset_launch_counts()
     got = dram_scan_full(*args, 8, 22.0, 44.0, 0.6016)
-    assert launch_counts()["dram_scan_full"] == 1 and launch_counts()["dram_scan"] == 0
+    counts = launch_counts()
+    assert counts["dram_scan_full"] == 1 and counts["dram_prepass"] == 1 and counts["dram_scan"] == 0
+    assert dram_scan_full.routes == {"registers": 1, "shared": 0}
     _assert_bitwise(got, dram_scan_full_plain(*args, 8, 22.0, 44.0, 0.6016))
     assert not bool(got[2][R // 2].any()) and float(got[0][R // 2].abs().max()) == 0.0
 
@@ -235,6 +238,32 @@ def test_dram_scan_full_kernel_edges(cuda, R, L, banks, offset, lo):
     _assert_bitwise(got, dram_scan_full_plain(*args, banks, 22.0, 44.0, 0.6016))
 
 
+@pytest.mark.parametrize("lo", [0, -1])
+@pytest.mark.parametrize("L", [1, 15, 100, 2048, 5000])
+@pytest.mark.parametrize("banks", [8, 16, 17, 160])
+def test_dram_scan_full_both_routes_equal_plain(cuda, banks, L, lo):
+    """Both routes against the plain version (the pre-pass, then the scan):
+    at most 16 banks the registers route (the pre-pass kernel, its codes
+    and hits bitwise the plain pre-pass's, then the scan), above it the
+    shared route; invalid slots, banks out of range (lo = -1), L of 1, not
+    a multiple of 16, and longer than a tile of both routes. Runs of 8
+    slots on one bank, as FR-FCFS orders a vector's lines."""
+    args = _full_args(cuda, 6, L, banks, 0.37, 13.3, seed=banks * 31 + L, lo=lo)
+    runs = args[0].view(6, L)[:, ::8].repeat_interleave(8, dim=1)[:, :L]
+    args[0] = args[0].clone()
+    args[0][:, :(L // 16) * 8] = runs[:, :(L // 16) * 8]
+    reset_launch_counts()
+    got = dram_scan_full(*args, banks, 22.0, 44.0, 0.6016)
+    route = "registers" if banks <= 16 else "shared"
+    assert dram_scan_full.routes == {"registers": 0, "shared": 0, route: 1}
+    assert launch_counts()["dram_prepass"] == int(route == "registers")
+    _assert_bitwise(got, dram_scan_full_plain(*args, banks, 22.0, 44.0, 0.6016))
+    if route == "registers":
+        bk, row, _, valid = args
+        _assert_bitwise(dram_prepass(bk, row, valid, banks),
+                        dram_prepass_plain(bk, row, valid, banks))
+
+
 def test_dram_scan_full_refuses_what_it_cannot_launch(cuda):
     s = torch.zeros((2, 8), dtype=torch.int32, device=cuda)
     a = torch.zeros((2, 8), dtype=torch.float32, device=cuda)
@@ -244,6 +273,10 @@ def test_dram_scan_full_refuses_what_it_cannot_launch(cuda):
     with pytest.raises(TypeError):
         dram_scan_full(s, s, s, v, 8, 22.0, 44.0, 0.6016)
     assert dram_scan_full(s, s, a, v, 160, 22.0, 44.0, 0.6016)[0].shape == (2, 8)
+    with pytest.raises(ValueError, match="t_row_act >= 0"):
+        dram_scan_full(s, s, a, v, 8, 22.0, -1.0, 0.6016)
+    with pytest.raises(ValueError, match="banks <= 16"):
+        dram_prepass(s, s, v, 17)
 
 
 @pytest.mark.parametrize("kw", [dict(issue_interval_cycles=0.5),
@@ -251,7 +284,8 @@ def test_dram_scan_full_refuses_what_it_cannot_launch(cuda):
                                 dict(start_cycle=3.3)])
 def test_simulate_dram_with_arrivals_on_the_card_equals_cpu(cuda, kw):
     """The arrival route of ``simulate_dram`` and ``dram_timing``: one D3
-    launch a call on the card, no D1, every field equal to the CPU's."""
+    launch and one of its pre-pass a call on the card (8 banks), no D1,
+    every field equal to the CPU's."""
     import dataclasses
 
     from repro_torch.core.hardware import tpuv6e
@@ -263,7 +297,9 @@ def test_simulate_dram_with_arrivals_on_the_card_equals_cpu(cuda, kw):
     for fn in (simulate_dram, dram_timing):
         reset_launch_counts()
         got = fn(lines, dm, **kw)
-        assert launch_counts()["dram_scan_full"] == 1 and launch_counts()["dram_scan"] == 0
+        counts = launch_counts()
+        assert counts["dram_scan_full"] == 1 and counts["dram_prepass"] == 1
+        assert counts["dram_scan"] == 0
         assert dataclasses.asdict(got) == dataclasses.asdict(fn(lines, dm, device="cpu", **kw))
 
 
@@ -744,6 +780,32 @@ def test_flash_attention_other_key_lengths_and_widths(cuda, B, Hq, Hkv, S, Sk, d
     torch.testing.assert_close(got.float(), want.float(), **LM_TOL[dtype])
 
 
+@pytest.mark.parametrize("layout", ["views", "odd-strides"])
+@pytest.mark.parametrize("Hq,Hkv", [(8, 2), (4, 1)])
+@pytest.mark.parametrize("causal,Sk", [(True, 131), (False, 131), (False, 77)])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 192, 256])
+def test_flash_attention_f32_route_holds_2e5(cuda, d, causal, Sk, Hq, Hkv, layout):
+    """K6's f32 route (3xTF32 on the tensor cores) against the plain version
+    at the reference's 2e-5: every tile width (d 16 to 256), causal and
+    not, Sk != S, GQA 4:1 and MQA, S = 131 (no multiple of any tile), v a
+    transposed view; with odd strides (k a slice of a row of d + 3) the
+    copies fall back to 4 bytes."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
+
+    S = 131
+    q = _randn(cuda, (2, Hq, S, d), "float32", 1)
+    k = _randn(cuda, (2, Hkv, Sk, d + (3 if layout == "odd-strides" else 0)), "float32", 2)
+    k = k[..., :d]
+    v = _randn(cuda, (2, Sk, Hkv, d), "float32", 3).transpose(1, 2)
+    reset_launch_counts()
+    got = flash_attention_kernel(q, k, v, causal=causal)
+    assert flash_attention_kernel.routes == {"wgmma": 0, "tf32": 1}
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, **LM_TOL["float32"])
+
+
 @pytest.mark.parametrize("dtype", sorted(DT))
 def test_mla_attention_pads_v_for_the_kernel(cuda, dtype):
     """ops.flash_attention with dv 128 < dq 192: K6 on v padded with zeros,
@@ -764,14 +826,14 @@ def test_mla_attention_pads_v_for_the_kernel(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_flash_attention_routes_by_dtype(cuda, dtype):
-    """bf16 goes to the tensor-core kernel, f32 to the scalar one."""
+    """bf16 goes to the wgmma kernel, f32 to the 3xTF32 one."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     q, k, v = (_randn(cuda, (1, 2, 128, 64), dtype, i) for i in range(3))
     reset_launch_counts()
     flash_attention_kernel(q, k, v)
-    route = "wgmma" if dtype == "bfloat16" else "scalar"
-    assert flash_attention_kernel.routes == {"wgmma": 0, "scalar": 0, route: 1}
+    route = "wgmma" if dtype == "bfloat16" else "tf32"
+    assert flash_attention_kernel.routes == {"wgmma": 0, "tf32": 0, route: 1}
     assert launch_counts()["flash_attention"] == 1
 
 
