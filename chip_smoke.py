@@ -47,11 +47,12 @@ passed over):
      plain versions at the reference's tolerances, with kernel, plain and
      library-call times (the library call's kernels named from the
      profiler: SDPA's backend); K6's routes (bf16: ``wgmma``, f32: 3xTF32)
-     and K8's (bf16: tensor cores, f32: scalar) are checked on every call,
-     K6's TFLOP/s (f32 also beside its f32-accurate product bound at the
-     dense TF32 rate) and K7's and K8's TB/s
+     and K8's (bf16: ``mma``, f32: 3xTF32 ``tf32``) are checked on every
+     call, K6's TFLOP/s (f32 also beside its f32-accurate product bound at
+     the dense TF32 rate) and K7's and K8's TB/s
      printed beside their bounds (K8 with its P-slice and resident blocks
-     per SM, K5 with its share of the bound and F.embedding_bag's time), K7
+     per SM, f32 also beside its f32-accurate product bound; K5 with its
+     share of the bound and F.embedding_bag's time), K7
      held bitwise equal across two calls with NaN past valid_len; then K6
      and K7 at phase 11's shapes: MLA's q/k width 192 with v 128 (padded by
      ``ops.flash_attention``), Whisper-base's encoder (S 1,500, not causal)
@@ -254,8 +255,10 @@ SCALAR_OPS_PER_S = 67e12
 # Dense bf16 tensor-core rate: the matrix products of the LM kernels (K6,
 # K7, K8) could run there, so their FLOPs are counted against it.
 TENSOR_FLOPS_PER_S = 989e12
-# Dense TF32 tensor-core rate: K6's f32 route runs 3 TF32 products for each
-# of its products (3xTF32), the least it could take at f32 accuracy.
+# Dense TF32 tensor-core rate: the f32 routes of K6 and K8 run 3 TF32
+# products for each of their products (3xTF32), the least they could take
+# at f32 accuracy. Phase 3 prints that product bound beside the kernels
+# line's bound_ms, which keeps one definition for every kernel.
 TF32_FLOPS_PER_S = 494.7e12
 # The kernels are chains of dependent steps, so their operations also bound
 # them through latency: longest chain x one step's latency, measured in this
@@ -699,7 +702,7 @@ def check_lm_kernels(dev, flush, f32_op_ms):
         kernel_chunk as kernel_chunk7)
     from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_attention_plain
     from repro_torch.kernels.mamba2_ssd import (
-        P_SLICE, kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain, mma_blocks_per_sm)
+        blocks_per_sm, kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain, mma_widths, p_slice)
 
     gen = torch.Generator(device=dev).manual_seed(2)
     smem7 = k7_fns()[1]
@@ -734,9 +737,9 @@ def check_lm_kernels(dev, flush, f32_op_ms):
                 fail(f"{label}: routes {flash_attention_kernel.routes}, expected one {route}")
             label += f" [{route} route]"
         if name == "mamba2_ssd":
-            # bf16 runs the tensor-core kernel, f32 the scalar one
-            route = "mma" if dtype == torch.bfloat16 else "scalar"
-            if mamba2_ssd_kernel.routes != {"mma": 0, "scalar": 0, route: 1}:
+            # bf16 runs ssd_mma_kernel, f32 ssd_tf32_kernel (3xTF32)
+            route = "mma" if dtype == torch.bfloat16 else "tf32"
+            if mamba2_ssd_kernel.routes != {"mma": 0, "tf32": 0, route: 1}:
                 fail(f"{label}: routes {mamba2_ssd_kernel.routes}, expected one {route}")
             label += f" [{route} route]"
         tol = LM_TOL[(name, dtype)]
@@ -967,9 +970,10 @@ def check_lm_kernels(dev, flush, f32_op_ms):
                 lat_ms=(log2c(valid) + log2c(d)) * f32_op_ms,
                 shapes=[(B, Hq, d), (B, Hkv, S_max, d), valid, chunk])
     # K8, the prompt pass of every Mamba2 layer (80 heads of 64, N = 64). The
-    # bf16 rows run the tensor-core route (P-slices, hi/lo split products),
-    # the f32 rows the scalar kernel; a view shifted by ``pad`` columns puts
-    # rows off 16 bytes, which the bf16 route copies.
+    # bf16 rows run ssd_mma_kernel (P-slices, hi/lo bf16 split products), the
+    # f32 rows ssd_tf32_kernel (3xTF32); a view shifted by ``pad`` columns
+    # puts rows off 16 bytes, which both routes copy. The f32 main shape is
+    # timed as fully as the bf16 one.
     for B, H, S, P, N, chunk, dtype, main, pad in (
             (LM_BATCH, 80, LM_PROMPT, 64, 64, 128, torch.bfloat16, True, 0),
             (LM_BATCH, 80, LM_PROMPT, 64, 64, 128, torch.float32, False, 0),
@@ -979,38 +983,52 @@ def check_lm_kernels(dev, flush, f32_op_ms):
             (1, 3, 100, 16, 16, 16, torch.bfloat16, False, 0),
             (2, 8, 200, 64, 64, 64, torch.bfloat16, False, 0),
             (2, 8, 200, 64, 64, 64, torch.bfloat16, False, 4),
+            (2, 8, 200, 64, 64, 64, torch.float32, False, 1),
             (1, 2, 130, 64, 64, 128, torch.float32, False, 0),
             (1, 2, 130, 64, 64, 128, torch.bfloat16, False, 0),
             (1, 2, 5, 64, 64, 128, torch.float32, False, 0),
             (1, 2, 5, 64, 64, 128, torch.bfloat16, False, 0)):
         args = ssd_inputs(B, H, S, P, N, dtype, pad)
         Q = kernel_chunk(chunk, S, P, N, dtype)
+        full = main or S == LM_PROMPT
         e = check(f"mamba2_ssd (B, H, S, P, N)={(B, H, S, P, N)} chunk={chunk} (kernel's {Q}) "
-                  f"{dtype}{f', rows {2 * pad} bytes off 16' if pad else ''}"
+                  f"{dtype}{f', rows {args[0].element_size() * pad} bytes off 16' if pad else ''}"
                   f"{' (main path)' if main else ''}", "mamba2_ssd",
                   lambda *a: mamba2_ssd_kernel(*a, chunk=chunk),
                   lambda *a: mamba2_ssd_plain(*a, chunk), None, args, dtype,
-                  reps=10 if main else 3)
-        if main:
+                  reps=10 if full else 3)
+        if full:
             nbytes = ((2 * B * H * S * P + 2 * B * S * N) * args[0].element_size()
                       + 2 * B * H * S * 4)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            print(f"[3] K8 bf16 at the main shape: {nbytes / e[1] / 1e9!r} TB/s (byte bound "
-                  f"{bytes_ms!r} ms at {HBM_BYTES_PER_S / 1e12:.2f}), kernel {e[1]!r} ms = "
-                  f"{e[1] / bytes_ms!r} x the bound; P-slice {P_SLICE} ({B * H * P // P_SLICE} "
-                  f"blocks), {mma_blocks_per_sm(Q, P, N)} resident blocks per SM", flush=True)
             lens = [min(Q, S - c0) for c0 in range(0, S, Q)]
             tri = sum(q * (q + 1) // 2 for q in lens)
-            entries["mamba2_ssd"] = dict(
+            # C.B^T once per batch row (it does not depend on the head); per
+            # head: the decayed scores times x, C.state and the update
+            mm_flops = 2 * B * N * tri + 2 * B * H * (P * tri + 2 * S * N * P)
+            ps = p_slice(mma_widths(P, N)[0])
+            label = "bf16" if main else "f32"
+            print(f"[3] K8 {label} at the main shape: {nbytes / e[1] / 1e9!r} TB/s (byte bound "
+                  f"{bytes_ms!r} ms at {HBM_BYTES_PER_S / 1e12:.2f}), kernel {e[1]!r} ms = "
+                  f"{e[1] / bytes_ms!r} x the bound; chunk {Q}, P-slice {ps} "
+                  f"({B * H * P // ps} blocks), {blocks_per_sm(Q, P, N, dtype)} resident blocks "
+                  f"per SM", flush=True)
+            entry = dict(
                 kind="mamba2_ssd", err=e[0], ms=e[1], plain_ms=e[2], library_ms=None,
                 library_none="no one PyTorch call computes a chunked SSD scan",
-                nbytes=nbytes,
-                # C.B^T once per batch row (it does not depend on the head);
-                # per head: the decayed scores times x, C.state and the update
-                mm_flops=2 * B * N * tri + 2 * B * H * (P * tri + 2 * S * N * P),
+                nbytes=nbytes, mm_flops=mm_flops,
                 ops=3 * B * H * tri + 6 * B * H * S,
                 lat_ms=len(lens) * (log2c(Q) + 3) * f32_op_ms,
                 shapes=[(B, H, S, P), (B, S, N), chunk])
+            if main:
+                entries["mamba2_ssd"] = entry
+            else:
+                tf32_ms = 3 * mm_flops / TF32_FLOPS_PER_S * 1e3
+                print(f"[3] K8 f32 at the main shape: {e[1] / tf32_ms!r} x its f32-accurate "
+                      f"product bound {tf32_ms!r} ms (3 x {mm_flops / 1e9!r} GFLOP at "
+                      f"{TF32_FLOPS_PER_S / 1e12} TFLOP/s dense TF32); {bytes_ms / e[1]!r} of "
+                      f"the byte bound, {tf32_ms / e[1]!r} of the product bound", flush=True)
+                entries["mamba2_ssd[f32 zamba2]"] = dict(entry, shapes=entry["shapes"] + ["f32"])
     return entries
 
 
@@ -1090,7 +1108,7 @@ def serve_zamba2(dev, K):
     if K.flash_attention_kernel.routes != {"wgmma": groups, "tf32": 0}:
         fail(f"Zamba2 generate: K6 routes {K.flash_attention_kernel.routes}; expected every "
              "launch on the bf16 (wgmma) route")
-    if K.mamba2_ssd_kernel.routes != {"mma": cfg.n_layers, "scalar": 0}:
+    if K.mamba2_ssd_kernel.routes != {"mma": cfg.n_layers, "tf32": 0}:
         fail(f"Zamba2 generate: K8 routes {K.mamba2_ssd_kernel.routes}; expected every "
              "launch on the tensor-core route")
     if out.shape != (LM_BATCH, LM_NEW) or out.min() < 0 or out.max() >= cfg.vocab:
@@ -1210,14 +1228,22 @@ def serve_zamba2(dev, K):
                               generator=torch.Generator(device=dev).manual_seed(0))
     engine32 = ServingEngine(cfg32, params32, scfg)
     with torch.inference_mode():
+        torch.cuda.synchronize()
         K.reset_launch_counts()
+        t32 = time.perf_counter()
         full32, _ = engine32.prefill(params32, tokens, init_cache(cfg32, scfg, device=dev))
         _, c32 = engine32.prefill(params32, tokens[:, :-1], init_cache(cfg32, scfg, device=dev))
         last32, _ = engine32.step(params32, tokens[:, -1:], LM_PROMPT - 1, c32)
+        torch.cuda.synchronize()
+        t32 = time.perf_counter() - t32
         counts32 = K.launch_counts()
         want32 = {k: 2 * per_prefill.get(k, 0) + per_step.get(k, 0) for k in counts32}
         if counts32 != want32:
             fail(f"Zamba2 f32 teacher-forced: launches {counts32}; expected {want32}")
+        routes32 = (dict(K.mamba2_ssd_kernel.routes), dict(K.flash_attention_kernel.routes))
+        if routes32 != ({"mma": 0, "tf32": 2 * cfg.n_layers}, {"wgmma": 0, "tf32": 2 * groups}):
+            fail(f"Zamba2 f32 teacher-forced: K8 routes {routes32[0]}, K6 routes {routes32[1]}; "
+                 "expected every launch on the f32 (tf32) routes")
         a32, b32 = last32[:, -1], full32[:, -1]
         err32 = max_abs_err(a32, b32)
         if a32.dtype != torch.float32 or not torch.allclose(a32, b32, atol=1e-3, rtol=2e-3):
@@ -1227,7 +1253,9 @@ def serve_zamba2(dev, K):
     print(f"[7] teacher-forced, f32 at full width: decode step at position {LM_PROMPT - 1} vs "
           f"the {LM_PROMPT}-token prefill's last logits: max abs err {err32!r} (logits up to "
           f"{float(b32.abs().max())!r}; allclose 1e-3 / 2e-3), argmax agrees on {agree32!r} of "
-          f"rows", flush=True)
+          f"rows; two prefills and the step {t32!r} s (host clock), launches "
+          f"{ {k: n for k, n in counts32.items() if n} }, K8 routes {routes32[0]}, K6 routes "
+          f"{routes32[1]}", flush=True)
     del params32, engine32, c32, full32, last32, a32, b32
     torch.cuda.empty_cache()
 
@@ -3686,7 +3714,8 @@ def main() -> None:
     for name, e in lm_entries.items():
         run = PHASE11_RUN.get(name)
         # K6's f32 route: its launches in phase 7's f32 teacher-forced check
-        counts = lm32_counts if name == "flash_attention[f32 zamba2]" else lm_counts
+        counts = (lm32_counts if name in ("flash_attention[f32 zamba2]", "mamba2_ssd[f32 zamba2]")
+                  else lm_counts)
         e["launches"] = (serve_runs[run] if run else counts)[e["kind"]]
         if e["launches"] == 0:
             fail(f"{name}: no launch in its main run")

@@ -99,6 +99,7 @@
 #include <stdint.h>
 
 #include "per_device.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -155,46 +156,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full)
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// Four 8 x 4 f32 matrices (as 8 x 8 b16 ones): lanes 8m..8m+7 give the rows
-// of matrix m; thread (g = lane / 4, t = lane % 4) receives row g, column t
-// of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// x = hi + lo in two tf32 values. The tensor cores read a .tf32 operand's
-// top 19 bits and ignore the low 13, so x's own bits serve as hi (x
-// truncated to tf32) and need no instruction; lo = x - hi (exact) rounded
-// to tf32 (nearest, ties away). hi + lo is x to about 2^-21 relative.
-__device__ __forceinline__ uint32_t tf32_lo(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
-  return r;
-}
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x);
-  lo = tf32_lo(x);
-}
-
-// d += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// The three products that keep f32 accuracy: lo.hi + hi.lo + hi.hi.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
 
 // 2^x by the MUFU unit alone (relative error ~2^-22; denormal results
 // flush to 0, which p = 2^(s - max) <= 1 can afford).

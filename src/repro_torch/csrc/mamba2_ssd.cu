@@ -14,43 +14,15 @@
 // What bounds it: bytes. x, B and C are read once and y written once; the
 // (P, N) state is carried across chunks on chip and never written out, as
 // the TPU kernel carries it in VMEM scratch along its sequential grid axis.
-// The products (~21 GFLOP at Zamba2's prefill) would take 6x the byte bound
-// on the scalar units, so the bf16 route runs them on the tensor cores. On
-// an H100 it still runs at ~6x the byte bound: the chunk walk's mma.sync,
-// exponential and split instructions set its pace, no one part dominating
-// (scripts/ssd_ablation.py, PERF.md).
+// The products (~16 GFLOP at Zamba2's prefill) would take several times the
+// byte bound on the scalar units, so both routes run them on the tensor
+// cores, `mma.sync` with f32 accumulation, and both still run at several
+// times the byte bound: the chunk walk's mma.sync, exponential and split
+// instructions set their pace, no one part dominating
+// (scripts/ssd_ablation.py, PERF.md). The dtype picks the route; each
+// launches or fails.
 //
-// bf16 route (ssd_mma_kernel, every launch of the bf16 model):
-//   * The grid is split over the state's rows as well: state[p, :] evolves
-//     on its own for each p, so a block per (b, h, slice of PS of the P
-//     columns) carries only its rows, with no exchange between blocks. With
-//     PS < P each block re-reads its chunk's B, C, cum and dt (from the L2)
-//     and recomputes C.B^T; the default PS = P (64 at Zamba2) does not.
-//   * 8 warps; tiles stay bf16 in shared memory, rows padded by 16 bytes so
-//     that ldmatrix reads them without bank conflicts, and are copied with
-//     cp.async, zero-filled past the sequence. One copy of the tiles: chunk
-//     c+1's x, B, C, cum and dt are issued once every warp is done with
-//     chunk c, and the SM's other resident block (two fit at PS = 64, N <=
-//     64) computes while this one waits for them.
-//   * mma.sync m16n8k16, bf16 in, f32 accumulate. Each warp owns 16 rows of
-//     the chunk: y = exp(cum_i) C.state^T, then for each column tile on or
-//     below the diagonal G = C.B^T, the scores G exp(cum_i - cum_j) dt_j
-//     (masked to j <= i on the diagonal tile) formed in registers and fed
-//     straight back as the A fragment of scores.x (as FlashAttention feeds P
-//     to P.V).
-//   * The four warps with the light rows (0..63) also carry the state, f32
-//     in registers across the whole walk (the block's PS x N tiles spread
-//     over them): state = exp(cum_last) state + (w x)^T.B, w_j =
-//     exp(cum_last - cum_j) dt_j, while the other warps finish their rows;
-//     each chunk writes it to the other of two copies in shared memory,
-//     which the next chunk's C.state^T reads, so one barrier a chunk
-//     suffices.
-//   * f32 operands (the scores, w x, the state) are split into bf16 hi + lo
-//     (lo = bf16(v - f32(hi))) and both halves go through the product into
-//     one f32 accumulator; the bf16 inputs x, B, C are exact. Rounded once
-//     to bf16 instead, the output parts from the plain version by up to 1.0
-//     at Zamba2's shape (scripts/ssd_ablation.py), far outside the
-//     tolerance. Exponentials are ex2.approx (relative error ~2^-22).
+// Common to both routes:
 //   * The cumsum of adt over a chunk is added in order, one f32 add at a
 //     time, as the reference and the plain version add it (a tree order
 //     parts from it by a few bf16 steps where cum runs near -1,000): a
@@ -58,292 +30,98 @@
 //     thread per head adding out of shared memory) writes the chunk-local
 //     cumsums and a contiguous copy of dt before the main kernel runs, so no
 //     thread of it waits on a serial sum. Both kernels count as one launch.
-//   P must be a multiple of PS (16, 32 or 64) and N one of 16, 32, 64, 128;
-//   every row of x, B and C must start on 16 bytes. The wrapper pads or
-//   copies what does not fit that.
+//   * The grid is split over the state's rows as well: state[p, :] evolves
+//     on its own for each p, so a block per (b, h, slice of PS of the P
+//     columns) carries only its rows, with no exchange between blocks. With
+//     PS < P each block re-reads its chunk's B, C, cum and dt (from the L2)
+//     and recomputes C.B^T.
+//   * 8 warps. Tiles are copied with cp.async in 16-byte pieces, zero-filled
+//     past the sequence, into rows padded by 16 bytes. The state is f32 in
+//     the registers of four warps across the whole walk; each chunk writes
+//     it to shared memory, which the next chunk's C.state^T reads.
+//   * A ragged last chunk is padded with x = B = C = adt = dt = 0: adt = 0
+//     keeps the cumsum flat and dt = 0 adds nothing to the state or to any
+//     output, so the padded rows are computed and never written.
+//   * P must be a multiple of PS (16, 32 or 64) and N one of 16, 32, 64,
+//     128; every row of x, B and C must start on 16 bytes. The wrapper pads
+//     or copies what does not fit that. The inputs may be strided views (x
+//     is a transpose of a reshape, B and C column slices of one projection
+//     in the Mamba2 block): every element offset comes from the strides the
+//     wrapper passes; the innermost dimension has stride 1. y is written
+//     contiguous (B,H,S,P) in x's dtype. Exponentials are ex2.approx
+//     (relative error ~2^-22).
 //
-// f32 route (ssd_kernel, scalar; it runs only in the f32 checks): one block
-// per (b, h) walks its chunks in order with the (P, N) f32 state in shared
-// memory, x, B and C widened to f32 there, and four small products on
-// scalar f32 FMAs, each thread holding a register tile of outputs (B and C
-// transposed, rows padded to Q + 1). Its cumsum runs on thread 0. TF32 or
-// the bf16 split would not keep the f32 tolerance, so it stays scalar.
+// bf16 route (ssd_mma_kernel, every launch of the bf16 model):
+//   * Tiles stay bf16 in shared memory, read by ldmatrix. One copy of the
+//     tiles: chunk c+1's x, B, C, cum and dt are issued once every warp is
+//     done with chunk c, and the SM's other resident block (two fit at PS =
+//     64, N <= 64) computes while this one waits for them. P-slice 64 where
+//     P allows it, so that no block recomputes another's C.B^T.
+//   * mma.sync m16n8k16, bf16 in, f32 accumulate. Each warp owns 16 rows of
+//     the chunk: y = exp(cum_i) C.state^T, then for each column tile on or
+//     below the diagonal G = C.B^T, the scores G exp(cum_i - cum_j) dt_j
+//     (masked to j <= i on the diagonal tile) formed in registers and fed
+//     straight back as the A fragment of scores.x (as FlashAttention feeds P
+//     to P.V).
+//   * The four warps with the light rows (0..63) also carry the state:
+//     state = exp(cum_last) state + (w x)^T.B, w_j = exp(cum_last - cum_j)
+//     dt_j, while the other warps finish their rows; each chunk writes it
+//     to the other of two copies in shared memory, so one barrier a chunk
+//     suffices.
+//   * f32 operands (the scores, w x, the state) are split into bf16 hi + lo
+//     (lo = bf16(v - f32(hi))) and both halves go through the product into
+//     one f32 accumulator; the bf16 inputs x, B, C are exact. Rounded once
+//     to bf16 instead, the output parts from the plain version by up to 1.0
+//     at Zamba2's shape (scripts/ssd_ablation.py), far outside the
+//     tolerance.
 //
-// A ragged last chunk is padded with x = B = C = adt = dt = 0: adt = 0 keeps
-// the cumsum flat and dt = 0 adds nothing to the state or to any output, so
-// the padded rows are computed and never written. The inputs may be strided
-// views (x is a transpose of a reshape, B and C column slices of one
-// projection in the Mamba2 block): every element offset comes from the
-// strides the wrapper passes; the innermost dimension has stride 1. y is
-// written contiguous (B,H,S,P) in x's dtype.
+// f32 route (ssd_tf32_kernel, the f32 checks): the same walk in 3xTF32
+// (tf32_mma.cuh): every f32 operand x = hi + lo, three `mma.sync m16n8k8
+// .tf32` products lo.hi + hi.lo + hi.hi into one f32 accumulator, which
+// keeps the products to ~2^-20 relative (one TF32 product keeps ~2^-11, and
+// misses the tolerance by 0.54 at Zamba2's shape). hi is the operand's own
+// bits and lo = x - hi is left for the tensor cores to truncate, not
+// rounded to tf32 first (split_tf32_rz: -16% against the rounded lo, the
+// error still 3.8e-4 at Zamba2's outputs of up to ~300, scripts/ssd_ablation.py).
+//   * f32 tiles are twice the bytes of bf16 ones, so the chunk is what two
+//     blocks an SM hold (the wrapper's kernel_chunk halves it until they
+//     do: 64 at Zamba2's P-slice 64, N 64). The tiles stay as they landed
+//     (their own hi: the tensor cores read a .tf32 operand's top 19 bits)
+//     and each warp makes the lo of its fragments as it loads them; only
+//     the state, read by every row warp, is stored split (hi and lo), by
+//     the warps that carry it.
+//   * Warp w owns row tile w of the chunk; at QP <= 64 warps 4..7 have no
+//     rows and carry the state, else warps 0..3, the light rows, carry it
+//     as well. The state is written after the chunk's closing barrier, so
+//     one copy serves, and the last chunk does not update it.
+//   * What sets its pace is the products and their splits, not HBM or the
+//     exponentials (scripts/ssd_ablation.py: one TF32 product in place of
+//     three -36%, no exponentials ~0%); C.B^T computed once per (b, chunk)
+//     by a pre-pass and read by every block ran slower than each block
+//     computing it (PERF.md).
+//   * C's A fragments and the state's and B's B fragments come by ldmatrix
+//     (8 x 4 f32 matrices read as 8 x 8 b16 ones). The scores' accumulator
+//     holds columns 2t, 2t + 1 of each 8 where an A fragment wants t, t + 4:
+//     scores.x reads x's rows 2t, 2t + 1 in their place (the sum over j
+//     does not care), so the scores feed it from registers; the state
+//     update orders its k-steps the same way for (w x)^T and B. Rows of
+//     width + 4 floats keep ldmatrix and those scalar loads free of bank
+//     conflicts.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "per_device.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kMaxQ = 128;     // rows of a chunk: 16 thread rows x kRowsPerThread
-constexpr int kRowsPerThread = kMaxQ / 16;
-constexpr int kMaxP = 64;      // y and state columns: 16 threads x kColTiles
-constexpr int kColTiles = kMaxP / 16;
-constexpr int kMaxN = 128;     // state rows: 16 threads x kStateTiles
-constexpr int kStateTiles = kMaxN / 16;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-struct SsdArgs {
-  const void* x;
-  const float* adt;
-  const float* dt;
-  const void* bm;
-  const void* cm;
-  void* y;
-  // element strides: x (b, h, s), adt (b, h, s), dt (b, h, s), B (b, s), C (b, s)
-  int64_t xs_b, xs_h, xs_s, as_b, as_h, as_s, ds_b, ds_h, ds_s, bs_b, bs_s, cs_b, cs_s;
-  int B, H, S, P, N, Q;
-};
-
-// Shared floats of one block: x (Q,P), C^T and B^T (N, Q+1), state^T (N,P),
-// scores (Q, Q+1), and the chunk's cumsum, dt and state weights (Q each).
-__host__ __device__ inline int64_t smem_floats(int Q, int P, int N) {
-  const int64_t lq = Q + 1;
-  return (int64_t)Q * P + 2 * (int64_t)N * lq + (int64_t)N * P + (int64_t)Q * lq + 3 * (int64_t)Q;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_kernel(SsdArgs a) {
-  extern __shared__ float smem[];
-  const int Q = a.Q, P = a.P, N = a.N, S = a.S;
-  const int LQ = Q + 1;
-  float* xs = smem;             // [Q][P]
-  float* cT = xs + Q * P;       // [N][LQ]
-  float* bT = cT + N * LQ;      // [N][LQ]
-  float* stT = bT + N * LQ;     // [N][P], the carried state, transposed
-  float* sc = stT + N * P;      // [Q][LQ]
-  float* cum = sc + Q * LQ;     // [Q]
-  float* dts = cum + Q;         // [Q]
-  float* wv = dts + Q;          // [Q]
-
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // This thread's chunk rows are ty * rpt + ii; its warp's rows end at wlast.
-  const int rpt = (Q + 15) / 16;
-  const int wlast = min(Q - 1, ((ty | 1) + 1) * rpt - 1);
-
-  const T* xb = (const T*)a.x + b * a.xs_b + h * a.xs_h;
-  const T* bb = (const T*)a.bm + b * a.bs_b;
-  const T* cb = (const T*)a.cm + b * a.cs_b;
-  const float* ab = a.adt + b * a.as_b + h * a.as_h;
-  const float* db = a.dt + b * a.ds_b + h * a.ds_h;
-  T* yb = (T*)a.y + ((int64_t)b * a.H + h) * S * P;
-
-  for (int e = tid; e < N * P; e += kThreads) stT[e] = 0.f;
-
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    const int len = min(Q, S - c0);
-    // ---- stage the chunk (zero past its end) ----
-    for (int e = tid; e < Q * P; e += kThreads) {
-      const int i = e / P, p = e % P;
-      xs[e] = i < len ? to_f32(xb[(c0 + i) * a.xs_s + p]) : 0.f;
-    }
-    for (int e = tid; e < Q * N; e += kThreads) {
-      const int i = e / N, n = e % N;
-      const bool in = i < len;
-      bT[n * LQ + i] = in ? to_f32(bb[(c0 + i) * a.bs_s + n]) : 0.f;
-      cT[n * LQ + i] = in ? to_f32(cb[(c0 + i) * a.cs_s + n]) : 0.f;
-    }
-    for (int i = tid; i < Q; i += kThreads) {
-      cum[i] = i < len ? ab[(c0 + i) * a.as_s] : 0.f;
-      dts[i] = i < len ? db[(c0 + i) * a.ds_s] : 0.f;
-    }
-    __syncthreads();
-    // Inclusive cumsum of adt over the chunk, in order, as the reference.
-    if (tid == 0) {
-      float run = 0.f;
-      for (int i = 0; i < Q; ++i) {
-        run += cum[i];
-        cum[i] = run;
-      }
-    }
-    __syncthreads();
-    const float cum_last = cum[Q - 1];
-
-    // ---- inter-chunk term: y_i = exp(cum_i) C_i . state ----
-    float yacc[kRowsPerThread][kColTiles];
-#pragma unroll
-    for (int ii = 0; ii < kRowsPerThread; ++ii)
-#pragma unroll
-      for (int pp = 0; pp < kColTiles; ++pp) yacc[ii][pp] = 0.f;
-    for (int n = 0; n < N; ++n) {
-      float cv[kRowsPerThread], sv[kColTiles];
-#pragma unroll
-      for (int ii = 0; ii < kRowsPerThread; ++ii) {
-        const int i = ty * rpt + ii;
-        cv[ii] = (ii < rpt && i < Q) ? cT[n * LQ + i] : 0.f;
-      }
-#pragma unroll
-      for (int pp = 0; pp < kColTiles; ++pp) {
-        const int p = tx + 16 * pp;
-        sv[pp] = p < P ? stT[n * P + p] : 0.f;
-      }
-#pragma unroll
-      for (int ii = 0; ii < kRowsPerThread; ++ii)
-#pragma unroll
-        for (int pp = 0; pp < kColTiles; ++pp) yacc[ii][pp] += cv[ii] * sv[pp];
-    }
-#pragma unroll
-    for (int ii = 0; ii < kRowsPerThread; ++ii) {
-      const int i = ty * rpt + ii;
-      const float g = (ii < rpt && i < Q) ? expf(cum[i]) : 0.f;
-#pragma unroll
-      for (int pp = 0; pp < kColTiles; ++pp) yacc[ii][pp] *= g;
-    }
-
-    // ---- decayed scores: sc[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j, j <= i ----
-    // Column blocks past the last row of this warp are all zero and never read.
-    {
-      float s[kRowsPerThread][kRowsPerThread];  // [jj][ii]
-#pragma unroll
-      for (int jj = 0; jj < kRowsPerThread; ++jj)
-#pragma unroll
-        for (int ii = 0; ii < kRowsPerThread; ++ii) s[jj][ii] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cv[kRowsPerThread];
-#pragma unroll
-        for (int ii = 0; ii < kRowsPerThread; ++ii) {
-          const int i = ty * rpt + ii;
-          cv[ii] = (ii < rpt && i < Q) ? cT[n * LQ + i] : 0.f;
-        }
-#pragma unroll
-        for (int jj = 0; jj < kRowsPerThread; ++jj) {
-          const int j = tx + 16 * jj;
-          if (16 * jj <= wlast) {
-            const float bv = j < Q ? bT[n * LQ + j] : 0.f;
-#pragma unroll
-            for (int ii = 0; ii < kRowsPerThread; ++ii) s[jj][ii] += cv[ii] * bv;
-          }
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < kRowsPerThread; ++jj) {
-        const int j = tx + 16 * jj;
-        if (16 * jj <= wlast && j < Q) {
-#pragma unroll
-          for (int ii = 0; ii < kRowsPerThread; ++ii) {
-            const int i = ty * rpt + ii;
-            if (ii < rpt && i < Q) {
-              sc[i * LQ + j] = j <= i ? s[jj][ii] * expf(cum[i] - cum[j]) * dts[j] : 0.f;
-            }
-          }
-        }
-      }
-    }
-    for (int j = tid; j < Q; j += kThreads) wv[j] = expf(cum_last - cum[j]) * dts[j];
-    __syncthreads();
-
-    // ---- intra-chunk term: y_i += sum_{j <= wlast} sc[i][j] x_j; write y ----
-    for (int j = 0; j <= wlast; ++j) {
-      float xv[kColTiles];
-#pragma unroll
-      for (int pp = 0; pp < kColTiles; ++pp) {
-        const int p = tx + 16 * pp;
-        xv[pp] = p < P ? xs[j * P + p] : 0.f;
-      }
-#pragma unroll
-      for (int ii = 0; ii < kRowsPerThread; ++ii) {
-        const int i = ty * rpt + ii;
-        const float sv = (ii < rpt && i < Q) ? sc[i * LQ + j] : 0.f;
-#pragma unroll
-        for (int pp = 0; pp < kColTiles; ++pp) yacc[ii][pp] += sv * xv[pp];
-      }
-    }
-#pragma unroll
-    for (int ii = 0; ii < kRowsPerThread; ++ii) {
-      const int i = ty * rpt + ii;
-      if (ii < rpt && i < len) {
-#pragma unroll
-        for (int pp = 0; pp < kColTiles; ++pp) {
-          const int p = tx + 16 * pp;
-          if (p < P) yb[(int64_t)(c0 + i) * P + p] = from_f32<T>(yacc[ii][pp]);
-        }
-      }
-    }
-
-    // ---- state update: state^T[n][p] = exp(cum_last) state^T[n][p]
-    //                                    + sum_j B_j[n] w_j x_j[p] ----
-    {
-      const float decay = expf(cum_last);
-      float acc[kStateTiles][kColTiles];
-#pragma unroll
-      for (int nn = 0; nn < kStateTiles; ++nn) {
-        const int n = ty + 16 * nn;
-#pragma unroll
-        for (int pp = 0; pp < kColTiles; ++pp) {
-          const int p = tx + 16 * pp;
-          acc[nn][pp] = (n < N && p < P) ? stT[n * P + p] * decay : 0.f;
-        }
-      }
-      for (int j = 0; j < Q; ++j) {
-        const float w = wv[j];
-        float xv[kColTiles];
-#pragma unroll
-        for (int pp = 0; pp < kColTiles; ++pp) {
-          const int p = tx + 16 * pp;
-          xv[pp] = p < P ? xs[j * P + p] : 0.f;
-        }
-#pragma unroll
-        for (int nn = 0; nn < kStateTiles; ++nn) {
-          const int n = ty + 16 * nn;
-          const float bw = n < N ? bT[n * LQ + j] * w : 0.f;
-#pragma unroll
-          for (int pp = 0; pp < kColTiles; ++pp) acc[nn][pp] += bw * xv[pp];
-        }
-      }
-#pragma unroll
-      for (int nn = 0; nn < kStateTiles; ++nn) {
-        const int n = ty + 16 * nn;
-#pragma unroll
-        for (int pp = 0; pp < kColTiles; ++pp) {
-          const int p = tx + 16 * pp;
-          if (n < N && p < P) stT[n * P + p] = acc[nn][pp];
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-int launch_ssd(const SsdArgs& a, cudaStream_t st) {
-  const size_t bytes = (size_t)smem_floats(a.Q, a.P, a.N) * sizeof(float);
-  static SmemOptIn opt_in;
-  const cudaError_t opted = opt_in.ensure((const void*)ssd_kernel<T>, bytes);
-  if (opted != cudaSuccess) return (int)opted;
-  ssd_kernel<T><<<a.B * a.H, kThreads, bytes, st>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// bf16 route: the cumsum pre-pass and the tensor-core kernel
-// ---------------------------------------------------------------------------
+constexpr int kMaxQ = 128;  // rows of a chunk
 
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = 32 * kMmaWarps;
-// Warps 0..3 own the chunk's rows 0..63, the light half of the triangle of
-// scores, and carry the state as well.
+// bf16 route: warps 0..3 own the chunk's rows 0..63, the light half of the
+// triangle of scores, and carry the state as well.
 constexpr int kStateWarps = 4;
 
 typedef __nv_bfloat16 bf16;
@@ -393,16 +171,20 @@ ssd_cumsum_kernel(const float* __restrict__ adt, const float* __restrict__ dt, i
   }
 }
 
-struct MmaArgs {
-  const bf16* x;
-  const bf16* bm;
-  const bf16* cm;
+// The main kernels' arguments: x, B, C and y of the route's element type T.
+template <typename T>
+struct ScanArgs {
+  const T* x;
+  const T* bm;
+  const T* cm;
   const float* cum;  // (B, H, S) from ssd_cumsum_kernel
   const float* dt;   // (B, H, S)
-  bf16* y;           // (B, H, S, P)
+  T* y;              // (B, H, S, P)
   int64_t xs_b, xs_h, xs_s, bs_b, bs_s, cs_b, cs_s;
   int B, H, S, P, Q, QP;
 };
+using MmaArgs = ScanArgs<bf16>;
+using TfArgs = ScanArgs<float>;
 
 // Shared memory of one block, in bytes: x (QP, PS), B and C (QP, N), each
 // row padded by 8 bf16; two copies (one read, one written per chunk) of the
@@ -410,6 +192,19 @@ struct MmaArgs {
 __host__ __device__ inline int64_t mma_smem_bytes(int QP, int PS, int N) {
   return 2 * ((int64_t)QP * (PS + 8) + 2LL * QP * (N + 8) + 4LL * PS * (N + 8)) +
          4 * (2LL * QP);
+}
+
+// Floats of the f32 route's chunk tiles: x (QP, PS), B and C (QP, N), each
+// row padded by 4 floats; cum and dt (QP,). One chunk is staged at a time:
+// the SM's other block computes while this one waits for the next chunk
+// (two stages hold one block an SM and ran slower, PERF.md).
+__host__ __device__ inline int64_t tf32_stage_floats(int QP, int PS, int N) {
+  return (int64_t)QP * (PS + 4) + 2LL * QP * (N + 4) + 2LL * QP;
+}
+// Bytes of one block of the f32 route: its chunk tiles and the state's hi
+// and lo (PS, N + 4).
+__host__ __device__ inline int64_t tf32_smem_bytes(int QP, int PS, int N) {
+  return 4 * (tf32_stage_floats(QP, PS, N) + 2LL * PS * (N + 4));
 }
 
 // e^x as ex2.approx of x log2(e): relative error ~2^-22, 0 below about -87.
@@ -482,26 +277,35 @@ __device__ __forceinline__ float2 unpack2(uint32_t w) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
 }
 
-// Copy chunk rows [c0, c0 + len) of this block's tiles (zero rows up to QP).
-template <int PS, int N>
-__device__ __forceinline__ void issue_chunk(const MmaArgs& a, int b, int h, int p0, int c0,
-                                            int len, bf16* xs, bf16* bs, bf16* cs,
-                                            float* cum, float* dts) {
-  constexpr int XV = PS / 8, NV = N / 8, LX = PS + 8, LN = N + 8;
+// The lo halves (left for the tensor cores to truncate) of four f32 values
+// whose own bits serve as their hi.
+__device__ __forceinline__ void tf32_los(const uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) lo[e] = tf32_lo_rz(__uint_as_float(hi[e]));
+}
+
+// Copy chunk rows [c0, c0 + len) of this block's tiles (zero rows up to QP),
+// rows padded by 16 bytes.
+template <typename T, int PS, int N>
+__device__ __forceinline__ void issue_chunk(const ScanArgs<T>& a, int b, int h, int p0, int c0,
+                                            int len, T* xs, T* bs, T* cs, float* cum,
+                                            float* dts) {
+  constexpr int V = 16 / sizeof(T);  // elements a copy
+  constexpr int XV = PS / V, NV = N / V, LX = PS + V, LN = N + V;
   const int QP = a.QP;
-  const bf16* xg = a.x + b * a.xs_b + h * a.xs_h + p0;
+  const T* xg = a.x + b * a.xs_b + h * a.xs_h + p0;
   for (int e = threadIdx.x; e < QP * XV; e += kMmaThreads) {
     const int i = e / XV, v = e % XV;
     const bool in = i < len;
-    cp_async16(xs + i * LX + v * 8, in ? xg + (int64_t)(c0 + i) * a.xs_s + v * 8 : a.x, in);
+    cp_async16(xs + i * LX + v * V, in ? xg + (int64_t)(c0 + i) * a.xs_s + v * V : a.x, in);
   }
-  const bf16* bg = a.bm + b * a.bs_b;
-  const bf16* cg = a.cm + b * a.cs_b;
+  const T* bg = a.bm + b * a.bs_b;
+  const T* cg = a.cm + b * a.cs_b;
   for (int e = threadIdx.x; e < QP * NV; e += kMmaThreads) {
     const int i = e / NV, v = e % NV;
     const bool in = i < len;
-    cp_async16(bs + i * LN + v * 8, in ? bg + (int64_t)(c0 + i) * a.bs_s + v * 8 : a.bm, in);
-    cp_async16(cs + i * LN + v * 8, in ? cg + (int64_t)(c0 + i) * a.cs_s + v * 8 : a.cm, in);
+    cp_async16(bs + i * LN + v * V, in ? bg + (int64_t)(c0 + i) * a.bs_s + v * V : a.bm, in);
+    cp_async16(cs + i * LN + v * V, in ? cg + (int64_t)(c0 + i) * a.cs_s + v * V : a.cm, in);
   }
   const int64_t row = ((int64_t)b * a.H + h) * a.S + c0;
   for (int e = threadIdx.x; e < 2 * QP; e += kMmaThreads) {
@@ -555,7 +359,7 @@ __global__ void __launch_bounds__(kMmaThreads, (N <= 64 ? 2 : 1)) ssd_mma_kernel
 #pragma unroll
   for (int k = 0; k < ST_PER_WARP; ++k) st[k][0] = st[k][1] = st[k][2] = st[k][3] = 0.f;
 
-  issue_chunk<PS, N>(a, b, h, p0, 0, min(Q, S), X, Bt, Ct, cum, dtv);
+  issue_chunk<bf16, PS, N>(a, b, h, p0, 0, min(Q, S), X, Bt, Ct, cum, dtv);
   cp_async_commit();
   for (int c = 0; c < nch; ++c) {
     const int c0 = c * Q, len = min(Q, S - c0);
@@ -707,59 +511,289 @@ __global__ void __launch_bounds__(kMmaThreads, (N <= 64 ? 2 : 1)) ssd_mma_kernel
     }
     if (c + 1 < nch) {
       __syncthreads();  // every warp is done with this chunk's tiles
-      issue_chunk<PS, N>(a, b, h, p0, c0 + Q, min(Q, S - c0 - Q), X, Bt, Ct, cum, dtv);
+      issue_chunk<bf16, PS, N>(a, b, h, p0, c0 + Q, min(Q, S - c0 - Q), X, Bt, Ct, cum, dtv);
       cp_async_commit();
     }
   }
 }
 
-template <int PS, int N>
-cudaError_t mma_prepare(int QP) {
-  const size_t bytes = (size_t)mma_smem_bytes(QP, PS, N);
-  static SmemOptIn opt_in;
-  return opt_in.ensure((const void*)ssd_mma_kernel<PS, N>, bytes);
-}
+// ---------------------------------------------------------------------------
+// f32 route: the tensor-core kernel in 3xTF32
+// ---------------------------------------------------------------------------
+
+constexpr int kTfStateWarps = 4;
 
 template <int PS, int N>
-int launch_mma(const MmaArgs& a, cudaStream_t st) {
-  cudaError_t e = mma_prepare<PS, N>(a.QP);
+__global__ void __launch_bounds__(kMmaThreads, (N <= 64 ? 2 : 1)) ssd_tf32_kernel(TfArgs a) {
+  constexpr int LX = PS + 4, LN = N + 4, KN = N / 8, NT = PS / 8, NN = N / 8;
+  constexpr int ST_TILES = (PS / 16) * NN;
+  constexpr int ST_PER_WARP = (ST_TILES + kTfStateWarps - 1) / kTfStateWarps;
+  static_assert(NN % ST_PER_WARP == 0, "a state warp's tiles share one row tile");
+  extern __shared__ __align__(16) float smf[];
+  const int QP = a.QP, S = a.S, Q = a.Q;
+  float* sth = smf + tf32_stage_floats(QP, PS, N);  // [PS][LN] the state before this chunk (its hi)
+  float* stl = sth + PS * LN;                       // [PS][LN] its lo
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H, p0 = blockIdx.y * PS;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  // ldmatrix: lanes 8m .. 8m + 7 give the rows of matrix m = lm.
+  const int lm = lane >> 3, lr = lane & 7;
+  const int nch = (S + Q - 1) / Q;
+  float* yb = a.y + (int64_t)blockIdx.x * S * a.P + p0;
+
+  // The state warps: 4..7 when the rows fit warps 0..3, else 0..3 (the
+  // light rows). State warp sw carries tiles t0 .. t0 + ST_PER_WARP - 1 of
+  // the block's (PS / 16) x NN tiles of 16 x 8 (tile t at row tile t / NN,
+  // column tile t % NN); spare warps (PS = 16, N = 16) compute a copy of
+  // tile 0 and never write it.
+  const int sw = warp - (QP <= 64 ? kTfStateWarps : 0);
+  const bool st_warp = sw >= 0 && sw < kTfStateWarps;
+  const int t0 = (st_warp ? sw : 0) * ST_PER_WARP;
+  const bool st_live = st_warp && t0 < ST_TILES;
+  const int st_pm = st_live ? t0 / NN : 0, st_nn = st_live ? t0 % NN : 0;
+  float st[ST_PER_WARP][4];
+#pragma unroll
+  for (int k = 0; k < ST_PER_WARP; ++k) st[k][0] = st[k][1] = st[k][2] = st[k][3] = 0.f;
+
+  for (int e = tid; e < 2 * PS * LN; e += kMmaThreads) sth[e] = 0.f;
+  issue_chunk<float, PS, N>(a, b, h, p0, 0, min(Q, S), smf, smf + QP * LX,
+                            smf + QP * (LX + LN), smf + QP * (LX + 2 * LN),
+                            smf + QP * (LX + 2 * LN + 1));
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    const int c0 = c * Q, len = min(Q, S - c0);
+    cp_async_wait_all();
+    __syncthreads();  // chunk c has landed; the state it starts from is written
+    const float* X = smf;             // [QP][LX]
+    const float* Bt = X + QP * LX;    // [QP][LN]
+    const float* Ct = Bt + QP * LN;   // [QP][LN]
+    const float* cum = Ct + QP * LN;  // [QP]
+    const float* dtv = cum + QP;      // [QP]
+    const float cum_last = cum[len - 1];
+
+    // ---- y for row tile rt (16 rows) of the chunk ----
+    const int rt = warp, i0 = 16 * rt;
+    if (i0 < len) {
+      // C's A fragments (rows i0 .. i0 + 15, 8 columns a k-step)
+      const float* ca = Ct + (i0 + (lm & 1) * 8 + lr) * LN + (lm >> 1) * 4;
+      float y[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) y[nt][0] = y[nt][1] = y[nt][2] = y[nt][3] = 0.f;
+      // inter-chunk term: exp(cum_i) C_i . state, the state's B fragments
+      // (p rows, n columns) from its stored hi and lo
+      const int sb = ((lm >> 1) * 8 + lr) * LN + (lm & 1) * 4;
+#pragma unroll
+      for (int ks = 0; ks < KN; ++ks) {
+        uint32_t ah[4], al[4];
+        ldsm_x4(ah, ca + ks * 8);
+        tf32_los(ah, al);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t sh[4], sl[4];
+          ldsm_x4(sh, sth + sb + np * 16 * LN + ks * 8);
+          ldsm_x4(sl, stl + sb + np * 16 * LN + ks * 8);
+          mma_3xtf32(y[2 * np], ah, al, sh[0], sh[1], sl[0], sl[1]);
+          mma_3xtf32(y[2 * np + 1], ah, al, sh[2], sh[3], sl[2], sl[3]);
+        }
+      }
+      const int ia = i0 + g, ib = ia + 8;
+      const float cia = cum[ia], cib = cum[ib];
+      const float ea = fast_exp(cia), eb = fast_exp(cib);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        y[nt][0] *= ea;
+        y[nt][1] *= ea;
+        y[nt][2] *= eb;
+        y[nt][3] *= eb;
+      }
+      // intra-chunk term, one 16-column tile of the scores at a time; only
+      // the diagonal tile is masked (j <= i). Rows past len are computed and
+      // never written.
+      for (int jt = 0; 16 * jt < len && jt <= rt; ++jt) {
+        const int j0 = 16 * jt;
+        // G = C . B^T: B's B fragments (j rows, n columns) for 2 x 8 columns
+        float g0[4] = {0.f, 0.f, 0.f, 0.f}, g1[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* bb = Bt + (j0 + (lm >> 1) * 8 + lr) * LN + (lm & 1) * 4;
+#pragma unroll
+        for (int kg = 0; kg < KN; ++kg) {
+          uint32_t ah[4], al[4], bh[4], bl[4];
+          ldsm_x4(ah, ca + kg * 8);
+          tf32_los(ah, al);
+          ldsm_x4(bh, bb + kg * 8);
+          tf32_los(bh, bl);
+          mma_3xtf32(g0, ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(g1, ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+        const bool diag = jt == rt;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          // the scores of columns j0 + 8 half + (2t, 2t + 1), rows ia, ib
+          const int j = j0 + half * 8 + 2 * t4;
+          const float* gv = half ? g1 : g0;
+          const float d0 = dtv[j], d1 = dtv[j + 1], c0j = cum[j], c1j = cum[j + 1];
+          float s[4];
+          s[0] = gv[0] * fast_exp(cia - c0j) * d0;
+          s[1] = gv[1] * fast_exp(cia - c1j) * d1;
+          s[2] = gv[2] * fast_exp(cib - c0j) * d0;
+          s[3] = gv[3] * fast_exp(cib - c1j) * d1;
+          if (diag) {
+            s[0] = j <= ia ? s[0] : 0.f;
+            s[1] = j + 1 <= ia ? s[1] : 0.f;
+            s[2] = j <= ib ? s[2] : 0.f;
+            s[3] = j + 1 <= ib ? s[3] : 0.f;
+          }
+          // A fragment: slot t <-> column 2t, slot t + 4 <-> column 2t + 1
+          uint32_t ph[4], pl[4];
+          split_tf32_rz(s[0], ph[0], pl[0]);
+          split_tf32_rz(s[2], ph[1], pl[1]);
+          split_tf32_rz(s[1], ph[2], pl[2]);
+          split_tf32_rz(s[3], ph[3], pl[3]);
+          // B fragment: x's rows j, j + 1 in those slots, column nt * 8 + g
+          const float* xr = X + j * LX + g;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            uint32_t xh0, xl0, xh1, xl1;
+            split_tf32_rz(xr[nt * 8], xh0, xl0);
+            split_tf32_rz(xr[LX + nt * 8], xh1, xl1);
+            mma_3xtf32(y[nt], ph, pl, xh0, xh1, xl0, xl1);
+          }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        if (ia < len) {
+          *reinterpret_cast<float2*>(yb + (int64_t)(c0 + ia) * a.P + col) =
+              make_float2(y[nt][0], y[nt][1]);
+        }
+        if (ib < len) {
+          *reinterpret_cast<float2*>(yb + (int64_t)(c0 + ib) * a.P + col) =
+              make_float2(y[nt][2], y[nt][3]);
+        }
+      }
+    }
+
+    // ---- state update on the state warps (not after the last chunk):
+    //      state = exp(cum_last) state + (w x)^T . B, w_j = exp(cum_last -
+    //      cum_j) dt_j; k-step slots t, t + 4 <-> positions j0 + 2t, 2t + 1 ----
+    if (st_warp && c + 1 < nch) {
+      const float decay = fast_exp(cum_last);
+#pragma unroll
+      for (int k = 0; k < ST_PER_WARP; ++k) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[k][e] *= decay;
+      }
+      const float* xa = X + 2 * t4 * LX + st_pm * 16 + g;
+      const float* ba = Bt + 2 * t4 * LN + st_nn * 8 + g;
+      for (int j0 = 0; j0 < len; j0 += 8) {
+        const int j = j0 + 2 * t4;
+        const float w0 = fast_exp(cum_last - cum[j]) * dtv[j];
+        const float w1 = fast_exp(cum_last - cum[j + 1]) * dtv[j + 1];
+        // A = (w x)^T: rows p = 16 st_pm + g (+ 8), this warp's row tile
+        uint32_t ah[4], al[4];
+        split_tf32_rz(w0 * xa[j0 * LX], ah[0], al[0]);
+        split_tf32_rz(w0 * xa[j0 * LX + 8], ah[1], al[1]);
+        split_tf32_rz(w1 * xa[(j0 + 1) * LX], ah[2], al[2]);
+        split_tf32_rz(w1 * xa[(j0 + 1) * LX + 8], ah[3], al[3]);
+#pragma unroll
+        for (int k = 0; k < ST_PER_WARP; ++k) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32_rz(ba[j0 * LN + k * 8], bh0, bl0);
+          split_tf32_rz(ba[(j0 + 1) * LN + k * 8], bh1, bl1);
+          mma_3xtf32(st[k], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    if (c + 1 == nch) break;
+    __syncthreads();  // every warp is done with this chunk's tiles and state
+    if (st_live) {
+      const int pr = st_pm * 16 + g;
+#pragma unroll
+      for (int k = 0; k < ST_PER_WARP; ++k) {
+        const int o = pr * LN + (st_nn + k) * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(sth + o) = make_float2(st[k][0], st[k][1]);
+        *reinterpret_cast<float2*>(stl + o) =
+            make_float2(__uint_as_float(tf32_lo_rz(st[k][0])), __uint_as_float(tf32_lo_rz(st[k][1])));
+        *reinterpret_cast<float2*>(sth + o + 8 * LN) = make_float2(st[k][2], st[k][3]);
+        *reinterpret_cast<float2*>(stl + o + 8 * LN) =
+            make_float2(__uint_as_float(tf32_lo_rz(st[k][2])), __uint_as_float(tf32_lo_rz(st[k][3])));
+      }
+    }
+    issue_chunk<float, PS, N>(a, b, h, p0, c0 + Q, min(Q, S - c0 - Q), smf, smf + QP * LX,
+                              smf + QP * (LX + LN), smf + QP * (LX + 2 * LN),
+                              smf + QP * (LX + 2 * LN + 1));
+    cp_async_commit();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch, by element type: bf16 -> ssd_mma_kernel, float -> ssd_tf32_kernel
+// ---------------------------------------------------------------------------
+
+template <typename T, int PS, int N>
+struct Scan;
+template <int PS, int N>
+struct Scan<bf16, PS, N> {
+  static const void* kernel() { return (const void*)ssd_mma_kernel<PS, N>; }
+  static int64_t smem(int QP) { return mma_smem_bytes(QP, PS, N); }
+  static void launch(dim3 grid, cudaStream_t st, const MmaArgs& a) {
+    ssd_mma_kernel<PS, N><<<grid, kMmaThreads, smem(a.QP), st>>>(a);
+  }
+};
+template <int PS, int N>
+struct Scan<float, PS, N> {
+  static const void* kernel() { return (const void*)ssd_tf32_kernel<PS, N>; }
+  static int64_t smem(int QP) { return tf32_smem_bytes(QP, PS, N); }
+  static void launch(dim3 grid, cudaStream_t st, const TfArgs& a) {
+    ssd_tf32_kernel<PS, N><<<grid, kMmaThreads, smem(a.QP), st>>>(a);
+  }
+};
+
+template <typename T, int PS, int N>
+cudaError_t prepare(int QP) {
+  static SmemOptIn opt_in;
+  return opt_in.ensure(Scan<T, PS, N>::kernel(), (size_t)Scan<T, PS, N>::smem(QP));
+}
+
+template <typename T, int PS, int N>
+int launch_scan(const ScanArgs<T>& a, cudaStream_t st) {
+  cudaError_t e = prepare<T, PS, N>(a.QP);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.B * a.H, a.P / PS);
-  ssd_mma_kernel<PS, N><<<grid, kMmaThreads, mma_smem_bytes(a.QP, PS, N), st>>>(a);
+  Scan<T, PS, N>::launch(dim3(a.B * a.H, a.P / PS), st, a);
   return (int)cudaGetLastError();
 }
 
-template <int PS, int N>
-int occupancy_mma(int QP, int* blocks) {
-  cudaError_t e = mma_prepare<PS, N>(QP);
+template <typename T, int PS, int N>
+int occupancy(int QP, int* blocks) {
+  cudaError_t e = prepare<T, PS, N>(QP);
   if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, ssd_mma_kernel<PS, N>, kMmaThreads, mma_smem_bytes(QP, PS, N));
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, Scan<T, PS, N>::kernel(),
+                                                      kMmaThreads, Scan<T, PS, N>::smem(QP));
   }
   return (int)e;
 }
 
-// Calls F<PS, N>(args...) for the supported widths; -1 for any other.
-#define SSD_DISPATCH(F, PS, N, ...)                                          \
+// Calls F<T, PS, N>(args...) for the supported widths; -1 for any other.
+#define SSD_DISPATCH(F, T, PS, N, ...)                                       \
   do {                                                                       \
     switch (PS * 1000 + N) {                                                 \
-      case 16016: return F<16, 16>(__VA_ARGS__);                             \
-      case 16032: return F<16, 32>(__VA_ARGS__);                             \
-      case 16064: return F<16, 64>(__VA_ARGS__);                             \
-      case 16128: return F<16, 128>(__VA_ARGS__);                            \
-      case 32016: return F<32, 16>(__VA_ARGS__);                             \
-      case 32032: return F<32, 32>(__VA_ARGS__);                             \
-      case 32064: return F<32, 64>(__VA_ARGS__);                             \
-      case 32128: return F<32, 128>(__VA_ARGS__);                            \
-      case 64016: return F<64, 16>(__VA_ARGS__);                             \
-      case 64032: return F<64, 32>(__VA_ARGS__);                             \
-      case 64064: return F<64, 64>(__VA_ARGS__);                             \
-      case 64128: return F<64, 128>(__VA_ARGS__);                            \
+      case 16016: return F<T, 16, 16>(__VA_ARGS__);                          \
+      case 16032: return F<T, 16, 32>(__VA_ARGS__);                          \
+      case 16064: return F<T, 16, 64>(__VA_ARGS__);                          \
+      case 16128: return F<T, 16, 128>(__VA_ARGS__);                         \
+      case 32016: return F<T, 32, 16>(__VA_ARGS__);                          \
+      case 32032: return F<T, 32, 32>(__VA_ARGS__);                          \
+      case 32064: return F<T, 32, 64>(__VA_ARGS__);                          \
+      case 32128: return F<T, 32, 128>(__VA_ARGS__);                         \
+      case 64016: return F<T, 64, 16>(__VA_ARGS__);                          \
+      case 64032: return F<T, 64, 32>(__VA_ARGS__);                          \
+      case 64064: return F<T, 64, 64>(__VA_ARGS__);                          \
+      case 64128: return F<T, 64, 128>(__VA_ARGS__);                         \
       default: return -1;                                                    \
     }                                                                        \
   } while (0)
 
-bool mma_widths_ok(int ps, int N) {
+bool widths_ok(int ps, int N) {
   return (ps == 16 || ps == 32 || ps == 64) && (N == 16 || N == 32 || N == 64 || N == 128);
 }
 
@@ -775,29 +809,30 @@ int launch_cumsum(const float* adt, const float* dt, const int64_t* s6, int B, i
 
 }  // namespace
 
-// Bytes of shared memory a block of the f32 route needs for a chunk of Q steps.
-extern "C" int64_t mamba2_ssd_smem_bytes(int Q, int P, int N) {
-  return smem_floats(Q, P, N) * (int64_t)sizeof(float);
+// Bytes of shared memory a block of the f32 route needs: chunk rows QP (Q
+// rounded up to 16), P-slice ps, state dim N.
+extern "C" int64_t mamba2_ssd_smem_bytes(int QP, int ps, int N) {
+  return tf32_smem_bytes(QP, ps, N);
 }
 
-// Bytes of shared memory a block of the bf16 route needs: chunk rows QP (Q
-// rounded up to 16), P-slice ps, state dim N.
+// The same for the bf16 route.
 extern "C" int64_t mamba2_ssd_mma_smem_bytes(int QP, int ps, int N) {
   return mma_smem_bytes(QP, ps, N);
 }
 
-// Blocks of the bf16 route that stay resident on one SM (sets the kernel's
+// Blocks of a route that stay resident on one SM (sets the kernel's
 // shared-memory opt-in first).
-extern "C" int mamba2_ssd_mma_occupancy(int QP, int ps, int N, int* blocks) {
-  if (!mma_widths_ok(ps, N) || QP < 16 || QP > kMaxQ || QP % 16) {
+extern "C" int mamba2_ssd_occupancy(int f32, int QP, int ps, int N, int* blocks) {
+  if (!widths_ok(ps, N) || QP < 16 || QP > kMaxQ || QP % 16) {
     return (int)cudaErrorInvalidValue;
   }
-  SSD_DISPATCH(occupancy_mma, ps, N, QP, blocks);
+  if (f32) SSD_DISPATCH(occupancy, float, ps, N, QP, blocks);
+  SSD_DISPATCH(occupancy, bf16, ps, N, QP, blocks);
 }
 
-// The bf16 route's pre-pass alone: chunk-local in-order cumsums of adt and a
-// contiguous copy of dt, both (B, H, S) f32. `strides` holds adt's and dt's
-// (b, h, s) element strides.
+// The pre-pass alone: chunk-local in-order cumsums of adt and a contiguous
+// copy of dt, both (B, H, S) f32. `strides` holds adt's and dt's (b, h, s)
+// element strides.
 extern "C" int mamba2_ssd_cumsum_launch(const float* adt, const float* dt,
                                         const int64_t* strides, int B, int H, int S, int Q,
                                         float* cum, float* dto, void* stream) {
@@ -805,48 +840,38 @@ extern "C" int mamba2_ssd_cumsum_launch(const float* adt, const float* dt,
   return launch_cumsum(adt, dt, strides, B, H, S, Q, cum, dto, (cudaStream_t)stream);
 }
 
-// f32 route: x, B, C, y f32 (the scalar kernel). `strides` holds the 13
-// element strides of SsdArgs, in order.
+// The scan: x, B, C, y f32 (f32 != 0: the tf32 kernel) or bf16 (the bf16
+// kernel); adt, dt f32. `strides` holds the 13 element strides x (b, h, s),
+// adt (b, h, s), dt (b, h, s), B (b, s), C (b, s). P a multiple of ps (16,
+// 32 or 64), N in {16, 32, 64, 128}, every row of x, B and C on 16 bytes.
+// cum and dto are (B, H, S) f32 scratch. Launches the cumsum pre-pass, then
+// the route's kernel.
 extern "C" int mamba2_ssd_launch(const void* x, const float* adt, const float* dt,
                                  const void* bm, const void* cm, void* y,
                                  const int64_t* strides, int B, int H, int S, int P, int N,
-                                 int Q, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN || Q < 1 ||
-      Q > kMaxQ || (int64_t)B * H > 0x7fffffff) {
-    return (int)cudaErrorInvalidValue;
-  }
-  SsdArgs a{x, adt, dt, bm, cm, y,
-            strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-            strides[6], strides[7], strides[8], strides[9], strides[10], strides[11],
-            strides[12], B, H, S, P, N, Q};
-  return launch_ssd<float>(a, (cudaStream_t)stream);
-}
-
-// bf16 route: x, B, C, y bf16; adt, dt f32; strides as mamba2_ssd_launch.
-// P a multiple of ps (16, 32 or 64), N in {16, 32, 64, 128}, every row of
-// x, B and C on 16 bytes. cum and dto are (B, H, S) f32 scratch. Launches
-// the cumsum pre-pass, then the tensor-core kernel.
-extern "C" int mamba2_ssd_mma_launch(const void* x, const float* adt, const float* dt,
-                                     const void* bm, const void* cm, void* y,
-                                     const int64_t* strides, int B, int H, int S, int P,
-                                     int N, int Q, int ps, float* cum,
-                                     float* dto, void* stream) {
-  if (B < 1 || H < 1 || S < 1 || Q < 1 || Q > kMaxQ || !mma_widths_ok(ps, N) || P < ps ||
-      P % ps || (int64_t)B * H > 0x7fffffff ||
-      (int64_t)P / ps > 65535) {
+                                 int Q, int ps, float* cum, float* dto, int f32, void* stream) {
+  if (B < 1 || H < 1 || S < 1 || Q < 1 || Q > kMaxQ || !widths_ok(ps, N) || P < ps ||
+      P % ps || (int64_t)B * H > 0x7fffffff || (int64_t)P / ps > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t xs_b = strides[0], xs_h = strides[1], xs_s = strides[2];
   const int64_t bs_b = strides[9], bs_s = strides[10], cs_b = strides[11], cs_s = strides[12];
-  const uint64_t align = (uintptr_t)x | (uintptr_t)bm | (uintptr_t)cm | (uint64_t)(xs_b * 2) |
-                         (uint64_t)(xs_h * 2) | (uint64_t)(xs_s * 2) | (uint64_t)(bs_b * 2) |
-                         (uint64_t)(bs_s * 2) | (uint64_t)(cs_b * 2) | (uint64_t)(cs_s * 2);
+  const int64_t esz = f32 ? 4 : 2;
+  const uint64_t align = (uintptr_t)x | (uintptr_t)bm | (uintptr_t)cm | (uint64_t)(xs_b * esz) |
+                         (uint64_t)(xs_h * esz) | (uint64_t)(xs_s * esz) |
+                         (uint64_t)(bs_b * esz) | (uint64_t)(bs_s * esz) |
+                         (uint64_t)(cs_b * esz) | (uint64_t)(cs_s * esz);
   if (align % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   int err = launch_cumsum(adt, dt, strides + 3, B, H, S, Q, cum, dto, st);
   if (err) return err;
+  const int QP = (Q + 15) / 16 * 16;
+  if (f32) {
+    TfArgs a{(const float*)x, (const float*)bm, (const float*)cm, cum, dto, (float*)y,
+             xs_b, xs_h, xs_s, bs_b, bs_s, cs_b, cs_s, B, H, S, P, Q, QP};
+    SSD_DISPATCH(launch_scan, float, ps, N, a, st);
+  }
   MmaArgs a{(const bf16*)x, (const bf16*)bm, (const bf16*)cm, cum, dto, (bf16*)y,
-            xs_b, xs_h, xs_s, bs_b, bs_s, cs_b, cs_s,
-            B, H, S, P, Q, (Q + 15) / 16 * 16};
-  SSD_DISPATCH(launch_mma, ps, N, a, st);
+            xs_b, xs_h, xs_s, bs_b, bs_s, cs_b, cs_s, B, H, S, P, Q, QP};
+  SSD_DISPATCH(launch_scan, bf16, ps, N, a, st);
 }

@@ -19,8 +19,8 @@ Each wrapper counts its launches in a ``launches`` attribute, incremented
 only where it launches its CUDA kernel; K6, K8, D2 and D3 also count them by route
 (``flash_attention_kernel.routes``: the bf16 kernel, "wgmma", and the f32
 3xTF32 kernel, "tf32"; ``mamba2_ssd_kernel.routes``: the bf16
-tensor-core kernel, "mma", and the f32 scalar kernel, "scalar"; and
-``rrip_scan_flat.routes``: "short" and "chunked"). K8's bf16 route is two
+tensor-core kernel, "mma", and the f32 3xTF32 kernel, "tf32"; and
+``rrip_scan_flat.routes``: "short" and "chunked"). Each K8 route is two
 CUDA kernels (a cumsum pre-pass and the scan) under one count; D2's chunked
 route counts its two launches (speculate, fix-up). The counts change and
 are read and reset under one lock (``_build.COUNT_LOCK``), so wrappers may

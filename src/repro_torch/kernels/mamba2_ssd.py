@@ -16,16 +16,17 @@ inside a chunk the decayed ``(Q, Q)`` scores times x, across chunks
 runs ``mamba2_ssd_plain`` (a torch loop over chunks with the kernel's
 arithmetic) for CPU tensors. Both take any S: a ragged last chunk is
 padded with adt = dt = 0, which adds nothing (the reference sends
-S % chunk != 0 to its sequential oracle). On the card the dtype picks the
-route: bf16 runs the tensor-core kernel (a cumsum pre-pass, then one block
-per (b, h, P-slice) with its products on ``mma.sync``), f32 the scalar
-kernel. The chunk is ``kernel_chunk(chunk, S, P, N, dtype)``: the caller's,
-at most 128 and at most S; on the f32 route it is halved until one block's
-tiles fit in shared memory (N = 128 at P = 64 takes 64). x, B and C may be
-strided views whose last dimension is contiguous; adt and dt any strides.
-The bf16 route copies x, B or C when a row does not start on 16 bytes or
-its width is not one the kernel takes (P a multiple of 16, N one of 16, 32,
-64, 128: the copy pads with zeros).
+S % chunk != 0 to its sequential oracle). On the card both routes run a
+cumsum pre-pass, then one block per (b, h, P-slice) with its products on
+``mma.sync``; the dtype picks the kernel: bf16 runs ``ssd_mma_kernel``
+(bf16 operands, f32 ones split into bf16 hi + lo), f32 ``ssd_tf32_kernel``
+(3xTF32). The chunk is ``kernel_chunk(chunk, S, P, N, dtype)``: the
+caller's, at most 128 and at most S; on the f32 route it is halved until
+two blocks' f32 tiles fit one SM (64 at Zamba2's P 64, N 64). x, B and C
+may be strided views whose last dimension is contiguous; adt and dt any
+strides. Both routes copy x, B or C when a row does not start on 16 bytes
+or its width is not one the kernels take (P a multiple of 16, N one of 16,
+32, 64, 128: the copy pads with zeros).
 """
 from __future__ import annotations
 
@@ -38,12 +39,15 @@ from ._build import check_launch, count_launch, load_library, on_device
 
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128
-# Shared memory one block may use on an H100 (the opt-in maximum).
+# Shared memory one block may use on an H100 (the opt-in maximum), and what
+# each of two blocks on one SM may use (228 KB an SM, 1 KB reserved a block).
 SMEM_LIMIT = 232_448
-# bf16 route: the P-slice widths and state dims the kernel is built for, and
-# the P-slice it runs wherever P allows, chosen on the card
+TWO_BLOCKS = 228 * 1024 // 2 - 1024
+# The P-slice widths and state dims the kernels are built for, and the
+# P-slice both routes run wherever P allows, chosen on the card
 # (scripts/ssd_ablation.py, PERF.md): 64, so that no block recomputes
-# another's C.B^T.
+# another's C.B^T (on the f32 route at the chunk of 64 that two blocks an
+# SM hold).
 P_SLICES = (16, 32, 64)
 MMA_N = (16, 32, 64, 128)
 P_SLICE = 64
@@ -51,15 +55,17 @@ P_SLICE = 64
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def smem_bytes(Q: int, P: int, N: int) -> int:
-    """Shared memory of one block of the f32 route (``csrc/mamba2_ssd.cu``
-    smem_floats): x ``(Q, P)``, C^T and B^T ``(N, Q+1)``, the state ``(N,
-    P)``, the scores ``(Q, Q+1)`` and three ``(Q,)`` vectors, in f32."""
-    return 4 * (Q * P + 2 * N * (Q + 1) + N * P + Q * (Q + 1) + 3 * Q)
-
-
 def _up16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+def smem_bytes(Q: int, ps: int, N: int) -> int:
+    """Shared memory of one block of the f32 route (``csrc/mamba2_ssd.cu``
+    tf32_smem_bytes), for chunk rows QP = Q rounded up to 16: x ``(QP,
+    ps)``, B and C ``(QP, N)`` in f32, rows padded by 4, cum and dt ``(QP,)``;
+    the state's hi and lo ``(ps, N + 4)``."""
+    QP = _up16(Q)
+    return 4 * (QP * (ps + 4) + 2 * QP * (N + 4) + 2 * QP + 2 * ps * (N + 4))
 
 
 def mma_smem_bytes(Q: int, ps: int, N: int) -> int:
@@ -78,18 +84,20 @@ def mma_widths(P: int, N: int) -> tuple:
 
 
 def p_slice(P: int) -> int:
-    """The P-slice of the bf16 route for a padded head dim P (a multiple of
-    16): ``P_SLICE`` when it divides P, else the widest of ``P_SLICES``
-    below it that does (16 at P = 48)."""
+    """The P-slice of both routes for a padded head dim P (a multiple of
+    16): ``P_SLICE`` when it divides P, else the widest of ``P_SLICES`` below
+    it that does (16 at P = 48)."""
     return max(w for w in P_SLICES if w <= P_SLICE and P % w == 0)
 
 
 def kernel_chunk(chunk: int, S: int, P: int, N: int, dtype=torch.float32) -> int:
     """The chunk both routes use for ``chunk`` at this shape and dtype."""
     q = max(1, min(chunk, S, MAX_CHUNK))
-    if dtype == torch.bfloat16:     # bf16 tiles: every width fits at 128
+    if dtype == torch.bfloat16:     # bf16 tiles: two blocks hold 128 at N <= 64
         return q
-    while q > 1 and smem_bytes(q, P, N) > SMEM_LIMIT:
+    Pp, Np = mma_widths(P, N)
+    ps = p_slice(Pp)
+    while q > 1 and smem_bytes(q, ps, Np) > TWO_BLOCKS:
         q = (q + 1) // 2
     return q
 
@@ -103,11 +111,10 @@ def _fn(name: str):
 
 
 _ARGTYPES = {
-    "mamba2_ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "mamba2_ssd_mma_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _P, _P, _P],
+    "mamba2_ssd_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _I, _P],
     "mamba2_ssd_cumsum_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "mamba2_ssd_mma_occupancy": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+    "mamba2_ssd_occupancy": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -161,18 +168,18 @@ def _stride_array(x, adt, dt, Bm, C):
 
 
 def _mma_ready(t: torch.Tensor, width: int) -> torch.Tensor:
-    """``t`` if the bf16 route's 16-byte copies can read it as it is (last
-    dim ``width`` and contiguous, every row on 16 bytes), else a contiguous
-    copy with the last dim padded with zeros to ``width``."""
+    """``t`` if the kernels' 16-byte copies can read it as it is (last dim
+    ``width`` and contiguous, every row on 16 bytes), else a contiguous copy
+    with the last dim padded with zeros to ``width``."""
     dims = t.dim() - 1
     if (t.shape[-1] == width and t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in _strides(t, dims))):
+            and all(st * t.element_size() % 16 == 0 for st in _strides(t, dims))):
         return t
     return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
 
 
 def chunk_cumsum_plain(adt: torch.Tensor, Q: int) -> torch.Tensor:
-    """The bf16 route's pre-pass in torch: the inclusive cumsum of adt
+    """The kernels' pre-pass in torch: the inclusive cumsum of adt
     within each chunk of Q steps, added in order (``_cumsum_in_order``)."""
     S = adt.shape[-1]
     out = torch.empty(adt.shape, dtype=torch.float32, device=adt.device)
@@ -210,45 +217,39 @@ def mamba2_ssd_plain(x, adt, dt, Bm, C, chunk: int = 128) -> torch.Tensor:
     return torch.cat(ys, dim=2)[:, :, :S].to(x.dtype)
 
 
-def _launch_f32(x, adt, dt, Bm, C, y, Q: int, stream) -> int:
-    Bsz, H, S, P = x.shape
-    return _fn("mamba2_ssd_launch")(
-        x.data_ptr(), adt.data_ptr(), dt.data_ptr(), Bm.data_ptr(), C.data_ptr(), y.data_ptr(),
-        _stride_array(x, adt, dt, Bm, C), Bsz, H, S, P, Bm.shape[-1], Q, stream)
-
-
-def _launch_mma(x, adt, dt, Bm, C, Q: int, stream):
-    """The bf16 route: pads or copies what its copies cannot read, returns
-    (y, CUDA error code)."""
+def _launch(x, adt, dt, Bm, C, Q: int, stream):
+    """Pads or copies what the copies cannot read and launches the route of
+    x's dtype; returns (y, CUDA error code)."""
     Bsz, H, S, P = x.shape
     Pp, Np = mma_widths(P, Bm.shape[-1])
     x, Bm, C = _mma_ready(x, Pp), _mma_ready(Bm, Np), _mma_ready(C, Np)
     y = torch.empty((Bsz, H, S, Pp), dtype=x.dtype, device=x.device)
     cum = torch.empty((Bsz, H, S), dtype=torch.float32, device=x.device)
     dtc = torch.empty_like(cum)
-    err = _fn("mamba2_ssd_mma_launch")(
+    err = _fn("mamba2_ssd_launch")(
         x.data_ptr(), adt.data_ptr(), dt.data_ptr(), Bm.data_ptr(), C.data_ptr(), y.data_ptr(),
         _stride_array(x, adt, dt, Bm, C), Bsz, H, S, Pp, Np, Q, p_slice(Pp),
-        cum.data_ptr(), dtc.data_ptr(), stream)
+        cum.data_ptr(), dtc.data_ptr(), int(x.dtype == torch.float32), stream)
     return (y if Pp == P else y[..., :P].contiguous()), err
 
 
-def mma_blocks_per_sm(Q: int, P: int, N: int) -> int:
-    """Blocks of the bf16 route resident on one SM of the current card at
-    this shape (sets the kernel's shared-memory opt-in)."""
+def blocks_per_sm(Q: int, P: int, N: int, dtype=torch.bfloat16) -> int:
+    """Blocks of a route resident on one SM of the current card at this
+    shape, chunk Q as the kernel runs it (sets the kernel's shared-memory
+    opt-in)."""
     Pp, Np = mma_widths(P, N)
     blocks = ctypes.c_int(0)
-    check_launch("mamba2_ssd (occupancy)", _fn("mamba2_ssd_mma_occupancy")(
-        _up16(Q), p_slice(Pp), Np, ctypes.byref(blocks)))
+    check_launch("mamba2_ssd (occupancy)", _fn("mamba2_ssd_occupancy")(
+        int(dtype == torch.float32), _up16(Q), p_slice(Pp), Np, ctypes.byref(blocks)))
     return blocks.value
 
 
 def mamba2_ssd_kernel(x, adt, dt, Bm, C, *, chunk: int = 128) -> torch.Tensor:
     """SSD scan output ``(B, H, S, P)`` (see the module docstring).
 
-    The CUDA kernel for CUDA tensors (bf16: the tensor-core route; f32: the
-    scalar kernel), ``mamba2_ssd_plain`` for CPU tensors. A failed build or
-    launch raises.
+    The CUDA kernels for CUDA tensors (bf16: ``ssd_mma_kernel``, route
+    "mma"; f32: ``ssd_tf32_kernel``, route "tf32"), ``mamba2_ssd_plain`` for
+    CPU tensors. A failed build or launch raises.
     """
     _check(x, adt, dt, Bm, C, chunk)
     if x.device.type == "cpu":
@@ -261,18 +262,11 @@ def mamba2_ssd_kernel(x, adt, dt, Bm, C, *, chunk: int = 128) -> torch.Tensor:
     Q = kernel_chunk(chunk, S, P, Bm.shape[-1], x.dtype)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with on_device(x.device):
-        if x.dtype == torch.bfloat16:
-            route = "mma"
-            y, err = _launch_mma(x, adt, dt, Bm, C, Q, stream)
-        else:
-            route = "scalar"
-            x, Bm, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, Bm, C))
-            y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-            err = _launch_f32(x, adt, dt, Bm, C, y, Q, stream)
+        y, err = _launch(x, adt, dt, Bm, C, Q, stream)
     check_launch("mamba2_ssd", err)
-    count_launch(mamba2_ssd_kernel, route=route)
+    count_launch(mamba2_ssd_kernel, route="mma" if x.dtype == torch.bfloat16 else "tf32")
     return y
 
 
 mamba2_ssd_kernel.launches = 0
-mamba2_ssd_kernel.routes = {"mma": 0, "scalar": 0}
+mamba2_ssd_kernel.routes = {"mma": 0, "tf32": 0}

@@ -908,8 +908,8 @@ def test_mamba2_ssd_kernel_equals_plain(cuda, B, H, S, P, N, chunk, dtype):
     reset_launch_counts()
     got = mamba2_ssd_kernel(x, adt, dt, Bm, C, chunk=chunk)
     assert launch_counts()["mamba2_ssd"] == 1
-    route = "mma" if dtype == "bfloat16" else "scalar"
-    assert mamba2_ssd_kernel.routes == {"mma": 0, "scalar": 0, route: 1}
+    route = "mma" if dtype == "bfloat16" else "tf32"
+    assert mamba2_ssd_kernel.routes == {"mma": 0, "tf32": 0, route: 1}
     want = mamba2_ssd_plain(x, adt, dt, Bm, C, chunk)
     torch.cuda.synchronize()
     assert got.shape == x.shape and got.dtype == x.dtype
@@ -923,8 +923,8 @@ def test_mamba2_ssd_smem_matches_its_python_twin(cuda):
 
     fn = m.load_library("mamba2_ssd").mamba2_ssd_smem_bytes
     fn.restype = ctypes.c_int64
-    for Q, P, N in ((128, 64, 64), (64, 64, 128), (16, 16, 16), (100, 32, 128)):
-        assert fn(Q, P, N) == m.smem_bytes(Q, P, N)
+    for Q, ps, N in ((64, 64, 64), (128, 64, 64), (32, 64, 128), (16, 16, 16), (112, 32, 128)):
+        assert fn(Q, ps, N) == m.smem_bytes(Q, ps, N)
 
 
 def _ssd_views(cuda, B, H, S, P, N, dtype, pad=0, seed=1):
@@ -954,7 +954,7 @@ def test_mamba2_ssd_bf16_p_slices(cuda, monkeypatch, P, ps):
     args = _ssd_views(cuda, 2, 3, 300, P, 64, "bfloat16")
     reset_launch_counts()
     got = m.mamba2_ssd_kernel(*args, chunk=128)
-    assert m.mamba2_ssd_kernel.routes == {"mma": 1, "scalar": 0}
+    assert m.mamba2_ssd_kernel.routes == {"mma": 1, "tf32": 0}
     _ssd_check(got, m.mamba2_ssd_plain(*args, 128))
 
 
@@ -974,7 +974,7 @@ def test_mamba2_ssd_bf16_route_edges(cuda, B, H, S, P, N, chunk, pad):
     reset_launch_counts()
     got = mamba2_ssd_kernel(*args, chunk=chunk)
     assert launch_counts()["mamba2_ssd"] == 1
-    assert mamba2_ssd_kernel.routes == {"mma": 1, "scalar": 0}
+    assert mamba2_ssd_kernel.routes == {"mma": 1, "tf32": 0}
     _ssd_check(got, mamba2_ssd_plain(*args, chunk))
 
 
@@ -1007,9 +1007,92 @@ def test_mamba2_ssd_mma_smem_matches_its_python_twin(cuda):
 
 
 def test_mamba2_ssd_two_blocks_per_sm_at_zamba2(cuda):
-    from repro_torch.kernels.mamba2_ssd import mma_blocks_per_sm
+    from repro_torch.kernels.mamba2_ssd import blocks_per_sm, kernel_chunk
 
-    assert mma_blocks_per_sm(128, 64, 64) >= 2
+    assert blocks_per_sm(128, 64, 64) >= 2
+    assert blocks_per_sm(kernel_chunk(128, 1024, 64, 64), 64, 64, torch.float32) >= 2
+
+
+def _tf32_check(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("ps", [16, 32, 64])
+@pytest.mark.parametrize("P", [16, 32, 48, 64])
+def test_mamba2_ssd_tf32_p_slices(cuda, monkeypatch, P, ps):
+    """The f32 route at every P-slice width against every head dim:
+    P_SLICE as the wrapper runs it (64) and as scripts/ssd_ablation.py sets
+    it (32, 16); the chunk, and the plain version's, follow it."""
+    from repro_torch.kernels import mamba2_ssd as m
+
+    monkeypatch.setattr(m, "P_SLICE", ps)
+    args = _ssd_views(cuda, 2, 3, 300, P, 64, "float32")
+    reset_launch_counts()
+    got = m.mamba2_ssd_kernel(*args, chunk=128)
+    assert m.mamba2_ssd_kernel.routes == {"mma": 0, "tf32": 1}
+    _tf32_check(got, m.mamba2_ssd_plain(*args, 128))
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk,pad", [
+    (8, 80, 1024, 64, 64, 128, 0),   # Zamba2-2.7B's prefill, all 80 heads (chunk 64)
+    (2, 4, 300, 32, 128, 128, 0),    # N = 128, ragged
+    (1, 3, 100, 16, 16, 16, 0),
+    (2, 2, 257, 32, 32, 100, 0),     # a chunk that is no multiple of 16
+    (1, 2, 5, 64, 64, 128, 0),       # S < Q
+    (1, 2, 130, 64, 64, 128, 0),     # one row past the kernel's chunks
+    (2, 3, 200, 64, 64, 64, 1),      # rows 4 bytes off 16: the wrapper copies them
+    (2, 3, 200, 64, 64, 64, 2),      # rows 8 bytes off 16
+    (1, 2, 130, 24, 40, 128, 0),     # P and N padded to 32 and 64
+    (1, 2, 64, 64, 64, 1, 0),        # a chunk of one step
+])
+def test_mamba2_ssd_tf32_route_edges(cuda, B, H, S, P, N, chunk, pad):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_kernel, mamba2_ssd_plain
+
+    args = _ssd_views(cuda, B, H, S, P, N, "float32", pad)
+    reset_launch_counts()
+    got = mamba2_ssd_kernel(*args, chunk=chunk)
+    assert launch_counts()["mamba2_ssd"] == 1
+    assert mamba2_ssd_kernel.routes == {"mma": 0, "tf32": 1}
+    _tf32_check(got, mamba2_ssd_plain(*args, chunk))
+
+
+def test_mamba2_ssd_tf32_large_decays(cuda):
+    """adt up to -16 a step takes the chunk's cumsum near -1,000, where a
+    tree-order sum parts from the in-order one: the pre-pass adds in order,
+    as the plain version does, so the f32 route holds its tolerance."""
+    from repro_torch.kernels.mamba2_ssd import kernel_chunk, mamba2_ssd_kernel, mamba2_ssd_plain
+
+    x, _, dt, Bm, C = _ssd_views(cuda, 2, 4, 512, 64, 64, "float32")
+    dt = torch.full_like(dt, 1.0)
+    adt = -torch.linspace(14.0, 16.0, 4, device=cuda)[None, :, None] * dt
+    Q = kernel_chunk(128, 512, 64, 64)
+    assert float(adt[..., :Q].sum(-1).min()) < -900.0
+    got = mamba2_ssd_kernel(x, adt, dt, Bm, C, chunk=128)
+    _tf32_check(got, mamba2_ssd_plain(x, adt, dt, Bm, C, 128))
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+def test_mamba2_ssd_prepass_once_per_call(cuda, dtype):
+    """Each route is the pre-pass and its scan, one launch of each a call,
+    under one count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd_kernel
+
+    args = _ssd_views(cuda, 2, 4, 300, 64, 64, dtype)
+    mamba2_ssd_kernel(*args)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mamba2_ssd_kernel(*args)
+        mamba2_ssd_kernel(*args)
+        torch.cuda.synchronize()
+    scan = "ssd_mma_kernel" if dtype == "bfloat16" else "ssd_tf32_kernel"
+    counts = {k: sum(ev.count for ev in prof.key_averages() if k in ev.key)
+              for k in ("ssd_cumsum_kernel", "ssd_mma_kernel", "ssd_tf32_kernel")}
+    assert counts == {k: 2 if k in ("ssd_cumsum_kernel", scan) else 0 for k in counts}
+    assert launch_counts()["mamba2_ssd"] == 2
 
 
 def test_lm_kernels_refuse_what_they_do_not_take(cuda):

@@ -240,11 +240,15 @@ def test_mamba2_final_state_matches_jax(rng):
 
 
 def test_mamba2_ssd_chunk_choice():
-    # the f32 route (scalar kernel, f32 tiles)
-    assert kernel_chunk(128, 1024, 64, 64) == 128      # Zamba2: 182,784 B of shared memory
-    assert kernel_chunk(128, 1024, 64, 128) == 64      # N = 128 does not fit at 128
+    # the f32 route (3xTF32 kernel, f32 tiles): halved until two blocks fit an SM
+    assert kernel_chunk(128, 1024, 64, 64) == 64       # Zamba2: 87,552 B (140,288 at 128)
+    assert kernel_chunk(128, 1024, 64, 128) == 32      # N = 128 at P-slice 64
+    assert kernel_chunk(128, 300, 32, 128) == 64       # N = 128 at P-slice 32
+    assert kernel_chunk(128, 1024, 16, 16) == 128      # narrow tiles keep 128
+    assert kernel_chunk(128, 1024, 24, 40) == 128      # P, N padded to 32, 64 first
     assert kernel_chunk(128, 40, 64, 64) == 40         # never longer than S
     assert kernel_chunk(16, 1024, 16, 16) == 16
+    assert kernel_chunk(100, 1024, 64, 64) == 50       # odd chunks halve upward
     # the bf16 route keeps bf16 tiles: N = 128 fits a chunk of 128
     bf = torch.bfloat16
     assert kernel_chunk(128, 1024, 64, 64, bf) == 128
@@ -345,6 +349,76 @@ def test_mamba2_ssd_bf16_chunk_128_matches_jax(N, rng):
     got = ops.mamba2_ssd(*t, chunk=128)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("B,H,S,P,N,Q", [
+    (1, 2, 256, 64, 64, 64),      # Zamba2's widths: two f32 blocks an SM hold 64
+    (1, 2, 256, 64, 128, 32),     # N = 128 at P-slice 64
+    (1, 2, 256, 32, 128, 64),     # N = 128 at P-slice 32
+    (1, 2, 256, 16, 16, 128),     # narrow tiles keep 128
+])
+def test_mamba2_ssd_plain_at_the_f32_chunks_matches_jax(B, H, S, P, N, Q, rng):
+    """The f32 route's chunk (``kernel_chunk``, which the plain version
+    follows) against the JAX kernel at its chunk of 128, in interpret mode."""
+    assert kernel_chunk(128, S, P, N) == Q
+    j, t = _ssd_inputs(rng, B, H, S, P, N)
+    want = jops.mamba2_ssd(*j, chunk=128, use_pallas=True)
+    got = mamba2_ssd_plain(*t, 128)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4, rtol=2e-3)
+
+
+def _tf32(x):
+    """x cut to TF32's 10-bit mantissa: the low 13 bits masked off, as the
+    tensor cores read a .tf32 operand."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 route's products: hi = tf32(x), lo = tf32(x - hi),
+    lo.hi + hi.lo + hi.hi with f32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _ssd_3xtf32(x, adt, dt, Bm, C, chunk):
+    """The f32 route's arithmetic in torch: the in-order chunk cumsum, every
+    product in 3xTF32 (C.state^T, C.B^T, scores.x, (w x)^T.B, the state
+    split as it is stored), exponentials and masks in f32."""
+    Bsz, H, S, P = x.shape
+    Q = kernel_chunk(chunk, S, P, Bm.shape[-1])
+    cum_all = ssd.chunk_cumsum_plain(adt, Q)
+    tril = torch.ones((Q, Q), dtype=torch.bool).tril()
+    state = torch.zeros((Bsz, H, P, Bm.shape[-1]))
+    ys = []
+    for c0 in range(0, S, Q):
+        sl = slice(c0, min(c0 + Q, S))
+        xc, cum, dc, Bc, Cc = x[:, :, sl], cum_all[:, :, sl], dt[:, :, sl], Bm[:, sl], C[:, sl]
+        n = xc.shape[2]
+        last = cum[..., -1:]
+        y = torch.exp(cum)[..., None] * _mm_3xtf32(Cc[:, None], state.transpose(-1, -2))
+        decay = torch.where(tril[:n, :n], torch.exp(cum[..., :, None] - cum[..., None, :]), 0.0)
+        scores = _mm_3xtf32(Cc, Bc.transpose(1, 2))[:, None] * decay * dc[..., None, :]
+        ys.append(y + _mm_3xtf32(scores, xc))
+        w = torch.exp(last - cum) * dc
+        state = (state * torch.exp(last)[..., None]
+                 + _mm_3xtf32((xc * w[..., None]).transpose(-1, -2), Bc[:, None]))
+    return torch.cat(ys, dim=2)
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (1, 2, 300, 64, 64, 128),     # Zamba2's widths at the route's chunk of 64, ragged
+    (2, 3, 200, 32, 128, 128),    # N = 128
+    (1, 2, 100, 16, 16, 16),
+])
+def test_mamba2_ssd_3xtf32_keeps_the_tolerance(B, H, S, P, N, chunk, rng):
+    """3xTF32, emulated on the CPU, holds the plain version's f32 result at
+    the kernel's tolerance (lo truncated, as the tensor cores read it in the
+    kernel)."""
+    _, t = _ssd_inputs(rng, B, H, S, P, N)
+    want = mamba2_ssd_plain(*t, chunk)
+    got = _ssd_3xtf32(*t, chunk)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-4, rtol=2e-3)
 
 
 def test_mamba2_ssd_plain_is_chunk_invariant(rng):
