@@ -210,6 +210,14 @@ passed over):
      ``torch.matmul``; (c) the smoke stablelm-3b train state saved and
      restored with ``shardings=`` (``param_specs`` on a (1, 1) mesh of the
      card): every leaf a DTensor on the card, bitwise what was saved;
+ 14. the dry run (``launch/dryrun.py``) at full width on the production
+     meshes, in a process of its own started beside phase 2's build (its
+     fake process group of 256 or 512 ranks never meets phase 13's NCCL
+     group): stablelm-3b ``train_4k`` on ``pod`` and DeepSeek-V2-Lite-16B
+     ``decode_32k`` on ``multipod``, fake tensors on the card; each
+     record's status, per-device FLOPs, bytes, collective bytes by kind,
+     memory and ``total_s`` printed beside the card's name and power limit;
+     it fails unless both are ``ok`` and no kernel was launched;
   5. (printed last) each kernel's bound: the largest of its bytes over the
      HBM rate, its matrix-product FLOPs over the bf16 tensor-core rate, its
      other operations over the peak scalar rate, and its longest chain of
@@ -1615,6 +1623,59 @@ DETERMINISTIC_LAUNCH = ("import runpy, sys, torch; torch.use_deterministic_algor
                         "runpy.run_module('repro_torch.launch.train', run_name='__main__')")
 
 
+# Phase 14's cells, and the process that runs them: the dry run's fake
+# tensors live on the card, and nothing may launch a kernel.
+DRYRUN_CELLS = (("stablelm_3b", "train_4k", "pod"),
+                ("deepseek_v2_lite_16b", "decode_32k", "multipod"))
+DRYRUN_RUN = ("import json, sys; from repro_torch import kernels as K; "
+              "from repro_torch.launch import dryrun; "
+              "recs = [dryrun.run_cell(a, s, m, save=False, device='cuda') "
+              "for a, s, m in json.loads(sys.argv[1])]; "
+              "print(json.dumps({'records': recs, 'launches': K.launch_counts()}))")
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryrun():
+    """Phase 14's process, started early so that it runs beside the build;
+    killed at exit if still running."""
+    import atexit
+    import os
+
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_RUN, json.dumps(DRYRUN_CELLS)],
+                            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def dryrun_phase(proc, name_power: str) -> None:
+    """Phase 14: wait for the dry run's process and check its records."""
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"[14] dry run: no exit within {DRYRUN_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"[14] dry run exited {proc.returncode}: {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    if any(res["launches"].values()):
+        fail(f"[14] dry run: launches {res['launches']}; it runs no kernel")
+    for rec in res["records"]:
+        cell = f"{rec['arch']} {rec['shape']} on {rec['mesh']} {tuple(rec['mesh_shape'])}"
+        if rec["status"] != "ok":
+            fail(f"[14] dry run {cell}: {rec.get('error')}\n{rec.get('traceback', '')[-2000:]}")
+        hlo = rec["hlo"]
+        print(f"[14] {name_power}: dry run {cell}, {rec['device']}: {rec['status']} in "
+              f"total_s {rec['total_s']!r} (lower {rec['lower_s']!r} s, trace {rec['trace_s']!r} "
+              f"s, {hlo['ops']} ops); per device: flops {hlo['flops_per_device']!r}, bytes "
+              f"{hlo['bytes_per_device']!r}, collective bytes "
+              f"{hlo['collective_bytes_per_device']}, memory {rec['memory']}", flush=True)
+    print(f"[14] no kernel launched; waited {time.perf_counter() - t0:.1f} s for the process",
+          flush=True)
+
+
 def no_launches(K, what: str) -> None:
     counts = K.launch_counts()
     if any(counts.values()):
@@ -2874,7 +2935,8 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
           f"{name_power}; max SM clock {clock_mhz} MHz", flush=True)
 
-    # ---- 2. build --------------------------------------------------------
+    # ---- 2. build (and phase 14's process beside it) ------------------------
+    dry_proc = start_dryrun()
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -3689,6 +3751,9 @@ def main() -> None:
     entries["dram_scan_full[lru arrivals]"], entries["dram_prepass[lru arrivals]"] = (
         distributed_phase(dev, K, name_power, hw, etrace, f32_op_ms))
     print(f"[13] phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- 14. the dry run over the production meshes ----------------------------
+    dryrun_phase(dry_proc, name_power)
 
     # ---- report ----------------------------------------------------------
     main_run = {"cache_scan[lru]": ("lru", "pallas"), "cache_scan[srrip]": ("srrip", "pallas"),

@@ -35,18 +35,26 @@ The in-model hints (``fsdp_unshard``, ``activation_constraint``,
 ``constrain``, ``shard_attention_q``) read the mesh set by ``set_mesh``:
 without one they return their input; under one they redistribute a DTensor
 input to the reference's spec (any other input is returned as it is). The
-port's models do not call them yet (``models/layers.py``, ``mamba.py``,
-``transformer.py``): the dry run over the production meshes, which
-exercises them, is still to come.
+models call them where the reference does, so the dry run over the
+production meshes (``launch.dryrun``) lays the activations out as GSPMD
+does there. Three helpers run what DTensor has no sharding rule for on
+each rank's own shard, and are the plain computation without a mesh or a
+DTensor: ``group_local`` (the MoE's data-dependent dispatch and combine,
+over its dp-sharded groups), ``heads_local`` and ``batch_heads_local``
+(attention and the SSD recurrence, on each rank's batch rows and heads, as
+GSPMD partitions them: DTensor would merge a dp-sharded batch with
+model-sharded heads into one dimension for its batched products),
+``write_slice`` (a cache write into a sequence-sharded cache) and
+``row_slice`` (a train step's microbatch of a batch sharded over its rows).
 """
 from __future__ import annotations
 
 import contextlib
-import threading
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .. import tree as T
 
@@ -295,32 +303,53 @@ def distribute(x, sharding: NamedSharding):
 # In-model hints
 # --------------------------------------------------------------------------
 
-_current = threading.local()
+# Not thread-local: the autograd engine runs a CUDA backward, and the layers
+# it recomputes there, on a thread of its own.
+_current = [None]
 
 
 @contextlib.contextmanager
 def set_mesh(mesh) -> Iterator[Any]:
-    """Make ``mesh`` the one the in-model hints read, in this thread, for
-    the block (the counterpart of JAX's abstract mesh)."""
-    prev = getattr(_current, "mesh", None)
-    _current.mesh = mesh
+    """Make ``mesh`` the one the in-model hints read, in every thread of the
+    process, for the block (the counterpart of JAX's abstract mesh)."""
+    prev = _current[0]
+    _current[0] = mesh
     try:
         yield mesh
     finally:
-        _current.mesh = prev
+        _current[0] = prev
 
 
 def current_mesh():
-    return getattr(_current, "mesh", None)
+    return _current[0]
 
 
-def _constrain_to(x, spec: PartitionSpec):
-    """Redistribute a DTensor ``x`` to ``spec`` on the current mesh."""
+def _constrain_to(x, spec: PartitionSpec, grad: bool = True):
+    """Redistribute a DTensor ``x`` to ``spec`` on the current mesh; with
+    ``grad``, its gradient too, as JAX constrains the cotangent of a
+    sharding constraint to the same sharding (GSPMD would lay the backward
+    out by propagation; DTensor keeps whatever layout a gradient arrives
+    in, and a loss's gradient arrives replicated)."""
     from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(current_mesh(), placements(current_mesh(), spec))
+    mesh = current_mesh()
+    pl = placements(mesh, spec)
+    return _Constrain.apply(x, mesh, pl) if grad else x.redistribute(mesh, pl)
+
+
+class _Constrain(torch.autograd.Function):
+    """A redistribution whose gradient is redistributed the same way."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, pl):
+        ctx.mesh, ctx.pl = mesh, pl
+        return x.redistribute(mesh, pl)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.pl), None, None
 
 
 def _hint_axes(required: Optional[str]) -> Optional[dict]:
@@ -350,7 +379,10 @@ def fsdp_unshard(params: Any) -> Any:
     def fn(names, leaf):
         if not hasattr(leaf, "shape") or leaf.dim() < 2:
             return leaf
-        return _constrain_to(leaf, _leaf_spec(names, tuple(leaf.shape), axes, None, "model"))
+        # the gradient goes back to the parameter's own layout (a
+        # reduce-scatter over the data axes), as GSPMD's does for FSDP
+        return _constrain_to(leaf, _leaf_spec(names, tuple(leaf.shape), axes, None, "model"),
+                             grad=False)
 
     return _map_with_paths(fn, params)
 
@@ -404,3 +436,152 @@ def shard_attention_q(q: Any) -> Any:
     if q.shape[2] % m == 0:
         return _constrain_to(q, P(b_ax, None, "model", None))
     return q
+
+
+# --------------------------------------------------------------------------
+# Rank-local pieces of a sharded computation
+# --------------------------------------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def group_local(fn, *args, grouped: Sequence[bool], n_out: int):
+    """``fn(*args)`` -> ``n_out`` tensors, run on each rank's groups.
+
+    Every output and each tensor argument marked in ``grouped`` has the
+    group dimension first; under a mesh it is laid out as ``constrain(x,
+    "dp", ...)`` lays it out (over the data(+pod) axes when the groups
+    divide them, else replicated), and the other arguments are replicated.
+    ``fn`` then runs on the local tensors (``local_map``): the reference's
+    constraints keep its dispatch groups shard-local, which this is. Without
+    a mesh or a DTensor argument it is ``fn(*args)``."""
+    mesh = current_mesh()
+    if mesh is None or not any(_is_dtensor(a) for a in args):
+        return fn(*args)
+    axes = mesh_axes(mesh)
+    dp_ax, dp_size = _dp_of(axes)
+    G = next(a for a, g in zip(args, grouped) if g).shape[0]
+    g_spec = P(dp_ax if G % dp_size == 0 and "data" in axes else None)
+    return _local_map(fn, args, [g_spec if g else P() for g in grouped], [g_spec] * n_out, mesh)
+
+
+def _local_map(fn, args, in_specs, out_specs, mesh):
+    """``local_map`` of ``fn`` with each tensor argument laid out by its
+    spec (a plain tensor taken as replicated), outputs by theirs."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+
+    r_pl = placements(mesh, P())
+    ins, in_pl = [], []
+    for a, spec in zip(args, in_specs):
+        if isinstance(a, torch.Tensor) and not _is_dtensor(a):
+            a = DTensor.from_local(a, mesh, r_pl, run_check=False)
+        ins.append(a)
+        in_pl.append(placements(mesh, spec) if isinstance(a, torch.Tensor) else None)
+    out_pl = [placements(mesh, spec) for spec in out_specs]
+    return local_map(fn, out_placements=tuple(out_pl) if len(out_pl) > 1 else list(out_pl[0]),
+                     in_placements=tuple(in_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(*ins)
+
+
+def batch_heads_local(fn, *args, heads: Sequence[Optional[int]], n_out: int):
+    """``fn(*args)`` -> ``n_out`` tensors, on each rank's batch rows and
+    heads: dimension 0 of every tensor is the batch, over the data(+pod)
+    axes when they divide it; ``heads[i]`` is argument i's head dimension
+    (None: it has none), over the model axis when it divides every one.
+    Every output has the batch first and its heads at dimension 1. Without a
+    mesh or a DTensor argument it is ``fn(*args)``."""
+    mesh = current_mesh()
+    if mesh is None or not any(_is_dtensor(a) for a in args):
+        return fn(*args)
+    axes = mesh_axes(mesh)
+    dp_ax, dp_size = _dp_of(axes)
+    b_ax = dp_ax if args[0].shape[0] % dp_size == 0 and "data" in axes else None
+    h_ax = "model" if "model" in axes and all(
+        args[i].shape[d] % axes["model"] == 0 for i, d in enumerate(heads) if d is not None
+    ) else None
+
+    def spec(d):
+        return P(b_ax) if d is None else P(b_ax, *([None] * (d - 1)), h_ax)
+
+    return _local_map(fn, args, [spec(d) for d in heads], [spec(1)] * n_out, mesh)
+
+
+def heads_local(fn, q, k, v):
+    """``fn(q, k, v, q_offset)`` -> (B, H, Sq, dv): attention (q (B, H, Sq,
+    d), k and v (B, Hkv, Sk, .)) on each rank's batch rows and heads, as
+    ``shard_attention_q`` lays q out: heads over the model axis when they
+    divide it (too few kv heads to split are repeated to one per query
+    head), else the query rows, ``q_offset`` then being this rank's first
+    row; the batch over the data(+pod) axes when they divide it. Without a
+    mesh or a DTensor argument it is ``fn(q, k, v, 0)``."""
+    mesh = current_mesh()
+    if mesh is None or not any(_is_dtensor(t) for t in (q, k, v)):
+        return fn(q, k, v, 0)
+    axes = mesh_axes(mesh)
+    dp_ax, dp_size = _dp_of(axes)
+    B, H, Sq = q.shape[:3]
+    b_ax = dp_ax if B % dp_size == 0 and "data" in axes else None
+    m = axes.get("model")
+    row0 = 0
+    if m and H % m == 0:
+        if k.shape[1] % m:
+            k = k.repeat_interleave(H // k.shape[1], dim=1)
+            v = v.repeat_interleave(H // v.shape[1], dim=1)
+        q_spec = kv_spec = P(b_ax, "model")
+    elif m and Sq > 1 and Sq % m == 0:
+        q_spec, kv_spec = P(b_ax, None, "model"), P(b_ax)
+        row0 = mesh.get_local_rank("model") * (Sq // m)
+    else:
+        q_spec = kv_spec = P(b_ax)
+    return _local_map(lambda q, k, v: fn(q, k, v, row0), (q, k, v),
+                      (q_spec, kv_spec, kv_spec), (q_spec,), mesh)
+
+
+def write_slice(dst, src, dim: int, start: int) -> bool:
+    """``dst[..., start:start + n, ...] = src`` along ``dim`` in place, for
+    a DTensor ``dst``: ``src`` is laid out as ``dst`` except along ``dim``
+    (whole there), and each rank writes the part that falls in its shard.
+    Returns False, writing nothing, when ``dst`` is not a DTensor."""
+    if not _is_dtensor(dst):
+        return False
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = dst.device_mesh
+    src_pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+              for p in dst.placements]
+    local_src = src.redistribute(mesh, src_pl).to_local()
+    # this rank's rows of dim: each mesh dimension that shards it splits the
+    # rows left so far into chunks of ceil(n / size), in mesh order
+    lo, n = 0, dst.shape[dim]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(dst.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            chunk = -(-n // mesh.size(i))
+            first = min(coord[i] * chunk, n)
+            lo, n = lo + first, min(chunk, n - first)
+    hi = lo + n
+    a, b = max(start, lo), min(start + src.shape[dim], hi)
+    if a < b:
+        local = dst.to_local()
+        local.narrow(dim, a - lo, b - a).copy_(local_src.narrow(dim, a - start, b - a))
+    return True
+
+
+def row_slice(x, n: int, i: int):
+    """Microbatch ``i`` of ``n`` of a batch tensor (rows first): the i-th
+    n-th of an unsharded ``x``'s rows. A DTensor sharded over its rows
+    gives each rank the i-th of n slices of its own rows instead, so every
+    rank takes its share of every microbatch (the microbatch's rows are then
+    a strided set, as each rank's slice of a scanned microbatch is)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not (_is_dtensor(x) and any(isinstance(p, Shard) and p.dim == 0
+                                   for p in x.placements)):
+        return x.reshape(n, -1, *x.shape[1:])[i]
+    local = x.to_local()
+    part = local.reshape(n, -1, *local.shape[1:])[i]
+    return DTensor.from_local(part, x.device_mesh, x.placements, run_check=False)

@@ -101,7 +101,8 @@ def embedding_bag_pinned(
 # --------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, use_pallas: bool = True) -> torch.Tensor:
+                    causal: bool = True, use_pallas: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
     """q (B, Hq, S, dq), k (B, Hkv, Sk, dq), v (B, Hkv, Sk, dv) -> (B, Hq, S,
     dv), through K6 (causal needs Sk == S). K6 has one head width, so a
     narrower v (MLA: dq 192, dv 128) goes in padded with zero columns to dq
@@ -112,12 +113,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``round_p`` makes K6's plain version round there too.
 
     ``use_pallas=False``: the reference's jnp route, ``ref.chunked_attention``
-    for S > 2048 or dv != dq, else ``ref.flash_attention_ref``."""
+    for S > 2048 or dv != dq, else ``ref.flash_attention_ref``; only it
+    takes q's rows at ``q_offset`` (a rank's slice of the queries)."""
     dq, dv = q.shape[-1], v.shape[-1]
     if not use_pallas:
         if q.shape[2] > 2048 or dq != dv:
-            return ref.chunked_attention(q, k, v, causal=causal)
-        return ref.flash_attention_ref(q, k, v, causal=causal)
+            return ref.chunked_attention(q, k, v, causal=causal, q_offset=q_offset)
+        return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    if q_offset:
+        raise ValueError("flash_attention: K6 takes a query's rows from position 0")
     if dv == dq:
         return flash_attention_kernel(q, k, v, causal=causal)
     if dv > dq:

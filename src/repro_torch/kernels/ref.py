@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from .. import loops
+
 
 def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """table (T*R, D), indices (B, T, L) pre-offset -> (B, T, D) sum-pool."""
@@ -44,7 +46,11 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
+    """``q_offset``: the position of q's first row among the keys (a slice
+    of the queries, as one rank holds under a mesh); the causal mask is
+    ``offset + row >= col``."""
     B, Hq, S, d = q.shape
     group = Hq // k.shape[1]
     if sm_scale is None:
@@ -53,7 +59,11 @@ def flash_attention_ref(
     vf = v.repeat_interleave(group, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * sm_scale
     if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        if q_offset or S != k.shape[2]:
+            rows = q_offset + torch.arange(S, device=q.device)
+            mask = rows[:, None] >= torch.arange(k.shape[2], device=q.device)[None, :]
+        else:
+            mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
@@ -67,12 +77,14 @@ def chunked_attention(
     causal: bool = True,
     sm_scale: Optional[float] = None,
     k_block: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Online-softmax attention over blocks of ``k_block`` keys (never the
     whole (S, Sk) scores), GQA by expanding each block's k, v, any dv. As the
     reference computes it: the scores from q and k in their dtype with f32
     sums, p rounded to v's dtype before p.v (f32 sums), the running max from
-    -1e30, the output divided by max(l, 1e-30)."""
+    -1e30, the output divided by max(l, 1e-30). ``q_offset`` as in
+    ``flash_attention_ref``."""
     B, Hq, S, dq = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -80,7 +92,7 @@ def chunked_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(dq)
     k_block = min(k_block, Sk)
-    rows = torch.arange(S, device=q.device)
+    rows = q_offset + torch.arange(S, device=q.device)
     qf = q.float()
     m = torch.full((B, Hq, S, 1), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hq, S, 1), dtype=torch.float32, device=q.device)
@@ -143,15 +155,16 @@ def mamba2_ssd_ref(
     Bm: torch.Tensor,   # (B, S, N)
     C: torch.Tensor,    # (B, S, N)
 ) -> torch.Tensor:      # (B, H, S, P)
-    """Exact sequential recurrence, one step per position."""
+    """Exact sequential recurrence, one step per position (steps of one
+    body: ``loops.trips``)."""
     Bsz, H, S, P = x.shape
     N = Bm.shape[-1]
     xf, adtf, dtf, Bf, Cf = x.float(), adt.float(), dt.float(), Bm.float(), C.float()
     state = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     ys = []
-    for t in range(S):
+    for t in loops.trips(S):
         decay = torch.exp(adtf[:, :, t])[..., None, None]
         outer = (dtf[:, :, t, None, None] * xf[:, :, t, :, None]) * Bf[:, None, t, None, :]
         state = decay * state + outer
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
-    return torch.stack(ys, dim=2).to(x.dtype)
+    return loops.stacked(ys, S, dim=2).to(x.dtype)

@@ -6,11 +6,13 @@ A port of ``repro/models/hybrid.py``. The Mamba2 layers are stacked
 ``(G, E, ...)`` as in the reference (``groups``), G = n_layers / attn_every
 applications of the shared block. On the prompt every Mamba2 layer runs K8
 and every application of the shared block K6; each decoded token runs K7 in
-every application. The reference's sharding calls do nothing on one device
-and are dropped. ``final_hidden`` and ``forward`` take ``use_pallas`` and
-``remat`` (each group of E Mamba2 layers and its shared block recomputed in
-the backward, the reference's checkpointed unit). Caches are updated in
-place.
+every application. The reference's sharding hints are called where it
+calls them (the embedding's output pinned, each Mamba2 layer's and each
+application's shared weights gathered at point of use), and do nothing
+without a mesh. Every entry point takes ``use_pallas``, and ``final_hidden``
+and ``forward`` ``remat`` (each group of E Mamba2 layers and its shared
+block recomputed in the backward, the reference's checkpointed unit).
+Caches are updated in place.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import activation_constraint, fsdp_unshard
 from . import layers as L
 from . import mamba
 from .config import ArchConfig
@@ -73,21 +76,22 @@ def _shared_block(cfg, shared, x, positions, *, kv_cache=None, cache_index=None,
         shared["attn"], h, cfg, positions=positions,
         kv_cache=kv_cache, cache_index=cache_index, prefill=prefill, use_pallas=use_pallas,
     )
-    x = x + attn_out
+    x = L.residual(x, attn_out)
     h = L.rmsnorm(shared["norm2"], x, cfg.norm_eps)
-    return x + L.swiglu(shared["mlp"], h), new_cache
+    return L.residual(x, L.swiglu(shared["mlp"], h)), new_cache
 
 
 def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                  use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
     _check(cfg)
-    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def body(x, group, shared):
         for lp in group:
-            x = mamba._apply_layer(cfg, lp, x, use_pallas=use_pallas)[0]
-        return _shared_block(cfg, shared, x, positions, use_pallas=use_pallas)[0]
+            x = mamba._apply_layer(cfg, fsdp_unshard(lp), x, use_pallas=use_pallas)[0]
+        return _shared_block(cfg, fsdp_unshard(shared), x, positions,
+                             use_pallas=use_pallas)[0]
 
     for group in L.stacked_layers(params, "groups", 2):
         x = L.remat_call(body, x, group, params["shared"], remat=remat)
@@ -124,7 +128,7 @@ def init_state_cache(cfg: ArchConfig, batch: int, max_seq: int, *,
 
 
 def prefill_with_state(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
-                       max_seq: Optional[int] = None, caches=None):
+                       max_seq: Optional[int] = None, caches=None, use_pallas: bool = True):
     """Parallel prompt pass: chunked SSD (K8) for the mamba layers and
     causal flash (K6) for the shared attention, whose k, v land at cache
     position 0. Leaves every state in ``caches`` (made for ``max_seq``,
@@ -134,34 +138,36 @@ def prefill_with_state(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
     if caches is None:
         caches = init_state_cache(cfg, B, max_seq or S, device=tokens.device)
     ssm_c, conv_c, (kv_k, kv_v) = caches
-    x = L.embed(params["embed"], tokens)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     positions = torch.arange(S, device=x.device)
     for g, group in enumerate(L.stacked_layers(params, "groups", 2)):
         for e, lp in enumerate(group):
-            x, st, cv = mamba._prefill_layer(cfg, lp, x)
+            x, st, cv = mamba._prefill_layer(cfg, fsdp_unshard(lp), x, use_pallas)
             ssm_c[g, e].copy_(st)
             conv_c[g, e].copy_(cv)
-        x, _ = _shared_block(cfg, params["shared"], x, positions,
-                             kv_cache=(kv_k[g], kv_v[g]), cache_index=0, prefill=True)
+        x, _ = _shared_block(cfg, fsdp_unshard(params["shared"]), x, positions,
+                             kv_cache=(kv_k[g], kv_v[g]), cache_index=0, prefill=True,
+                             use_pallas=use_pallas)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return hidden_to_logits(params, x[:, -1:], cfg), caches
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache_index: int, caches,
-                cfg: ArchConfig):
+                cfg: ArchConfig, *, use_pallas: bool = True):
     """One step of ``tokens`` (B, S_new) at host position ``cache_index``;
     every cache is updated in place. Returns (logits, caches)."""
     _check(cfg)
     ssm_c, conv_c, (kv_k, kv_v) = caches
-    x = L.embed(params["embed"], tokens)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     positions = cache_index + torch.arange(tokens.shape[1], device=x.device)
     for g, group in enumerate(L.stacked_layers(params, "groups", 2)):
         for e, lp in enumerate(group):
-            x, st, cv = mamba._apply_layer(cfg, lp, x, ssm_state=ssm_c[g, e],
-                                           conv_state=conv_c[g, e])
+            x, st, cv = mamba._apply_layer(cfg, fsdp_unshard(lp), x, ssm_state=ssm_c[g, e],
+                                           conv_state=conv_c[g, e], use_pallas=use_pallas)
             ssm_c[g, e].copy_(st)
             conv_c[g, e].copy_(cv)
-        x, _ = _shared_block(cfg, params["shared"], x, positions,
-                             kv_cache=(kv_k[g], kv_v[g]), cache_index=cache_index)
+        x, _ = _shared_block(cfg, fsdp_unshard(params["shared"]), x, positions,
+                             kv_cache=(kv_k[g], kv_v[g]), cache_index=cache_index,
+                             use_pallas=use_pallas)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return hidden_to_logits(params, x, cfg), caches

@@ -18,9 +18,10 @@ plain oracles of ``kernels.ref`` and ``table[tokens]``, which autograd
 differentiates. The products the reference computes outside Pallas stay
 plain torch on every device: a cached step of several new tokens, MLA's
 absorbed decode and the MoE's router, dispatch, expert FFNs and combine.
-The reference's sharding hints (``shard_attention_q``, ``constrain``) do
-nothing on one device and are not called here: ``distributed.sharding``
-ports them, and the dry run over the production meshes is to wire them in.
+The reference's sharding hints (``shard_attention_q``, ``constrain``) are
+called where it calls them; they do nothing without a mesh
+(``distributed.sharding.set_mesh``), and under one (the dry run) lay out
+DTensor activations as the reference's constraints do.
 """
 from __future__ import annotations
 
@@ -32,6 +33,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.sharding import (
+    activation_constraint,
+    batch_heads_local,
+    constrain,
+    group_local,
+    heads_local,
+    shard_attention_q,
+    write_slice,
+)
 from ..kernels import ops
 from ..kernels import ref as kref
 from .config import ArchConfig
@@ -156,6 +166,15 @@ def init_stacked(make: Callable[[], Params], n: int) -> Params:
     return out
 
 
+def residual(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x + y``, a residual add. Under a mesh the sum is pinned
+    batch-sharded and whole over the model axis (``activation_constraint``,
+    its gradient too): a row-parallel product's partial sums are reduced
+    there, as GSPMD reduces them, where DTensor would carry them on through
+    the next norm and product. Without a mesh, ``x + y``."""
+    return activation_constraint(x + y)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as the reference computes it, ``x * (1 / (1 +
     exp(-x)))``, each op rounded to x's dtype (one f32 ``F.silu`` rounded
@@ -228,12 +247,14 @@ def init_attention(cfg: ArchConfig, dtype, *, generator, device) -> Params:
 def write_cache(cache: torch.Tensor, new: torch.Tensor, cache_index: int) -> int:
     """Write ``new`` (B, Hkv, S, dh) into ``cache`` (B, Hkv, S_max, dh) in
     place at position ``cache_index``, clamped as ``dynamic_update_slice``
-    clamps: the start moves back so the update fits. Returns the start."""
+    clamps: the start moves back so the update fits. Returns the start. A
+    DTensor cache takes each rank's part in its own shard."""
     S, S_max = new.shape[2], cache.shape[2]
     if S > S_max:
         raise ValueError(f"cannot write {S} positions into a cache of {S_max}")
     start = min(max(int(cache_index), 0), S_max - S)
-    cache[:, :, start:start + S] = new
+    if not write_slice(cache, new, 2, start):
+        cache[:, :, start:start + S] = new
     return start
 
 
@@ -271,22 +292,34 @@ def attention(
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if S > 1:
+        q = shard_attention_q(q)
 
     if kv_cache is not None:
         ck, cv = kv_cache                       # (B, Hkv, S_max, dh)
         write_cache(ck, k.to(ck.dtype), cache_index)
         write_cache(cv, v.to(cv.dtype), cache_index)
         if prefill:
-            out = ops.flash_attention(q, k, v, causal=causal, use_pallas=use_pallas)
+            out = attend(q, k, v, causal=causal, use_pallas=use_pallas)
         elif use_pallas and S == 1:
             out = ops.decode_attention(q[:, :, 0], ck, cv, cache_index + S)[:, :, None, :]
         else:
-            out = _decode_attention(q, ck, cv, cache_index + S, Hq // Hkv)
+            valid = cache_index + S
+            out = heads_local(lambda q, k, v, row0: _decode_attention(
+                q, k, v, valid, q.shape[1] // k.shape[1]), q, ck, cv)
     else:
-        out = ops.flash_attention(q, k, v, causal=causal, use_pallas=use_pallas)
+        out = attend(q, k, v, causal=causal, use_pallas=use_pallas)
 
     out = out.transpose(1, 2).reshape(B, S, Hq * dh)
     return out @ p["wo"], kv_cache
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+           use_pallas: bool) -> torch.Tensor:
+    """``ops.flash_attention``; under a mesh on each rank's batch rows and
+    heads, or query rows (``heads_local``)."""
+    return heads_local(lambda q, k, v, row0: ops.flash_attention(
+        q, k, v, causal=causal, use_pallas=use_pallas, q_offset=row0), q, k, v)
 
 
 def _decode_attention(q, ck, cv, valid_len: int, group: int) -> torch.Tensor:
@@ -370,7 +403,7 @@ def mla_attention(
     vv = (kv_l @ p["w_uv"]).reshape(B, -1, H, m.v_head_dim).transpose(1, 2)
     k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
     qq = torch.cat([q_nope, q_rope], dim=-1)
-    out = ops.flash_attention(qq, k, vv, causal=causal, use_pallas=use_pallas)
+    out = attend(qq, k, vv, causal=causal, use_pallas=use_pallas)
     out = out.transpose(1, 2).reshape(B, S, H * m.v_head_dim)
     return out @ p["wo"], kv_cache
 
@@ -473,6 +506,11 @@ def moe(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     token's K contributions are added into zeros in x's dtype in ascending
     expert order, the order of the reference's scatter-add, by a fixed loop
     of gathers (no atomics, so a run repeats bit for bit on the card).
+
+    Under a mesh the groups ride the data axes and the experts the model
+    axis, as the reference's eight constraints ask; routing, packing and
+    combining are data-dependent indexing, which runs group-local on each
+    rank's groups (``group_local``).
     """
     m = cfg.moe
     B, S, D = x.shape
@@ -483,8 +521,32 @@ def moe(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     Tg = T // G
     C = max(1, int(Tg * K * cf) // E)
 
-    xg = x.reshape(G, Tg, D)
-    probs = torch.softmax(xg.float() @ p["router"], dim=-1)              # (G, Tg, E)
+    xg = constrain(x.reshape(G, Tg, D), "dp", None, None)
+    h, slot, keep, order, gate_w, gate_e = group_local(
+        lambda xg, router: _moe_dispatch(xg, router, K, C, E), xg, p["router"],
+        grouped=(True, False), n_out=6)
+    slot = constrain(slot, "dp", None)
+    h = constrain(h, "dp", "model", None, None)
+    act = silu(torch.einsum("gecd,edf->gecf", h, p["wg"])) * torch.einsum(
+        "gecd,edf->gecf", h, p["wu"])
+    act = constrain(act, "dp", "model", None, None)
+    out_buf = torch.einsum("gecf,efd->gecd", act, p["wd"]).reshape(G, E * C, D)
+    out_buf = constrain(out_buf, "dp", None, None)
+    out = group_local(lambda *a: _moe_combine(*a, dtype=x.dtype), out_buf, slot, keep, order,
+                      gate_w, gate_e, grouped=(True,) * 6, n_out=1)
+    out = constrain(out, "dp", None, None).reshape(B, S, D)
+
+    if "shared" in p:
+        out = out + swiglu(p["shared"], x)
+    return out
+
+
+def _moe_dispatch(xg, router, K: int, C: int, E: int):
+    """Route the groups' tokens and pack each group's (E, C, D) buffer.
+    Returns (buffer (G, E, C, D), slot, keep, order (G, Tg K), gate_w,
+    gate_e (G, Tg, K))."""
+    G, Tg, D = xg.shape
+    probs = torch.softmax(xg.float() @ router, dim=-1)                  # (G, Tg, E)
     gate_w, gate_e = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_w, gate_e = gate_w[..., :K], gate_e[..., :K]                    # (G, Tg, K)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
@@ -501,32 +563,31 @@ def moe(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     # assignment adds zeros to its expert's last slot in the reference). A
     # dropped one is written to a trash row past the buffer, sliced off, so
     # no mask has to be resolved on the host.
-    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
-    buf = torch.zeros((G * E * C + 1, D), dtype=x.dtype, device=x.device)
+    g_idx = torch.arange(G, device=xg.device)[:, None].expand(G, Tg * K)
+    buf = torch.zeros((G * E * C + 1, D), dtype=xg.dtype, device=xg.device)
     dest = torch.where(keep, g_idx * (E * C) + slot, G * E * C)
     buf[dest.reshape(-1)] = xg.reshape(G * Tg, D)[(g_idx * Tg + st).reshape(-1)]
-    h = buf[:-1].reshape(G, E, C, D)
-    act = silu(torch.einsum("gecd,edf->gecf", h, p["wg"])) * torch.einsum(
-        "gecd,edf->gecf", h, p["wu"])
-    out_buf = torch.einsum("gecf,efd->gecd", act, p["wd"]).reshape(G, E * C, D)
+    return buf[:-1].reshape(G, E, C, D), slot, keep, order, gate_w, gate_e
 
+
+def _moe_combine(out_buf, slot, keep, order, gate_w, gate_e, *, dtype: torch.dtype):
+    """Each token's K expert outputs (G, E C, D) weighted and added into
+    zeros of ``dtype``, in ascending expert order. Returns (G, Tg, D)."""
+    G, Tg, K = gate_e.shape
+    D = out_buf.shape[-1]
     # Each assignment's weighted output, back in (token, k) order: sorted
     # position order[i] holds assignment order[i] = token * K + k.
     contrib = torch.gather(out_buf, 1, slot[..., None].expand(G, Tg * K, D))
     contrib = contrib * (torch.gather(gate_w.reshape(G, Tg * K), 1, order)
                          * keep)[..., None].to(out_buf.dtype)
     by_assignment = torch.empty_like(contrib)
-    by_assignment.scatter_(1, order[..., None].expand(G, Tg * K, D), contrib.to(x.dtype))
+    by_assignment.scatter_(1, order[..., None].expand(G, Tg * K, D), contrib.to(dtype))
     by_assignment = by_assignment.reshape(G, Tg, K, D)
     k_order = torch.argsort(gate_e, dim=-1)                              # ascending expert
-    out = torch.zeros((G, Tg, D), dtype=x.dtype, device=x.device)
+    out = torch.zeros((G, Tg, D), dtype=dtype, device=out_buf.device)
     for j in range(K):
         idx = k_order[..., j, None, None].expand(G, Tg, 1, D)
         out = out + torch.gather(by_assignment, 2, idx)[:, :, 0]
-    out = out.reshape(B, S, D)
-
-    if "shared" in p:
-        out = out + swiglu(p["shared"], x)
     return out
 
 
@@ -615,12 +676,16 @@ def mamba2_block(
     dt_h = dt.transpose(1, 2)                                          # (B,H,S)
     adt = A[None, :, None] * dt_h
 
+    # under a mesh, on each rank's batch rows and heads (batch_heads_local)
+    heads = (1, 1, 1, None, None)
     if ssm_state is None:
-        y = ops.mamba2_ssd(xh, adt, dt_h, Bm, Cm, chunk=s.chunk,
-                           use_pallas=use_pallas)                     # (B,H,S,P)
-        new_state = kref.mamba2_final_state(xh, adt, dt_h, Bm) if return_final_state else None
+        y = batch_heads_local(lambda *a: ops.mamba2_ssd(*a, chunk=s.chunk, use_pallas=use_pallas),
+                              xh, adt, dt_h, Bm, Cm, heads=heads, n_out=1)   # (B,H,S,P)
+        new_state = batch_heads_local(kref.mamba2_final_state, xh, adt, dt_h, Bm, heads=heads[:4],
+                                      n_out=1) if return_final_state else None
     else:
-        y, new_state = _ssd_decode_step(xh, adt, dt_h, Bm, Cm, ssm_state)
+        y, new_state = batch_heads_local(_ssd_decode_step, xh, adt, dt_h, Bm, Cm, ssm_state,
+                                         heads=heads + (1,), n_out=2)
 
     y = y + p["d_skip"][None, :, None, None] * xh.float()
     y = y.transpose(1, 2).reshape(B, S, di).to(x.dtype)
@@ -654,8 +719,15 @@ def init_embedding(vocab: int, d: int, dtype, *, generator, device) -> Params:
 
 def embed(p: Params, tokens: torch.Tensor, *, use_pallas: bool = True) -> torch.Tensor:
     """Token rows through the row gather (K4), or ``table[tokens]`` with
-    ``use_pallas=False``."""
+    ``use_pallas=False``: on a DTensor table (under a mesh) as
+    ``F.embedding``, the same rows, whose vocab-parallel rule DTensor has
+    for the backward too (an indexed gather's backward, an ``index_put``
+    into a replicated zero table, fails its sharding rule in torch 2.11)."""
     if not use_pallas:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(p["table"], DTensor):
+            return torch.nn.functional.embedding(tokens.long(), p["table"])
         return p["table"][tokens.long()]
     return ops.embedding_gather(p["table"], tokens)
 

@@ -3,11 +3,11 @@
 A port of ``repro/models/mamba.py``. The prompt pass runs every layer's
 chunked SSD scan through K8 and takes each layer's state from the closed
 form, so decode continues with O(1) state per layer. The reference's
-sharding calls (``activation_constraint``, ``fsdp_unshard``) do nothing on
-one device and are not called here (``distributed.sharding`` ports them;
-the dry run is to wire them in). ``final_hidden`` and ``forward`` take
-``use_pallas`` and ``remat`` as ``transformer``'s do. The state caches are
-updated in place.
+sharding hints (``activation_constraint`` after the embedding,
+``fsdp_unshard`` on each layer) are called where it calls them, and do
+nothing without a mesh. Every entry point takes ``use_pallas``, and
+``final_hidden`` and ``forward`` ``remat``, as ``transformer``'s do. The
+state caches are updated in place.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import activation_constraint, fsdp_unshard
 from . import layers as L
 from .config import ArchConfig
 from .transformer import hidden_to_logits, lm_tree
@@ -51,22 +52,23 @@ def _apply_layer(cfg, p, x, *, ssm_state=None, conv_state=None, use_pallas=True)
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
     y, new_ssm, new_conv = L.mamba2_block(p["mixer"], h, cfg, ssm_state=ssm_state,
                                           conv_state=conv_state, use_pallas=use_pallas)
-    return x + y, new_ssm, new_conv
+    return L.residual(x, y), new_ssm, new_conv
 
 
-def _prefill_layer(cfg, p, x):
+def _prefill_layer(cfg, p, x, use_pallas=True):
     """A prompt pass through one layer: (x out, final ssm state, conv state)."""
     h = L.rmsnorm(p["norm"], x, cfg.norm_eps)
-    y, st, cv = L.mamba2_block(p["mixer"], h, cfg, return_final_state=True)
-    return x + y, st, cv
+    y, st, cv = L.mamba2_block(p["mixer"], h, cfg, return_final_state=True,
+                               use_pallas=use_pallas)
+    return L.residual(x, y), st, cv
 
 
 def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                  use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
-    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
 
     def body(x, lp):
-        return _apply_layer(cfg, lp, x, use_pallas=use_pallas)[0]
+        return _apply_layer(cfg, fsdp_unshard(lp), x, use_pallas=use_pallas)[0]
 
     for lp in L.stacked_layers(params, "layers"):
         x = L.remat_call(body, x, lp, remat=remat)
@@ -97,16 +99,16 @@ def init_state_cache(cfg: ArchConfig, batch: int, *,
 
 
 def prefill_with_state(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
-                       caches=None):
+                       caches=None, use_pallas: bool = True):
     """Parallel (chunked-SSD) prompt pass that also leaves each layer's
     (ssm_state, conv_state) in ``caches`` (made when not given) so decode
     can continue. Returns (last-token logits (B, 1, vocab), caches)."""
     if caches is None:
         caches = init_state_cache(cfg, tokens.shape[0], device=tokens.device)
     ssm_c, conv_c = caches
-    x = L.embed(params["embed"], tokens)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     for i, lp in enumerate(L.stacked_layers(params, "layers")):
-        x, st, cv = _prefill_layer(cfg, lp, x)
+        x, st, cv = _prefill_layer(cfg, fsdp_unshard(lp), x, use_pallas)
         ssm_c[i].copy_(st)
         conv_c[i].copy_(cv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -114,13 +116,14 @@ def prefill_with_state(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache_index: int, caches,
-                cfg: ArchConfig):
+                cfg: ArchConfig, *, use_pallas: bool = True):
     """Decode with O(1) state, updated in place (``cache_index`` is kept for
     interface parity)."""
     ssm_c, conv_c = caches
-    x = L.embed(params["embed"], tokens)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     for i, lp in enumerate(L.stacked_layers(params, "layers")):
-        x, st, cv = _apply_layer(cfg, lp, x, ssm_state=ssm_c[i], conv_state=conv_c[i])
+        x, st, cv = _apply_layer(cfg, fsdp_unshard(lp), x, ssm_state=ssm_c[i],
+                                 conv_state=conv_c[i], use_pallas=use_pallas)
         ssm_c[i].copy_(st)
         conv_c[i].copy_(cv)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -5,12 +5,14 @@ KV-cache prefill and decode.
 A port of ``repro/models/transformer.py``. An early-fusion VLM (chameleon)
 is this model: its image tokens are vocabulary entries. MLA keeps one
 latent cache ``(L, B, S_max, r + rope)`` instead of per-head k and v. The
-reference's sharding calls (``activation_constraint``, ``fsdp_unshard``) do
-nothing on one device and are not called here (``distributed.sharding``
-ports them; the dry run is to wire them in). ``final_hidden`` and ``forward``
-take the reference's ``use_pallas`` (default True here: the kernels) and
-``remat`` (each layer recomputed in the backward; nothing to do without
-gradients). Caches are updated in place.
+reference's sharding hints are called where it calls them: the embedding's
+output pinned batch-sharded (``activation_constraint``) and each layer's
+weights gathered at point of use (``fsdp_unshard``); without a mesh they do
+nothing. Every entry point takes the reference's ``use_pallas`` (default
+True here: the kernels; False: its plain route, which the dry run traces),
+and ``final_hidden`` and ``forward`` its ``remat`` (each layer recomputed in
+the backward; nothing to do without gradients). Caches are updated in
+place.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import activation_constraint, fsdp_unshard
 from . import layers as L
 from .config import ArchConfig
 
@@ -76,7 +79,7 @@ def _apply_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
         p["attn"], h, cfg, positions=positions,
         kv_cache=kv_cache, cache_index=cache_index, prefill=prefill, use_pallas=use_pallas,
     )
-    x = x + attn_out
+    x = L.residual(x, attn_out)
     h = L.rmsnorm(p["norm2"], x, cfg.norm_eps)
     dense_mlp = L.gelu_mlp if cfg.mlp_type == "gelu" else L.swiglu
     if cfg.moe is not None:
@@ -85,23 +88,23 @@ def _apply_layer(cfg: ArchConfig, p: Params, x: torch.Tensor, positions: torch.T
             ff = ff + dense_mlp(p["mlp"], h)
     else:
         ff = dense_mlp(p["mlp"], h)
-    return x + ff, new_cache
+    return L.residual(x, ff), new_cache
 
 
 def hidden_to_logits(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed"]["table"].T
-    return L.lm_logits(params["head"], x)
+        return x @ fsdp_unshard(params["embed"])["table"].T
+    return L.lm_logits(fsdp_unshard({"head": params["head"]})["head"], x)
 
 
 def final_hidden(params: Params, tokens: torch.Tensor, cfg: ArchConfig, *,
                  use_pallas: bool = True, remat: bool = True) -> torch.Tensor:
     """Hidden states after the final norm."""
-    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     positions = torch.arange(tokens.shape[1], device=x.device)
 
     def body(x, lp):
-        return _apply_layer(cfg, lp, x, positions, use_pallas=use_pallas)[0]
+        return _apply_layer(cfg, fsdp_unshard(lp), x, positions, use_pallas=use_pallas)[0]
 
     for lp in L.stacked_layers(params, "layers"):
         x = L.remat_call(body, x, lp, remat=remat)
@@ -131,27 +134,29 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_seq: int, *, device: DeviceLi
     return (torch.zeros(shape, dtype=dt, device=dev), torch.zeros(shape, dtype=dt, device=dev))
 
 
-def _cached_hidden(params, tokens, cache_index: int, caches, cfg, prefill: bool):
+def _cached_hidden(params, tokens, cache_index: int, caches, cfg, prefill: bool,
+                   use_pallas: bool):
     B, Sn = tokens.shape
-    x = L.embed(params["embed"], tokens)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     positions = cache_index + torch.arange(Sn, device=x.device)
     for i, lp in enumerate(L.stacked_layers(params, "layers")):
         cache = caches[i] if cfg.mla is not None else (caches[0][i], caches[1][i])
-        x, _ = _apply_layer(cfg, lp, x, positions, kv_cache=cache,
-                            cache_index=cache_index, prefill=prefill)
+        x, _ = _apply_layer(cfg, fsdp_unshard(lp), x, positions, kv_cache=cache,
+                            cache_index=cache_index, prefill=prefill, use_pallas=use_pallas)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache_index: int, caches, cfg: ArchConfig,
-                *, prefill: bool = False):
+                *, prefill: bool = False, use_pallas: bool = True):
     """One step of ``tokens`` (B, S_new) at host position ``cache_index``
     against the KV caches (updated in place). Returns (logits, caches)."""
-    x = _cached_hidden(params, tokens, cache_index, caches, cfg, prefill)
+    x = _cached_hidden(params, tokens, cache_index, caches, cfg, prefill, use_pallas)
     return hidden_to_logits(params, x, cfg), caches
 
 
-def prefill(params: Params, tokens: torch.Tensor, caches, cfg: ArchConfig):
+def prefill(params: Params, tokens: torch.Tensor, caches, cfg: ArchConfig, *,
+            use_pallas: bool = True):
     """Fill the caches with a full prompt; returns the last token's logits
     (B, 1, vocab). Attention runs flash (K6) over the prompt."""
-    x = _cached_hidden(params, tokens, 0, caches, cfg, prefill=True)
+    x = _cached_hidden(params, tokens, 0, caches, cfg, True, use_pallas)
     return hidden_to_logits(params, x[:, -1:], cfg), caches

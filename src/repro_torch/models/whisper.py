@@ -17,8 +17,10 @@ of the encoder's states are projected once (``cross_kv``) and passed to the
 decoder and every step: the same numbers as the reference's projection in
 each layer of each step. With ``use_pallas=False`` (training's route)
 every attention takes the reference's plain oracles and the embedding
-``table[tokens]``. The reference's sharding calls do nothing on one device
-and are dropped; caches are updated in place.
+``table[tokens]``. The reference's sharding hints are called where it calls
+them (each encoder and decoder layer's weights gathered at point of use,
+the decoder's embedding output pinned), and do nothing without a mesh;
+caches are updated in place.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..device import DeviceLike
+from ..distributed.sharding import activation_constraint, fsdp_unshard
 from ..kernels import ops
 from . import layers as L
 from .config import ArchConfig
@@ -59,7 +62,7 @@ def cross_attention(p: Params, x: torch.Tensor, enc_kv: Tuple[torch.Tensor, torc
     if use_pallas and S == 1:
         out = ops.decode_attention(q[:, :, 0], k, v, k.shape[2])[:, :, None, :]
     else:
-        out = ops.flash_attention(q, k, v, causal=False, use_pallas=use_pallas)
+        out = L.attend(q, k, v, causal=False, use_pallas=use_pallas)
     return out.transpose(1, 2).reshape(B, S, Hq * dh) @ p["wo"]
 
 
@@ -122,12 +125,13 @@ def encode(params: Params, frames: torch.Tensor, cfg: ArchConfig, *,
     """frames: (B, S_enc, D) stub embeddings -> encoder states."""
     x = frames + sinusoids(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
     for p in L.stacked_layers(params, "enc_layers"):
+        p = fsdp_unshard(p)
         h = L.layernorm(p["norm1"], x, cfg.norm_eps)
         a, _ = L.attention(p["attn"], h, cfg, causal=False, use_rope=False,
                            use_pallas=use_pallas)
-        x = x + a
+        x = L.residual(x, a)
         h = L.layernorm(p["norm2"], x, cfg.norm_eps)
-        x = x + L.gelu_mlp(p["mlp"], h)
+        x = L.residual(x, L.gelu_mlp(p["mlp"], h))
     return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -139,21 +143,23 @@ def decode_hidden(params: Params, tokens: torch.Tensor, enc_kv: List[Tuple],
     cross-attention's k, v of each layer come from ``enc_kv``
     (``cross_kv``)."""
     B, S = tokens.shape
-    x = L.embed(params["embed"], tokens, use_pallas=use_pallas)
+    x = activation_constraint(L.embed(params["embed"], tokens, use_pallas=use_pallas))
     if positions is None:
         positions = torch.arange(S, device=x.device)
     x = x + params["pos_dec"][positions]
     for i, p in enumerate(L.stacked_layers(params, "dec_layers")):
         cache = None if kv_caches is None else (kv_caches[0][i], kv_caches[1][i])
+        p = fsdp_unshard(p)
         h = L.layernorm(p["norm1"], x, cfg.norm_eps)
         a, _ = L.attention(p["self_attn"], h, cfg, positions=positions, causal=True,
                            kv_cache=cache, cache_index=cache_index, use_rope=False,
                            prefill=prefill, use_pallas=use_pallas)
-        x = x + a
+        x = L.residual(x, a)
         h = L.layernorm(p["norm2"], x, cfg.norm_eps)
-        x = x + cross_attention(p["cross_attn"], h, enc_kv[i], cfg, use_pallas=use_pallas)
+        x = L.residual(x, cross_attention(p["cross_attn"], h, enc_kv[i], cfg,
+                                          use_pallas=use_pallas))
         h = L.layernorm(p["norm3"], x, cfg.norm_eps)
-        x = x + L.gelu_mlp(p["mlp"], h)
+        x = L.residual(x, L.gelu_mlp(p["mlp"], h))
     return L.layernorm(params["dec_norm"], x, cfg.norm_eps), kv_caches
 
 
@@ -167,11 +173,13 @@ def forward(params: Params, tokens: torch.Tensor, frames: torch.Tensor,
 
 
 def decode_step(params: Params, tokens: torch.Tensor, cache_index: int, caches,
-                enc_kv: List[Tuple], cfg: ArchConfig, *, prefill: bool = False):
+                enc_kv: List[Tuple], cfg: ArchConfig, *, prefill: bool = False,
+                use_pallas: bool = True):
     """``tokens`` (B, S_new) at host position ``cache_index`` against the
     self-attention caches (updated in place) and the encoder's cross k, v
     ``enc_kv`` (``cross_kv``). Returns (logits, caches)."""
     positions = cache_index + torch.arange(tokens.shape[1], device=tokens.device)
     x, caches = decode_hidden(params, tokens, enc_kv, cfg, positions=positions,
-                              kv_caches=caches, cache_index=cache_index, prefill=prefill)
+                              kv_caches=caches, cache_index=cache_index, prefill=prefill,
+                              use_pallas=use_pallas)
     return x @ params["embed"]["table"].T, caches

@@ -10,8 +10,9 @@ The decode step for each family:
                        encoder's output, projected once per generate
 
 Prompt positions and cache indices are host ints, so no step reads a device
-scalar. The reference chooses its kernels with ``ServeConfig.use_pallas``;
-the port always runs its kernels (K4, K6, K7, K8) and has no such field.
+scalar. ``ServeConfig.use_pallas`` chooses the route as the reference's
+does, but defaults to True: the kernels (K4, K6, K7, K8); False is the
+reference's plain route, which the dry run traces.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..device import DeviceLike
 class ServeConfig:
     batch: int
     max_seq: int
+    use_pallas: bool = True
 
 
 def init_cache(cfg: ArchConfig, scfg: ServeConfig, *, device: DeviceLike = "cuda"):
@@ -51,11 +53,12 @@ def build_serve_step(cfg: ArchConfig, scfg: ServeConfig) -> Callable:
         def step(params, tokens, cache_index, caches, enc_kv):
             # decoder positions wrap at the learned table's 4,096 (whisper's)
             return mod.decode_step(params, tokens, cache_index % mod.POS_DEC, caches, enc_kv,
-                                   cfg)
+                                   cfg, use_pallas=scfg.use_pallas)
         return step
 
     def step(params, tokens, cache_index, caches):
-        return mod.decode_step(params, tokens, cache_index, caches, cfg)
+        return mod.decode_step(params, tokens, cache_index, caches, cfg,
+                               use_pallas=scfg.use_pallas)
 
     return step
 
@@ -69,23 +72,24 @@ def build_prefill(cfg: ArchConfig, scfg: ServeConfig) -> Callable:
     if cfg.family == "audio":
         def prefill(params, tokens, caches, enc_kv):
             logits, caches = mod.decode_step(params, tokens, 0, caches, enc_kv, cfg,
-                                             prefill=True)
+                                             prefill=True, use_pallas=scfg.use_pallas)
             return logits[:, -1:], caches
         return prefill
 
     if cfg.family == "ssm":
         def prefill(params, tokens, caches):
-            return mod.prefill_with_state(params, tokens, cfg, caches=caches)
+            return mod.prefill_with_state(params, tokens, cfg, caches=caches,
+                                          use_pallas=scfg.use_pallas)
         return prefill
 
     if cfg.family == "hybrid":
         def prefill(params, tokens, caches):
             return mod.prefill_with_state(params, tokens, cfg, max_seq=scfg.max_seq,
-                                          caches=caches)
+                                          caches=caches, use_pallas=scfg.use_pallas)
         return prefill
 
     def prefill(params, tokens, caches):
-        return mod.prefill(params, tokens, caches, cfg)
+        return mod.prefill(params, tokens, caches, cfg, use_pallas=scfg.use_pallas)
 
     return prefill
 

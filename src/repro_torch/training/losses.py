@@ -13,14 +13,31 @@ from typing import Optional
 
 import torch
 
+from ..distributed.sharding import constrain
 from ..models.layers import remat_call
+
+
+def _gold(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``logits[..., y]``. Under a mesh the logits are a DTensor sharded
+    over the vocabulary, whose gather DTensor cannot run on fake tensors
+    (the dry run's): there the label's logit is selected and summed over
+    the vocabulary, the same value (every other term a zero)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(logits, DTensor):
+        vocab = torch.arange(logits.shape[-1], device=y.device)
+        return torch.where(vocab == y[..., None].long(), logits, 0.0).sum(dim=-1)
+    return torch.take_along_dim(logits, y[..., None].long(), dim=-1)[..., 0]
 
 
 def _chunk_loss(h_c, head_w, y_c, m_c):
     logits = h_c.float() @ head_w.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, y_c[..., None].long(), dim=-1)[..., 0]
-    return ((lse - gold) * m_c).sum()
+    # Under a mesh the token losses, and so the backward from them, stay
+    # batch-sharded: a loss's gradient is seeded replicated, and DTensor
+    # (unlike GSPMD) keeps that layout through the backward. A no-op
+    # without a mesh.
+    return (constrain(lse - _gold(logits, y_c), "dp", None) * m_c).sum()
 
 
 def chunked_softmax_xent(

@@ -6,7 +6,9 @@ One builder covers every family. The loss runs the models' training route,
 differentiates (no kernel of the port or of the reference has a backward,
 so ``TrainConfig(use_pallas=True)`` is refused), with each layer under
 ``torch.utils.checkpoint`` (``remat``). Gradients accumulate over
-microbatches in f32, in batch order. The state's tensors are updated in
+microbatches in f32, in batch order (the microbatches are trips of one
+body, ``loops.trips``; a batch sharded over its rows gives each rank its
+share of every microbatch, ``distributed.sharding.row_slice``). The state's tensors are updated in
 place (``optimizer.apply``).
 """
 from __future__ import annotations
@@ -16,8 +18,10 @@ from typing import Any, Callable, Dict, Union
 
 import torch
 
+from .. import loops
 from .. import tree as T
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import fsdp_unshard, row_slice
 from ..models import family_module
 from ..models.config import ArchConfig
 from . import compression, losses, optimizer
@@ -58,8 +62,8 @@ def init_state(seed: Union[int, torch.Generator], cfg: ArchConfig, tcfg: TrainCo
 
 def _head_weight(params, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings or "head" not in params:
-        return params["embed"]["table"].T
-    return params["head"]["w"]
+        return fsdp_unshard(params["embed"])["table"].T
+    return fsdp_unshard({"head": params["head"]})["head"]["w"]
 
 
 def build_loss_fn(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
@@ -113,10 +117,9 @@ def build_train_step(cfg: ArchConfig, tcfg: TrainConfig) -> Callable:
         n = tcfg.microbatches
         if n > 1:
             loss = torch.zeros((), dtype=torch.float32, device=T.leaves(params)[0].device)
-            grads = T.map_up_to(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                      device=p.device), params)
-            for i in range(n):
-                mb = {k: v.reshape(n, -1, *v.shape[1:])[i] for k, v in batch.items()}
+            grads = T.map_up_to(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+            for i in loops.trips(n):
+                mb = {k: row_slice(v, n, i) for k, v in batch.items()}
                 mb_loss, mb_grads = value_and_grad(loss_fn, params, mb)
                 T.map_up_to(lambda acc, g: acc.add_(g), grads, mb_grads)
                 loss = loss + mb_loss

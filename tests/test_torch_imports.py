@@ -70,7 +70,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "training.train_step", "checkpoint", "checkpoint.manager",
                 "checkpoint.messagepack", "runtime", "runtime.fault", "runtime.elastic",
                 "runtime.straggler", "launch.train", "distributed.sharding",
-                "distributed.collective_matmul", "launch.mesh"):
+                "distributed.collective_matmul", "launch.mesh", "launch.dryrun",
+                "launch.hlo_analysis", "loops"):
         assert f"repro_torch.{sub}" in names, sub
 
 
