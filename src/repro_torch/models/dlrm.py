@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..core.profiling import stage
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from .layers import DTYPES, _dense_init
@@ -120,18 +121,25 @@ class DLRM(nn.Module):
         pinned: Optional[Dict[str, torch.Tensor]] = None,
     ) -> torch.Tensor:             # (B,) logit
         """Logits; with ``pinned`` (``hot_table``, ``positions``, ``mask``)
-        the embeddings take the hot-pinned path."""
+        the embeddings take the hot-pinned path. Each layer is a span of
+        ``core.profiling`` under the call's ``dlrm.forward``."""
         cfg = self.cfg
-        bot = _mlp_apply(self.bottom_w, self.bottom_b, dense)         # (B, D)
-        if pinned is not None:
-            emb = ops.embedding_bag_pinned(
-                self.tables, pinned["hot_table"], sparse,
-                pinned["positions"], pinned["mask"], cfg.rows_per_table,
-            )
-        else:
-            emb = ops.embedding_bag(self.tables, sparse, cfg.rows_per_table)  # (B, T, D)
-        feat = torch.cat([bot, interact(bot, emb)], dim=1)
-        return _mlp_apply(self.top_w, self.top_b, feat)[:, 0]
+        with stage("dlrm.forward"):
+            with stage("dlrm.bottom_mlp"):
+                bot = _mlp_apply(self.bottom_w, self.bottom_b, dense)     # (B, D)
+            with stage("dlrm.embedding"):
+                if pinned is not None:
+                    emb = ops.embedding_bag_pinned(
+                        self.tables, pinned["hot_table"], sparse,
+                        pinned["positions"], pinned["mask"], cfg.rows_per_table,
+                    )
+                else:
+                    emb = ops.embedding_bag(self.tables, sparse, cfg.rows_per_table)  # (B, T, D)
+            with stage("dlrm.interact"):
+                pairs = interact(bot, emb)
+            with stage("dlrm.top_mlp"):
+                feat = torch.cat([bot, pairs], dim=1)
+                return _mlp_apply(self.top_w, self.top_b, feat)[:, 0]
 
 
 def bce_loss(logit: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
