@@ -57,7 +57,7 @@ def _stream(t: torch.Tensor) -> int:
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
-    "embedding_bag_launch": [_P, _P, _I64, _I64, _I, _I, _I, _I, _P, _P],
+    "embedding_bag_launch": [_P, _P, _I64, _I64, _I, _I, _I, _I, _I, _P, _P],
     "embedding_gather_launch": [_P, _P, _I64, _I64, _I, _I, _P, _P],
     "vmem_pool_tile_rows": [_I, ctypes.POINTER(ctypes.c_int)],
     "vmem_pool_prepare": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
@@ -101,8 +101,9 @@ def embedding_bag_kernel(table: torch.Tensor, indices: torch.Tensor) -> torch.Te
     """Sum-pool ``(B, T, D)`` of the rows ``indices`` (int32 ``(B, T, L)``,
     already offset by ``t * R``) of ``table`` ``(T*R, D)``.
 
-    The CUDA kernel for CUDA tensors (one warp per bag, whole-row loads;
-    see ``csrc/embedding_bag.cu``), ``embedding_bag_plain`` for CPU
+    The CUDA kernel for CUDA tensors (one warp per bag, whole-row loads,
+    the bags taken table by table so that a table's re-read rows stay in
+    L2; see ``csrc/embedding_bag.cu``), ``embedding_bag_plain`` for CPU
     tensors. A failed build or launch raises.
     """
     _check_table("embedding_bag", table)
@@ -117,8 +118,8 @@ def embedding_bag_kernel(table: torch.Tensor, indices: torch.Tensor) -> torch.Te
     if B * T == 0:
         return out
     with on_device(table.device):
-        err = _fn("embedding_bag_launch")(table.data_ptr(), indices.data_ptr(), R, B * T, L, D,
-                                          DTYPE_IDS[table.dtype], _sm_count(table.device),
+        err = _fn("embedding_bag_launch")(table.data_ptr(), indices.data_ptr(), R, B * T, T, L,
+                                          D, DTYPE_IDS[table.dtype], _sm_count(table.device),
                                           out.data_ptr(), _stream(table))
     check_launch("embedding_bag", err)
     count_launch(embedding_bag_kernel)

@@ -576,16 +576,36 @@ def test_embedding_bag_warp_per_bag_bitwise(cuda, dtype, D, L, offset):
     assert torch.equal(_bits(got), _bits(want))
 
 
-@pytest.mark.parametrize("D", [128, 3])
-def test_embedding_bag_grid_stride(cuda, D):
-    """More bags (40,000) than the card holds warps at once: the grid is
-    what the card holds and each warp takes several bags in turn."""
-    table = _table(cuda, 1000, D, "float32")
-    idx = _ints(cuda, 0, 1000, (400, 100, 5), seed=D)
+@pytest.mark.parametrize("B,T,L,D,placed", [
+    (400, 100, 5, 128, False), (400, 100, 5, 3, False), (4099, 13, 7, 128, False),
+    (3, 20000, 2, 128, False), (40000, 1, 3, 128, False), (1, 60, 120, 128, False),
+    (4099, 13, 7, 128, True), (3, 20000, 2, 4, True),
+])
+def test_embedding_bag_grid_stride(cuda, B, T, L, D, placed):
+    """More bags than the card holds warps at once (all but B = 1, T =
+    60): the grid is what the card holds and each warp takes several bags
+    in turn, table by table; B not a multiple of the resident warps, one
+    table, one sample. ``placed``: table t's rows hold t in column 0 and
+    sample b looks up row t * B + b, whose other columns hold b, so a bag
+    stored at another (b, t) fails even where random sums would agree."""
+    if placed:
+        t = torch.arange(T, device=cuda).repeat_interleave(B)
+        b = torch.arange(B, device=cuda).repeat(T)
+        table = b[:, None].float().repeat(1, D)
+        table[:, 0] = t.float()
+        idx = (torch.arange(T, device=cuda)[None, :, None] * B
+               + torch.arange(B, device=cuda)[:, None, None]).int().expand(B, T, L).contiguous()
+    else:
+        table = _table(cuda, 1000, D, "float32")
+        idx = _ints(cuda, 0, 1000, (B, T, L), seed=B * T + D)
     reset_launch_counts()
     got = embedding_bag_kernel(table, idx)
     assert launch_counts()["embedding_bag"] == 1
     assert torch.equal(_bits(got), _bits(embedding_bag_plain(table, idx)))
+    if placed:
+        assert torch.equal(got[..., 0], L * torch.arange(T, device=cuda).float().expand(B, T))
+        assert torch.equal(got[..., 1:],
+                           L * torch.arange(B, device=cuda).float()[:, None, None].expand(B, T, D - 1))
 
 
 @pytest.mark.parametrize("dtype", sorted(DT))
